@@ -13,8 +13,9 @@ version for CPU tensors and the kernel for CUDA tensors.
 
   quantizers/  uniform, twin, log2, log-sqrt2, AdaLog, AdaRound (hard form)
   models/      layers with quant sites, the ViT forward, zoo, timm loading
-  calib/       the quant-site layout and the uncalibrated qstate
-  ops/         fused fake-quant attention (K1), weight prep, kernel defaults
+  calib/       the quant-site layout, the uncalibrated qstate, reparam
+  ops/         fused fake-quant attention (K1), fused activation-quant GEMM
+               (K4), the kernels' build, weight prep, kernel defaults
   utils/       Config, v2 checkpoints, weight carrying from the JAX package
   serve.py     load_quantized / make_predictor on one device
 """

@@ -22,7 +22,7 @@ import torch.nn.functional as F
 
 from adalog_tpu_torch.quantizers.state import QuantizerState, WeightQuantizerState
 from adalog_tpu_torch.quantizers.apply import apply_quantizer, apply_weight_quantizer
-from adalog_tpu_torch.ops import weight_prep
+from adalog_tpu_torch.ops import fq_gemm, weight_prep
 
 
 # ---------------------------------------------------------------------------
@@ -70,13 +70,22 @@ def qlinear(p: torch.nn.Linear, site, x, *, mode: str = "raw", name=None):
     """y = x @ W^T + b with optional fake quantization of W and/or x.
 
     In quant/w_only mode the weight comes from the load-time table of
-    ``ops.weight_prep`` when one is active, else it is quantized here."""
+    ``ops.weight_prep`` when one is active, else it is quantized here. In
+    quant mode a site of the active ``ops.fq_gemm`` table runs through the
+    fused kernel: the activation quantizer inside the GEMM, the bias added
+    after the product in the compute dtype."""
     w = p.weight
     if site is not None and mode in ("quant", "w_only"):
         w = weight_prep.lookup(name, w.shape)
         if w is None:
             w = quant_linear_weight(p, site)
     if site is not None and mode in ("quant", "a_only"):
+        hit = fq_gemm.lookup(name) if mode == "quant" else None
+        if hit is not None:
+            kind, bits, params = hit
+            y = fq_gemm.fq_gemm(x.reshape(-1, x.shape[-1]), w, params, p.bias,
+                                kind=kind, bits=bits)
+            return y.reshape(*x.shape[:-1], w.shape[0])
         x = apply_quantizer(site.aq, x)
     return F.linear(x, w, p.bias)
 

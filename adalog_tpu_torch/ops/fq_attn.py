@@ -12,7 +12,8 @@ path (``fq_flash_attn``, dispatched by ``run_flash``).
 ``fq_flash_attn`` is the wrapper: for CPU tensors it runs
 ``fq_flash_attn_plain``, the same math in plain PyTorch; for CUDA tensors it
 launches the kernel in ``csrc/fq_flash_attn.cu``, built with nvcc the first
-time it is needed, or raises. ``fq_flash_attn.launches`` counts launches.
+time it is needed (ops/cuda_build.py), or raises.
+``fq_flash_attn.launches`` counts launches.
 """
 
 from __future__ import annotations
@@ -20,20 +21,12 @@ from __future__ import annotations
 import contextvars
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from contextlib import contextmanager
 
 import torch
 
+from adalog_tpu_torch.ops import cuda_build, fq_gemm
 from adalog_tpu_torch.quantizers.logarithm import ADALOG_R
-
-_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                     "csrc")
-_SOURCE = os.path.join(_CSRC, "fq_flash_attn.cu")
-_BUILD_DIR = os.path.join(_CSRC, "build")
 
 # must match fq_flash_attn.cu
 _WARPS = 12
@@ -108,45 +101,9 @@ def fq_flash_attn_plain(q, kT, v, m1a_params, m1b_params, m2q, m2b_params,
 # CUDA kernel: build, load, launch
 # ---------------------------------------------------------------------------
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
-        return os.path.join(home, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    if os.path.exists("/usr/local/cuda/bin/nvcc"):
-        return "/usr/local/cuda/bin/nvcc"
-    raise RuntimeError("nvcc not found (set CUDA_HOME): the fq_flash_attn "
-                       "kernel is built from csrc/ at first use")
-
-
-def build() -> str:
-    """Compile csrc/fq_flash_attn.cu into csrc/build/ (keyed by the source's
-    hash) unless that library exists; returns its path. The compiler's
-    report (registers, shared memory, spills) goes to ``<path>.log``."""
-    with open(_SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    lib = os.path.join(_BUILD_DIR, f"libfq_flash_attn_{digest}.so")
-    if os.path.exists(lib):
-        return lib
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", tmp, _SOURCE]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    with open(f"{lib}.log", "w") as f:
-        f.write(res.stdout + res.stderr)
-    os.replace(tmp, lib)
-    return lib
-
-
 @functools.lru_cache(maxsize=None)
 def _library():
-    lib = ctypes.CDLL(build())
+    lib = cuda_build.library("fq_flash_attn")
     fn = lib.fq_flash_attn_launch
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
                    + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
@@ -280,7 +237,9 @@ def activate(flag: bool):
 
 
 def enabled() -> bool:
-    return _ENABLED.get()
+    """On inside ``activate(True)``, and wherever the GEMM kernel's table is
+    active: turning the GEMM kernels on turns this one on too."""
+    return _ENABLED.get() or fq_gemm.enabled()
 
 
 def supports_flash(m1_site, m2_site, m1_mode: str, m2_mode: str) -> bool:

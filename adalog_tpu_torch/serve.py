@@ -5,7 +5,9 @@
 images in, float32 logits out. Fake-quantized Linear weights are prepared
 once at load time (ops/weight_prep.py); on a CUDA device the attention of
 every block runs in the hand-written fused kernel (ops/fq_attn.py) unless
-the caller turns it off.
+the caller turns it off, and, when the caller turns it on (``Config``'s
+``use_pallas_gemm``, off by default as in the JAX package), every supported
+Linear site runs in the fused activation-quant GEMM kernel (ops/fq_gemm.py).
 
 Multi-device meshes and the int8 GEMM path of the JAX package are not
 ported yet and raise ``NotImplementedError``.
@@ -34,17 +36,21 @@ def _pin_fp32_precision():
 
 
 def make_predictor(spec, params, qstate, *, eval_dtype: str = "float32",
-                   cfg=None, use_kernels: bool = True, device=None):
+                   cfg=None, use_kernels: bool = True,
+                   use_gemm_kernels: bool = False, device=None):
     """Build ``predict(images) -> logits`` for a (model, qstate) pair.
 
     The model is copied to ``device`` (default: the model's) in
     ``eval_dtype`` ('float32' or 'bfloat16'; quantizer math stays fp32);
     the caller's module is left as it was. ``use_kernels`` routes the
     attention through the fused kernel; False runs the plain PyTorch ops
-    of the unfused path.
+    of the unfused path. ``use_gemm_kernels`` routes every Linear site that
+    ``ops.fq_gemm.supports`` through the fused activation-quant GEMM, and
+    the attention through its kernel too; which sites take it is decided
+    here, once.
     """
     from adalog_tpu_torch.models.zoo import model_forward_fn
-    from adalog_tpu_torch.ops import fq_attn, weight_prep
+    from adalog_tpu_torch.ops import fq_attn, fq_gemm, weight_prep
     from adalog_tpu_torch.quantizers.state import map_tensors
     from adalog_tpu_torch.utils.config import Config
 
@@ -61,11 +67,12 @@ def make_predictor(spec, params, qstate, *, eval_dtype: str = "float32",
     model.requires_grad_(False)
     qs = map_tensors(lambda t: t.to(device), qstate)
     wprep = weight_prep.prepare(spec, model, qs, cfg or Config())
+    gemm_table = fq_gemm.prepare(qs) if use_gemm_kernels else None
 
     def predict(x):
         x = torch.as_tensor(x).to(device=device, dtype=dtype)
         with torch.inference_mode(), weight_prep.activate(wprep), \
-                fq_attn.activate(use_kernels):
+                fq_attn.activate(use_kernels), fq_gemm.activate(gemm_table):
             return fwd(spec.cfg, model, x, qs, {"*": "quant"}).float()
 
     return predict
@@ -80,7 +87,9 @@ def load_quantized(model: str, checkpoint: str, *, config=None,
     ``config``: a Config, a path to a config .py, or None for the shipped
     4-bit values. ``use_pallas`` (the config field's name) turns the fused
     attention kernel on or off; None takes ``config.use_pallas``, resolved
-    by ops/kernel_defaults.py. Returns (predict, spec, model, qstate).
+    by ops/kernel_defaults.py. ``config.use_pallas_gemm`` (default False)
+    turns the fused activation-quant GEMM kernel on, and with it the
+    attention kernel. Returns (predict, spec, model, qstate).
     """
     from adalog_tpu_torch.models.zoo import model_spec
     from adalog_tpu_torch.ops.kernel_defaults import resolve_kernel_config
@@ -112,10 +121,13 @@ def load_quantized(model: str, checkpoint: str, *, config=None,
         raise NotImplementedError(
             "eval_int8: the int8 GEMM path is not ported to PyTorch yet")
     enable = cfg.use_pallas if use_pallas is None else use_pallas
+    gemm = bool(cfg.use_pallas_gemm)
 
     params, qstate, _ = load_checkpoint(checkpoint, spec.cfg)
-    log.info("loaded %s (%s) on %s, fused attention kernel %s",
-             spec.name, eval_dtype, device, "on" if enable else "off")
+    log.info("loaded %s (%s) on %s, fused attention kernel %s, fused GEMM "
+             "kernel %s", spec.name, eval_dtype, device,
+             "on" if enable or gemm else "off", "on" if gemm else "off")
     predict = make_predictor(spec, params, qstate, eval_dtype=eval_dtype,
-                             cfg=cfg, use_kernels=bool(enable), device=device)
+                             cfg=cfg, use_kernels=bool(enable),
+                             use_gemm_kernels=gemm, device=device)
     return predict, spec, params, qstate

@@ -194,7 +194,8 @@ def test_wrapper_rejects_bad_inputs():
 
 def test_kernel_shape_limits():
     """The kernel stages uq(kT) and uq(v) of a slice in shared memory:
-    deit_small fits, vit_large's S=577 at D=64 does not."""
+    deit_small fits; S=577 at D=64 (a 384-px ViT, which the zoo does not
+    have) does not."""
     fq_attn.check_kernel_shape(197, 64)
     fq_attn.check_kernel_shape(144, 32)
     with pytest.raises(ValueError):

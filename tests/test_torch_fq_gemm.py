@@ -1,0 +1,309 @@
+"""The port's fused activation-quant GEMM (adalog_tpu_torch.ops.fq_gemm, K4)
+and its reparam transforms (adalog_tpu_torch.calib.reparam) against
+adalog_tpu's, on the CPU.
+
+On the CPU the wrapper runs fq_gemm_plain; JAX's Pallas fq_gemm runs in
+interpret mode. The same numpy inputs go through both packages.
+
+Tolerances. fp32: RTOL/ATOL, the JAX kernel test's own: both quantize
+identically and accumulate in fp32, only the order of the sums differs, and
+XLA's CPU exp2 is inexact at negative integers (exp2(-13) is
+1.22070254e-04, up to 4e-6 relative), where the port assembles 2^-k from
+exponent bits. bf16: both round the fp32 sum to bf16, and two fp32 sums in
+different orders may round to neighbouring bf16 values, one bf16 ulp apart:
+BF16_RTOL = 2**-7 (one ulp relative to the value), with the fp32 ATOL.
+
+The CUDA kernel is held against the plain version in
+test_torch_fq_gemm_cuda.py, which imports no jax.
+"""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from adalog_tpu.calib import reparam as jreparam
+from adalog_tpu.calib.init_state import init_qstate as j_init_qstate
+from adalog_tpu.models.layers import LayerNormP, LinearP
+from adalog_tpu.models.vit import vit_init as j_vit_init
+from adalog_tpu.ops import fq_gemm as jfg
+from adalog_tpu.quantizers.state import GELU_MIN
+from adalog_tpu.quantizers.uniform import uniform_quant
+from adalog_tpu.utils.config import Config as JConfig
+from adalog_tpu_torch.calib import reparam
+from adalog_tpu_torch.models import zoo
+from adalog_tpu_torch.ops import fq_gemm
+from adalog_tpu_torch.utils.interop import from_jax, qstate_from_tree
+
+torch.set_num_threads(1)
+
+RTOL, ATOL = 1e-5, 1e-4
+BF16_RTOL = 2.0 ** -7
+# largest share of AdaLog codes allowed to take the neighbouring code
+# (log2 of XLA and of torch may differ by an ulp at a .5 boundary;
+# test_torch_quantizers.py measured at most 1 code in 2**20)
+FLIP_BOUND = 1e-3
+# dequantized values of agreeing codes: XLA's exp2 error (see above)
+DEQUANT_RTOL = 5e-6
+SPEC = zoo.model_spec("test_tiny")
+W4A4 = dict(w_bit=4, a_bit=4, s_bit=4, qhead_a_bit=4)
+
+
+@pytest.fixture(autouse=True)
+def interpret_mode():
+    jfg.INTERPRET = True
+    yield
+    jfg.INTERPRET = False
+
+
+def _case(seed, kind, bits, T, K, O):
+    """(x, w (O, K), params) as float32 numpy arrays: normal activations
+    for uniform, post-GeLU-like ones for adalog_shift."""
+    rng = np.random.default_rng(seed)
+    if kind == "uniform":
+        x = rng.standard_normal((T, K))
+        levels = 2 ** bits - 1
+        params = [6.0 / levels * rng.uniform(0.8, 1.2), levels // 2, 0.0, 0.0]
+    else:
+        x = np.abs(rng.standard_normal((T, K))) - GELU_MIN
+        params = [float(np.max(x + GELU_MIN)) * rng.uniform(0.9, 1.1), 0.0,
+                  GELU_MIN, float(rng.choice([23, 29, 41, 47]))]
+    w = rng.standard_normal((O, K))
+    return (x.astype(np.float32), w.astype(np.float32),
+            np.asarray(params, np.float32))
+
+
+def _jax(x, w, params, dtype, kind, bits):
+    out = jfg.fq_gemm(jnp.asarray(x).astype(dtype),
+                      jnp.asarray(w).astype(dtype).T, jnp.asarray(params),
+                      kind=kind, bits=bits)
+    return np.asarray(out.astype(jnp.float32))
+
+
+def _torch(x, w, params, dtype, kind, bits, bias=None):
+    out = fq_gemm.fq_gemm(torch.from_numpy(x).to(dtype),
+                          torch.from_numpy(w).to(dtype),
+                          torch.from_numpy(params), bias, kind=kind, bits=bits)
+    assert out.dtype == dtype
+    return out.float().numpy()
+
+
+@pytest.mark.parametrize("T,K,O", [(48, 32, 40), (10, 8, 7)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bits", [3, 4, 6])
+@pytest.mark.parametrize("kind", ["uniform", "adalog_shift"])
+def test_plain_matches_jax_fq_gemm(kind, bits, dtype, T, K, O):
+    x, w, params = _case(T * K + bits, kind, bits, T, K, O)
+    want = _jax(x, w, params, getattr(jnp, dtype), kind, bits)
+    got = _torch(x, w, params, getattr(torch, dtype), kind, bits)
+    assert got.shape == (T, O)
+    rtol = RTOL if dtype == "float32" else BF16_RTOL
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=ATOL)
+
+
+def _quantize_both(x, params, kind, bits):
+    want = np.asarray(jfg._quantize_tile(
+        jnp.asarray(x), *map(jnp.float32, params), kind, bits))
+    got = fq_gemm.quantize_plain(torch.from_numpy(x), torch.from_numpy(params),
+                                 kind=kind, bits=bits).numpy()
+    return got, want
+
+
+@pytest.mark.parametrize("bits", [3, 4, 6, 8])
+def test_uniform_quantized_bitwise(bits):
+    """fq_a(x) of the uniform kind equals JAX's kernel quantizer and its
+    uniform_quant bit for bit (bf16 inputs are quantized from their fp32
+    value in both)."""
+    x, _, params = _case(bits, "uniform", bits, 64, 96, 1)
+    got, want = _quantize_both(x, params, "uniform", bits)
+    np.testing.assert_array_equal(got, want)
+    ref = np.asarray(uniform_quant(jnp.asarray(x), params[0], params[1],
+                                   bits=bits, symmetric=False))
+    np.testing.assert_array_equal(got, ref)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    got16 = fq_gemm.quantize_plain(xb, torch.from_numpy(params),
+                                   kind="uniform", bits=bits).numpy()
+    want16, _ = _quantize_both(xb.float().numpy(), params, "uniform", bits)
+    np.testing.assert_array_equal(got16, want16)
+
+
+@pytest.mark.parametrize("bits", [3, 4, 6])
+def test_adalog_shift_code_flips_bounded(bits):
+    """fq_a(x) of the adalog_shift kind against JAX's kernel quantizer over
+    2**16 post-GeLU-like inputs: values agree to DEQUANT_RTOL wherever the
+    codes agree; the share of flipped codes stays under FLIP_BOUND."""
+    x, _, params = _case(100 + bits, "adalog_shift", bits, 64, 1024, 1)
+    got, want = _quantize_both(x, params, "adalog_shift", bits)
+    differ = ~np.isclose(got, want, rtol=DEQUANT_RTOL, atol=0.0)
+    share = differ.mean()
+    assert share <= FLIP_BOUND, share
+    assert np.all(got >= 0) and np.all(got <= params[0])
+
+
+def _w4a4_qstates():
+    """JAX init_qstates of test_tiny: W4A4 (uniform sites and an unfolded
+    shifted-AdaLog fc2), the same with the fold flag set, and ptq4vit (twin
+    fc2), with numpy leaves."""
+    params = jax.jit(j_vit_init, static_argnums=0)(SPEC.cfg,
+                                                   jax.random.PRNGKey(0))
+    out = []
+    for cfg in (JConfig(**W4A4), JConfig(**W4A4, post_gelu_quantizer="ptq4vit")):
+        out.append(j_init_qstate(SPEC, cfg, params))
+    folded = dict(out[0])
+    for name, site in folded.items():
+        if name.endswith("fc2"):
+            folded[name] = site.replace(aq=site.aq.replace(
+                bias_reparamed=jnp.ones((), jnp.bool_)))
+    return params, [out[0], folded, out[1]]
+
+
+def test_site_logic_matches_jax(monkeypatch):
+    """supports / kernel_kind / site_params give JAX's answers on every site
+    (JAX's enabled() needs a TPU backend, so it is patched on here)."""
+    monkeypatch.setattr(jfg, "enabled", lambda: True)
+    _, qstates = _w4a4_qstates()
+    taken = []
+    for jq in qstates:
+        tq = qstate_from_tree(jax.tree_util.tree_map(np.asarray, jq))
+        n = 0
+        for name, jsite in jq.items():
+            if not hasattr(jsite, "aq") or not hasattr(jsite, "n_V"):
+                continue
+            tsite = tq[name]
+            for mode in ("quant", "a_only", "w_only", "raw"):
+                assert fq_gemm.supports(tsite, mode) == \
+                    jfg.supports(jsite, mode), (name, mode)
+            if jfg.supports(jsite, "quant"):
+                n += 1
+                assert fq_gemm.kernel_kind(tsite) == jfg.kernel_kind(jsite)
+                np.testing.assert_array_equal(
+                    fq_gemm.site_params(tsite.aq).numpy(),
+                    np.asarray(jfg.site_params(jsite.aq)))
+        taken.append(n)
+        table = fq_gemm.prepare(tq)
+        assert len(table) == n
+    depth = SPEC.cfg.depth
+    # unfolded: fc2 stays plain; folded: every Linear; twin fc2: plain
+    assert taken == [3 * depth + 1, 4 * depth + 1, 3 * depth + 1]
+
+
+def test_fold_gelu_shift_matches_jax():
+    """The post-GeLU bias fold of the port equals JAX's on the same fc2
+    weights and weight quantizer; the caller's module is left as it was."""
+    params, (jq, _, _) = _w4a4_qstates()
+    params = jax.tree_util.tree_map(np.asarray, params)
+    model, tq = from_jax(SPEC.cfg, params, jax.tree_util.tree_map(np.asarray,
+                                                                  jq))
+    for i in range(SPEC.cfg.depth):
+        name = f"blocks.{i}.mlp.fc2"
+        jp = params.blocks[i].mlp.fc2
+        jp = jp.replace(b=np.random.default_rng(i).standard_normal(
+            jp.b.shape).astype(np.float32))
+        want = jreparam.fold_gelu_shift_into_bias(
+            jax.tree_util.tree_map(jnp.asarray, jp), jq[name],
+            shift=GELU_MIN)
+        lin = model.blocks[i].mlp.fc2
+        with torch.no_grad():
+            lin.bias.copy_(torch.from_numpy(jp.b))
+        before = lin.bias.clone()
+        got = reparam.fold_gelu_shift_into_bias(lin, tq[name],
+                                                shift=GELU_MIN)
+        assert got is not lin and torch.equal(lin.bias, before)
+        assert torch.equal(got.weight, lin.weight)
+        np.testing.assert_allclose(got.bias.detach().numpy(), np.asarray(want.b),
+                                   rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_layernorm_reparam_matches_jax(with_bias):
+    """LayerNorm channel reparam and the cached-input rewrite, the port
+    against JAX on the same numpy params (a Linear without bias gets one)."""
+    rng = np.random.default_rng(7 + with_bias)
+    I, O = 24, 40
+    g = (1 + 0.1 * rng.standard_normal(I)).astype(np.float32)
+    b = (0.1 * rng.standard_normal(I)).astype(np.float32)
+    w = (0.2 * rng.standard_normal((O, I))).astype(np.float32)
+    lb = (0.1 * rng.standard_normal(O)).astype(np.float32) if with_bias \
+        else None
+    a_scale = rng.uniform(0.02, 0.3, I).astype(np.float32)
+    a_zp = rng.integers(3, 12, I).astype(np.float32)
+    x = rng.standard_normal((6, I)).astype(np.float32)
+
+    jn, jl, jr, jb, jts, jtz = jreparam.layernorm_channel_reparam(
+        LayerNormP(g=jnp.asarray(g), b=jnp.asarray(b), eps=1e-6),
+        LinearP(w=jnp.asarray(w), b=None if lb is None else jnp.asarray(lb)),
+        jnp.asarray(a_scale), jnp.asarray(a_zp))
+
+    norm = torch.nn.LayerNorm(I, eps=1e-6)
+    lin = torch.nn.Linear(I, O, bias=with_bias)
+    with torch.no_grad():
+        norm.weight.copy_(torch.from_numpy(g))
+        norm.bias.copy_(torch.from_numpy(b))
+        lin.weight.copy_(torch.from_numpy(w))
+        if with_bias:
+            lin.bias.copy_(torch.from_numpy(lb))
+    tn, tl, tr, tb, tts, ttz = reparam.layernorm_channel_reparam(
+        norm, lin, torch.from_numpy(a_scale), torch.from_numpy(a_zp))
+
+    for got, want in ((tn.weight, jn.g), (tn.bias, jn.b), (tl.weight, jl.w),
+                      (tr, jr), (tb, jb), (tts, jts), (ttz, jtz)):
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                                   rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(tl.bias.detach().numpy(), np.asarray(jl.b),
+                               rtol=1e-6, atol=1e-6)
+    assert (lin.bias is None) == (not with_bias)
+    assert torch.equal(norm.weight, torch.from_numpy(g))
+    np.testing.assert_allclose(
+        reparam.rewrite_cached_input(torch.from_numpy(x), tr, tb).numpy(),
+        np.asarray(jreparam.rewrite_cached_input(jnp.asarray(x), jr, jb)),
+        rtol=1e-6, atol=1e-6)
+
+
+def test_wrapper_cpu_runs_plain_and_counts_calls():
+    x, w, params = _case(3, "uniform", 4, 10, 8, 7)
+    t = [torch.from_numpy(a) for a in (x, w, params)]
+    bias = torch.linspace(-1, 1, 7)
+    launches, calls = fq_gemm.fq_gemm.launches, fq_gemm.fq_gemm.calls
+    got = fq_gemm.fq_gemm(*t, bias, kind="uniform", bits=4)
+    want = fq_gemm.fq_gemm_plain(*t, bias, kind="uniform", bits=4)
+    assert torch.equal(got, want)
+    assert torch.equal(got, fq_gemm.fq_gemm(*t, kind="uniform", bits=4) + bias)
+    assert fq_gemm.fq_gemm.launches == launches
+    assert fq_gemm.fq_gemm.calls == calls + 2
+    # strided rows (the head's pooled token) give the same result
+    xs = torch.cat([t[0], t[0]], dim=1)[:, :8]
+    assert torch.equal(fq_gemm.fq_gemm(xs, *t[1:], kind="uniform", bits=4),
+                       fq_gemm.fq_gemm(*t, kind="uniform", bits=4))
+
+
+def test_wrapper_rejects_bad_inputs():
+    x, w, params = (torch.from_numpy(a)
+                    for a in _case(4, "uniform", 4, 10, 8, 7))
+    kw = dict(kind="uniform", bits=4)
+    with pytest.raises(ValueError):               # w given as (K, O)
+        fq_gemm.fq_gemm(x, w.t(), params, **kw)
+    with pytest.raises(TypeError):                # mixed dtypes
+        fq_gemm.fq_gemm(x.to(torch.bfloat16), w, params, **kw)
+    with pytest.raises(ValueError):               # bias of the wrong width
+        fq_gemm.fq_gemm(x, w, params, torch.zeros(8), **kw)
+    with pytest.raises(ValueError):
+        fq_gemm.fq_gemm(x, w, params[:3], **kw)
+    with pytest.raises(ValueError):
+        fq_gemm.fq_gemm(x, w, params, kind="log2", bits=4)
+    with pytest.raises(ValueError):
+        fq_gemm.fq_gemm(x, w, params, kind="uniform", bits=32)
+    with pytest.raises(RuntimeError):             # no path for this device
+        fq_gemm.fq_gemm(x.to("meta"), w.to("meta"), params.to("meta"), **kw)
+
+
+def test_gemm_switch_turns_attention_kernel_on():
+    """As in JAX, an active GEMM table turns the attention kernel on."""
+    from adalog_tpu_torch.ops import fq_attn
+    assert not fq_attn.enabled() and not fq_gemm.enabled()
+    with fq_gemm.activate({}):
+        assert fq_attn.enabled() and fq_gemm.enabled()
+        assert fq_gemm.lookup("head") is None
+    with fq_gemm.activate(None):
+        assert not fq_attn.enabled()
+    assert not fq_gemm.enabled()

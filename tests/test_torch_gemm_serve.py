@@ -1,0 +1,113 @@
+"""The port's serving slice with the fused activation-quant GEMM dispatch
+(ops/fq_gemm.py) against adalog_tpu, on the CPU at test_tiny size.
+
+With a GEMM table active every supported Linear site runs through
+``fq_gemm`` (its plain version on the CPU); logits are held to the JAX
+package's quantized logits (its unfused path) at LOGIT_TOL, and a call
+counter shows which sites took the route.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from adalog_tpu.calib.init_state import init_qstate as j_init_qstate
+from adalog_tpu.utils import checkpoint as j_checkpoint
+from adalog_tpu.utils.config import Config as JConfig
+from adalog_tpu_torch.models.vit import vit_forward
+from adalog_tpu_torch.ops import fq_gemm
+from adalog_tpu_torch.serve import load_quantized
+from adalog_tpu_torch.utils.config import Config
+from adalog_tpu_torch.utils.interop import from_jax, qstate_from_tree
+from test_torch_vit_serve import (  # noqa: F401 (fixtures)
+    LOGIT_TOL, SPEC, W4A4, _images, _jax_logits, _np_tree, jax_calibrated,
+    jax_model,
+)
+
+torch.set_num_threads(1)
+
+DEPTH = SPEC.cfg.depth
+
+
+def _gemm_logits(model, tq, x):
+    """Quantized logits with the GEMM table of ``tq`` active; returns
+    (logits, fq_gemm calls in the forward, table)."""
+    table = fq_gemm.prepare(tq)
+    before = fq_gemm.fq_gemm.calls
+    with torch.no_grad(), fq_gemm.activate(table):
+        y = vit_forward(SPEC.cfg, model, torch.from_numpy(x), tq,
+                        {"*": "quant"}).numpy()
+    return y, fq_gemm.fq_gemm.calls - before, table
+
+
+def test_gemm_dispatch_logits_match_jax(jax_calibrated):
+    """JAX-calibrated state (folded fc2 bias): all 4*depth+1 Linear sites
+    take fq_gemm, fc2 as adalog_shift, and the logits are JAX's."""
+    params, qstate = jax_calibrated
+    model, tq = from_jax(SPEC.cfg, params, qstate)
+    x = _images(12)
+    y, calls, table = _gemm_logits(model, tq, x)
+    assert calls == len(table) == 4 * DEPTH + 1
+    assert {k for k, (kind, _, _) in table.items()
+            if kind == "adalog_shift"} == \
+        {f"blocks.{i}.mlp.fc2" for i in range(DEPTH)}
+    np.testing.assert_allclose(y, _jax_logits(params, x, qstate,
+                                              {"*": "quant"}),
+                               rtol=LOGIT_TOL, atol=LOGIT_TOL)
+
+
+def test_unfolded_fc2_stays_plain(jax_model):
+    """Without the bias fold the shifted AdaLog fc2 sites keep the plain
+    path; the other 3*depth+1 sites take fq_gemm."""
+    model, _ = from_jax(SPEC.cfg, jax_model)
+    jq = _np_tree(j_init_qstate(SPEC, JConfig(**W4A4), jax_model))
+    tq = qstate_from_tree(jq)
+    x = _images(13)
+    y, calls, table = _gemm_logits(model, tq, x)
+    assert calls == len(table) == 3 * DEPTH + 1
+    assert not any(k.endswith("fc2") for k in table)
+    np.testing.assert_allclose(y, _jax_logits(jax_model, x, jq,
+                                              {"*": "quant"}),
+                               rtol=LOGIT_TOL, atol=LOGIT_TOL)
+
+
+@pytest.mark.parametrize("eval_dtype", ["float32", "bfloat16"])
+def test_load_quantized_gemm_switch(jax_calibrated, tmp_path, eval_dtype):
+    """Config(use_pallas_gemm=True) routes every Linear site through
+    fq_gemm and serves the logits of the same call with it off."""
+    params, qstate = jax_calibrated
+    path = str(tmp_path / "jax.ckpt")
+    j_checkpoint.save_checkpoint(path, params, qstate, {"model": "test_tiny"})
+    x = _images(14)
+    out = {}
+    for on in (False, True):
+        predict, *_ = load_quantized(
+            "test_tiny", path, config=Config(**W4A4, use_pallas_gemm=on),
+            device="cpu", eval_dtype=eval_dtype)
+        before = fq_gemm.fq_gemm.calls
+        out[on] = predict(x).numpy()
+        assert fq_gemm.fq_gemm.calls - before == (4 * DEPTH + 1 if on else 0)
+        assert out[on].shape == (8, 10) and np.isfinite(out[on]).all()
+    if eval_dtype == "float32":
+        np.testing.assert_allclose(out[True], out[False], rtol=LOGIT_TOL,
+                                   atol=LOGIT_TOL)
+        np.testing.assert_allclose(
+            out[True], _jax_logits(params, x, qstate, {"*": "quant"}),
+            rtol=LOGIT_TOL, atol=LOGIT_TOL)
+
+
+@pytest.mark.parametrize("log_q, ok", [(29.0, True), (1108378.0, True),
+                                       (29.5, False), (0.0, False),
+                                       (1118482.0, False)])
+def test_prepare_checks_adalog_base(jax_calibrated, log_q, ok):
+    """The kernel's AdaLog quantizer needs an integer base q >= 1 with
+    (2^bits - 1) * q < 2^24 (at 4 bits: q <= 1118481); ``prepare`` reads
+    each fc2 base once and raises for any other."""
+    params, qstate = jax_calibrated
+    _, tq = from_jax(SPEC.cfg, params, qstate)
+    tq["blocks.0.mlp.fc2"].aq.log_q = torch.tensor(log_q)
+    if ok:
+        assert fq_gemm.prepare(tq)["blocks.0.mlp.fc2"][2][3] == log_q
+    else:
+        with pytest.raises(ValueError, match="blocks.0.mlp.fc2"):
+            fq_gemm.prepare(tq)
