@@ -12,10 +12,12 @@ Each TPU kernel of the JAX package becomes a hand-written CUDA kernel under
 version for CPU tensors and the kernel for CUDA tensors.
 
   quantizers/  uniform, twin, log2, log-sqrt2, AdaLog, AdaRound (hard form)
-  models/      layers with quant sites, the ViT forward, zoo, timm loading
-  calib/       the quant-site layout, the uncalibrated qstate, reparam
-  ops/         fused fake-quant attention (K1), fused activation-quant GEMM
-               (K4), the kernels' build, weight prep, kernel defaults
+  models/      layers with quant sites, the ViT and Swin forwards, zoo, timm
+               loading
+  calib/       the quant-site layouts, the uncalibrated qstate, reparam
+  ops/         fused fake-quant attention (K1) and its fall-backs (K2, K3),
+               fused activation-quant GEMM (K4), the kernels' build, weight
+               prep, kernel defaults
   utils/       Config, v2 checkpoints, weight carrying from the JAX package
   serve.py     load_quantized / make_predictor on one device
 """

@@ -27,7 +27,7 @@ def _minmax_wq(w_v, bits):
 
 def init_qstate(spec, cfg, params):
     """{site name: LinearSite | ConvSite | MatMulSite} on the params' device."""
-    dev = params.head.weight.device
+    dev = next(params.parameters()).device
     layout = quant_layout(spec, cfg, reparam=False)
 
     def ones(*shape):

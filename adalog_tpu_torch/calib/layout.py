@@ -9,7 +9,7 @@ The same rules as ``adalog_tpu.calib.layout``:
   - fc2 uses the post-GeLU quantizer from cfg
   - matmul2 uses the post-softmax quantizer at s_bit
   - the patch-embed conv uses qconv_a_bit
-Only the ViT layout is ported; the Swin layout comes with the Swin forward.
+``param_path``s address the port's modules (timm's names).
 """
 
 from __future__ import annotations
@@ -83,11 +83,55 @@ def vit_layout(spec, cfg: Config, reparam: bool = True):
     return sites
 
 
+def swin_layout(spec, cfg: Config, reparam: bool = True):
+    m = spec.cfg
+    sites = {}
+    sites["patch_embed.proj"] = SiteSpec(
+        kind="conv", w_bits=cfg.w_bit, a_bits=cfg.qconv_a_bit,
+        param_path=("patch_embed", "proj"))
+    for i, depth in enumerate(m.depths):
+        if i > 0:
+            sites[f"layers.{i}.downsample.reduction"] = SiteSpec(
+                kind=_linear_kind("reduction", cfg, reparam, cfg.a_bit),
+                w_bits=cfg.w_bit, a_bits=cfg.a_bit,
+                param_path=("layers", i, "downsample", "reduction"),
+                norm_path=("layers", i, "downsample", "norm"))
+        for j in range(depth):
+            p = f"layers.{i}.blocks.{j}"
+            pp = ("layers", i, "blocks", j)
+            sites[f"{p}.attn.qkv"] = SiteSpec(
+                kind=_linear_kind("qkv", cfg, reparam, cfg.a_bit),
+                w_bits=cfg.w_bit, a_bits=cfg.a_bit, n_V=3,
+                param_path=pp + ("attn", "qkv"), norm_path=pp + ("norm1",))
+            sites[f"{p}.attn.proj"] = SiteSpec(
+                kind="linear", w_bits=cfg.w_bit, a_bits=cfg.a_bit,
+                param_path=pp + ("attn", "proj"))
+            sites[f"{p}.attn.matmul1"] = SiteSpec(
+                kind="matmul", a_bits=cfg.a_bit, s_bits=cfg.a_bit,
+                heads=m.heads[i], param_path=())
+            sites[f"{p}.attn.matmul2"] = SiteSpec(
+                kind="matmul_post", a_bits=cfg.a_bit, s_bits=cfg.s_bit,
+                heads=m.heads[i], param_path=(),
+                post_quantizer=cfg.post_softmax_quantizer)
+            sites[f"{p}.mlp.fc1"] = SiteSpec(
+                kind=_linear_kind("fc1", cfg, reparam, cfg.a_bit),
+                w_bits=cfg.w_bit, a_bits=cfg.a_bit,
+                param_path=pp + ("mlp", "fc1"), norm_path=pp + ("norm2",))
+            sites[f"{p}.mlp.fc2"] = SiteSpec(
+                kind=_linear_kind("fc2", cfg, reparam, cfg.a_bit),
+                w_bits=cfg.w_bit, a_bits=cfg.a_bit,
+                param_path=pp + ("mlp", "fc2"),
+                post_quantizer=cfg.post_gelu_quantizer)
+    sites["head.fc"] = SiteSpec(
+        kind="linear", w_bits=cfg.w_bit, a_bits=cfg.qhead_a_bit,
+        param_path=("head", "fc"))
+    return sites
+
+
 def quant_layout(spec, cfg: Config, reparam: bool = True):
-    if spec.family != "vit":
-        raise NotImplementedError(
-            "the Swin layout is not ported to PyTorch yet")
-    return vit_layout(spec, cfg, reparam)
+    if spec.family == "vit":
+        return vit_layout(spec, cfg, reparam)
+    return swin_layout(spec, cfg, reparam)
 
 
 def tree_get(obj, path):

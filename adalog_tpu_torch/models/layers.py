@@ -22,7 +22,7 @@ import torch.nn.functional as F
 
 from adalog_tpu_torch.quantizers.state import QuantizerState, WeightQuantizerState
 from adalog_tpu_torch.quantizers.apply import apply_quantizer, apply_weight_quantizer
-from adalog_tpu_torch.ops import fq_gemm, weight_prep
+from adalog_tpu_torch.ops import fq_attn, fq_gemm, weight_prep
 
 
 # ---------------------------------------------------------------------------
@@ -116,8 +116,14 @@ def qconv2d(p: torch.nn.Conv2d, site, x, *, mode: str = "raw"):
 
 
 def qmatmul(site, A, B, *, mode: str = "raw"):
-    """A @ B with optional fake quantization of both operands."""
+    """A @ B with optional fake quantization of both operands.
+
+    With the attention kernels on, a supported quant-mode site with 4-D
+    operands runs through the fused kernel of ``ops.fq_attn`` (K3): both
+    quantizers inside the batched product."""
     if site is not None and mode == "quant":
+        if A.dim() == 4 and fq_attn.supports(site, mode):
+            return fq_attn.run(site, A, B)
         A = apply_quantizer(site.Aq, A)
         B = apply_quantizer(site.Bq, B)
     return torch.matmul(A, B)

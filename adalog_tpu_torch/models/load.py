@@ -1,7 +1,7 @@
 """Import timm-format pretrained weights into the port's modules.
 
 Reads a torch state_dict (.bin/.pth) or an .npz with the same key names;
-the ViT modules' own state_dict keys are timm's, so loading is a key-checked
+the modules' own state_dict keys are timm's, so loading is a key-checked
 ``load_state_dict``.
 """
 
@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from adalog_tpu_torch.models.swin import SwinConfig, SwinTransformer
 from adalog_tpu_torch.models.vit import ViTConfig, VisionTransformer
 
 
@@ -25,15 +26,18 @@ def read_state_dict(path: str) -> dict:
             for k, v in sd.items()}
 
 
-def load_vit(cfg: ViTConfig, sd: dict) -> VisionTransformer:
-    """Build a VisionTransformer from a timm-keyed {key: array} dict. q_norm
-    and k_norm LayerNorms are created only when the dict carries them; a
-    Linear without a ``.bias`` key is built without bias."""
-    qk_norm = "blocks.0.attn.q_norm.weight" in sd
-    model = VisionTransformer(cfg, qk_norm=qk_norm, device="meta")
+def _fill(model, sd: dict):
+    """Load the timm-keyed {key: array} dict into a module built on the meta
+    device. A Linear without a ``.bias`` key loses its bias, one with a key
+    gains it; extra keys are ignored, missing ones raise."""
     for name, mod in list(model.named_modules()):
-        if isinstance(mod, torch.nn.Linear) and f"{name}.bias" not in sd:
+        if not isinstance(mod, torch.nn.Linear):
+            continue
+        if f"{name}.bias" not in sd:
             mod.bias = None
+        elif mod.bias is None:
+            mod.bias = torch.nn.Parameter(
+                torch.empty(mod.out_features, device="meta"))
     own = list(model.state_dict())
     missing = [k for k in own if k not in sd]
     if missing:
@@ -45,8 +49,37 @@ def load_vit(cfg: ViTConfig, sd: dict) -> VisionTransformer:
     return model
 
 
-def load_timm_state_dict(spec, path: str) -> VisionTransformer:
-    if spec.family != "vit":
-        raise NotImplementedError(
-            f"{spec.name}: the Swin family is not ported to PyTorch yet")
-    return load_vit(spec.cfg, read_state_dict(path))
+def load_vit(cfg: ViTConfig, sd: dict) -> VisionTransformer:
+    """Build a VisionTransformer from a timm-keyed {key: array} dict. q_norm
+    and k_norm LayerNorms are created only when the dict carries them; a
+    Linear without a ``.bias`` key is built without bias."""
+    qk_norm = "blocks.0.attn.q_norm.weight" in sd
+    return _fill(VisionTransformer(cfg, qk_norm=qk_norm, device="meta"), sd)
+
+
+def load_swin(cfg: SwinConfig, sd: dict) -> SwinTransformer:
+    """Build a SwinTransformer from a timm-keyed {key: array} dict. Stage i
+    starts with a PatchMerging where the dict has
+    ``layers.{i}.downsample.*`` (timm 0.9.2: every stage but the first);
+    the classifier is ``head.fc`` or, in older files, ``head``; a
+    ``reduction`` has a bias only where the dict carries one (the LayerNorm
+    reparam adds it)."""
+    downsample = [f"layers.{i}.downsample.reduction.weight" in sd
+                  for i in range(len(cfg.depths))]
+    if "head.fc.weight" not in sd and "head.weight" in sd:
+        sd = dict(sd)
+        for leaf in ("weight", "bias"):
+            if f"head.{leaf}" in sd:
+                sd[f"head.fc.{leaf}"] = sd[f"head.{leaf}"]
+    return _fill(SwinTransformer(cfg, downsample, device="meta"), sd)
+
+
+def load_state_dict(spec, sd: dict):
+    """The model of ``spec`` from a timm-keyed {key: array} dict."""
+    if spec.family == "vit":
+        return load_vit(spec.cfg, sd)
+    return load_swin(spec.cfg, sd)
+
+
+def load_timm_state_dict(spec, path: str):
+    return load_state_dict(spec, read_state_dict(path))

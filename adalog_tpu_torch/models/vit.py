@@ -134,7 +134,7 @@ def vit_attention(cfg: ViTConfig, ap: Attention, qstate, prefix: str, x,
     nm2 = f"{prefix}.matmul2"
     m2_site, m2_mode = site_of(qstate, nm2), mode_of(modes, nm2)
 
-    out = None
+    out = attn = None
     if taps is None and fq_attn.supports_flash(m1_site, m2_site, m1_mode,
                                                m2_mode):
         # the whole quantized attention, uq(q) @ uq(kT) -> scale -> softmax
@@ -145,7 +145,15 @@ def vit_attention(cfg: ViTConfig, ap: Attention, qstate, prefix: str, x,
     if out is None:
         attn = qmatmul(m1_site, q, kT, mode=m1_mode)
         _tap(taps, nm, q, kT, attn)
-        attn = torch.softmax(attn * (hd ** -0.5), dim=-1)
+        attn = attn * (hd ** -0.5)
+        if taps is None and m2_site is not None \
+                and fq_attn.supports_softmax(m2_site, m2_mode):
+            # partial fast path: softmax, AdaLog and the product with uq(v)
+            # fused; the logits are still a device-memory operand
+            out = fq_attn.run_softmax(m2_site, attn, v)
+            attn = None
+    if attn is not None:
+        attn = torch.softmax(attn, dim=-1)
         out = qmatmul(m2_site, attn, v, mode=m2_mode)
         _tap(taps, nm2, attn, v, out)
     out = out.transpose(1, 2).reshape(B, N, H * hd)

@@ -9,7 +9,7 @@ from typing import Tuple, Union
 import torch
 
 from adalog_tpu_torch.models.vit import ViTConfig, vit_init
-from adalog_tpu_torch.models.swin import SwinConfig
+from adalog_tpu_torch.models.swin import SwinConfig, swin_init
 
 IMAGENET_DEFAULT_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_DEFAULT_STD = (0.229, 0.224, 0.225)
@@ -81,28 +81,24 @@ def model_spec(name: str) -> ModelSpec:
     return MODEL_ZOO[name]
 
 
-def _require_vit(spec: ModelSpec):
-    if spec.family != "vit":
-        raise NotImplementedError(
-            f"{spec.name}: the Swin family is not ported to PyTorch yet")
-
-
 def build_model(name: str, checkpoint_path: str = None, seed: int = 0,
                 device=None):
     """Return (spec, model). Loads a timm-format state dict when a checkpoint
     path is given, otherwise initializes randomly from ``seed``."""
     spec = model_spec(name)
-    _require_vit(spec)
     if checkpoint_path is not None:
         from adalog_tpu_torch.models.load import load_timm_state_dict
         model = load_timm_state_dict(spec, checkpoint_path).to(device)
     else:
-        model = vit_init(spec.cfg, torch.Generator().manual_seed(seed),
-                         device=device)
+        init = vit_init if spec.family == "vit" else swin_init
+        model = init(spec.cfg, torch.Generator().manual_seed(seed),
+                     device=device)
     return spec, model
 
 
 def model_forward_fn(spec: ModelSpec):
-    _require_vit(spec)
-    from adalog_tpu_torch.models.vit import vit_forward
-    return vit_forward
+    if spec.family == "vit":
+        from adalog_tpu_torch.models.vit import vit_forward
+        return vit_forward
+    from adalog_tpu_torch.models.swin import swin_forward
+    return swin_forward

@@ -1,10 +1,10 @@
 """Build the hand-written CUDA kernels of ``csrc/`` and load them.
 
 Each ``csrc/<name>.cu`` has a plain C interface. ``build`` compiles it with
-nvcc for sm_90a into ``csrc/build/lib<name>_<hash>.so``, keyed by the
-source's hash, at first use; ``library`` loads it with ctypes. Nothing is
-built or loaded when a module is imported, so the CPU tests import every
-module without nvcc.
+nvcc for sm_90a into ``csrc/build/lib<name>_<hash>.so``, keyed by the hash
+of the source and of every header (``csrc/*.cuh``), at first use;
+``library`` loads it with ctypes. Nothing is built or loaded when a module
+is imported, so the CPU tests import every module without nvcc.
 """
 
 from __future__ import annotations
@@ -35,10 +35,16 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    """Where the library of ``csrc/<name>.cu`` is built; the compiler's
-    report (registers, shared memory, spills) goes to ``<path>.log``."""
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    """Where the library of ``csrc/<name>.cu`` is built: the name carries
+    the hash of the source and of all headers of ``csrc/``, so an edit to a
+    shared header rebuilds every kernel; the compiler's report (registers,
+    shared memory, spills) goes to ``<path>.log``."""
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu"] + headers:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(fname.encode() + b"\0" + f.read())
+    digest = h.hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
 
 

@@ -1,19 +1,31 @@
-"""Fused fake-quant attention (kernel K1): the whole quantized attention of a
-ViT block in one CUDA kernel.
+"""Fused fake-quant attention: the counterpart of ``adalog_tpu.ops.fq_attn``.
+
+Three kernels, tried in this order by the model forwards:
+
+K1 ``fq_flash_attn`` (dispatch ``run_flash``): the whole quantized attention
+of a block in one CUDA kernel,
 
     uq(q) @ uq(kT) -> * logit_scale -> (+ bias) -> row softmax
       -> AdaLog fake-quant at scale 1 -> @ uq(v)
 
+K2 ``fq_softmax_attn_matmul`` (``run_softmax``): the second half alone, on
+logits that already carry scale, bias and mask,
+
+    row softmax(L) -> AdaLog fake-quant at scale 1 -> @ uq(B)
+
+K3 ``fq_attn_matmul`` (``run``, from ``models.layers.qmatmul``): one
+quantized product, fq(A) @ uq(B), A per-slice uniform or AdaLog at scale 1.
+
 uq is the per-slice asymmetric uniform quantizer of the matmul sites; the
 AdaLog quantizer of the post-softmax site runs at its frozen scale 1.0 with
-the searched base q. The counterpart of ``adalog_tpu.ops.fq_attn``'s flash
-path (``fq_flash_attn``, dispatched by ``run_flash``).
+the searched base q.
 
-``fq_flash_attn`` is the wrapper: for CPU tensors it runs
-``fq_flash_attn_plain``, the same math in plain PyTorch; for CUDA tensors it
-launches the kernel in ``csrc/fq_flash_attn.cu``, built with nvcc the first
-time it is needed (ops/cuda_build.py), or raises.
-``fq_flash_attn.launches`` counts launches.
+Each wrapper runs its ``*_plain`` version, the same math in plain PyTorch,
+for CPU tensors; for CUDA tensors it launches its kernel
+(``csrc/fq_flash_attn.cu``; ``csrc/fq_attn_matmul.cu`` for K2 and K3), built
+with nvcc the first time it is needed (ops/cuda_build.py), or raises. Each
+wrapper's ``launches`` counts kernel launches, ``calls`` every call on
+either device.
 """
 
 from __future__ import annotations
@@ -28,8 +40,9 @@ import torch
 from adalog_tpu_torch.ops import cuda_build, fq_gemm
 from adalog_tpu_torch.quantizers.logarithm import ADALOG_R
 
-# must match fq_flash_attn.cu
+# must match fq_flash_attn.cu and fq_attn_matmul.cu
 _WARPS = 12
+_MAX_ROWS_PER_BLOCK = 64          # A rows of one block of fq_attn_matmul.cu
 _MAX_SMEM_BYTES = 232448          # opt-in dynamic shared memory of one block
 _MAX_HEAD_DIM = 128               # 4 output columns per lane
 
@@ -95,6 +108,43 @@ def fq_flash_attn_plain(q, kT, v, m1a_params, m1b_params, m2q, m2b_params,
     vf = _uq(v.float(), per_g(m2b_params[:, 0]), per_g(m2b_params[:, 1]),
              m2b_bits)
     return torch.matmul(smq.to(cd).float(), vf.to(cd).float())
+
+
+def _attn_matmul_plain(A, B, a_params, b_params, a_kind, a_bits, b_bits,
+                       do_softmax):
+    cd = A.dtype
+
+    def per_g(a):
+        return a.to(torch.float32).reshape(-1, 1, 1)
+
+    a = A.float()
+    if do_softmax:
+        m = torch.amax(a, dim=-1, keepdim=True)
+        e = torch.exp(a - m)
+        a = e / torch.sum(e, dim=-1, keepdim=True)
+    if a_kind == "adalog":
+        aq = _adalog_unit(a, per_g(a_params[:, 0]), a_bits)
+    else:
+        aq = _uq(a, per_g(a_params[:, 0]), per_g(a_params[:, 1]), a_bits)
+    bq = _uq(B.float(), per_g(b_params[:, 0]), per_g(b_params[:, 1]), b_bits)
+    return torch.matmul(aq.to(cd).float(), bq.to(cd).float())
+
+
+def fq_attn_matmul_plain(A, B, a_params, b_params, *, a_kind: str,
+                         a_bits: int, b_bits: int):
+    """K3's math in plain PyTorch; same arguments as ``fq_attn_matmul``.
+    Quantized operands are rounded to A's dtype before the product, which
+    accumulates in fp32."""
+    return _attn_matmul_plain(A, B, a_params, b_params, a_kind, a_bits,
+                              b_bits, False)
+
+
+def fq_softmax_attn_matmul_plain(L, B, a_params, b_params, *, a_bits: int,
+                                 b_bits: int):
+    """K2's math in plain PyTorch; same arguments as
+    ``fq_softmax_attn_matmul``."""
+    return _attn_matmul_plain(L, B, a_params, b_params, "adalog", a_bits,
+                              b_bits, True)
 
 
 # ---------------------------------------------------------------------------
@@ -203,6 +253,7 @@ def fq_flash_attn(q, kT, v, m1a_params, m1b_params, m2q, m2b_params,
     other device raises."""
     bits = (m1a_bits, m1b_bits, m2a_bits, m2b_bits)
     _check(q, kT, v, m1a_params, m1b_params, m2q, m2b_params, bias, bits)
+    fq_flash_attn.calls += 1
     if q.device.type == "cpu":
         return fq_flash_attn_plain(
             q, kT, v, m1a_params, m1b_params, m2q, m2b_params, bias,
@@ -215,6 +266,161 @@ def fq_flash_attn(q, kT, v, m1a_params, m1b_params, m2q, m2b_params,
 
 
 fq_flash_attn.launches = 0
+fq_flash_attn.calls = 0
+
+
+# ---------------------------------------------------------------------------
+# K2 and K3: one CUDA source, one launch function
+# ---------------------------------------------------------------------------
+
+A_KINDS = ("uniform", "adalog")
+_MODE_SOFTMAX = 2                 # fq_attn_matmul.cu: 0 uniform A, 1 AdaLog A
+
+
+@functools.lru_cache(maxsize=None)
+def _matmul_library():
+    lib = cuda_build.library("fq_attn_matmul")
+    fn = lib.fq_attn_matmul_launch
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
+                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def matmul_tile_plan(S: int):
+    """(A rows a block, warps a block) of fq_attn_matmul.cu for S rows a
+    slice: the rows are split evenly over tiles of at most
+    _MAX_ROWS_PER_BLOCK, and a tile's rows evenly over at most _WARPS warps
+    (one warp a row), so S=49 runs 10 warps for 5 rounds and S=197 4 tiles
+    of 50 rows, 10 warps."""
+    tiles = -(-S // _MAX_ROWS_PER_BLOCK)
+    rows = -(-S // tiles)
+    rounds = -(-rows // _WARPS)
+    return rows, -(-rows // rounds)
+
+
+def _matmul_smem_bytes(S: int, K: int, C: int) -> int:
+    """Dynamic shared memory of one block: uq(B) of the slice plus one A
+    row per warp, all fp32."""
+    return (K * C + matmul_tile_plan(S)[1] * K) * 4
+
+
+def check_matmul_kernel_shape(G: int, S: int, K: int, C: int):
+    """Raise for shapes K2/K3's kernel does not take: the staged uq(B) of
+    one slice, (K, C) in fp32, plus the warps' A rows must fit in one
+    block's shared memory, and G * tiles must fit the grid's x dimension."""
+    if min(G, S, K, C) < 1:
+        raise ValueError(f"empty attention matmul G={G}, S={S}, K={K}, C={C}")
+    need = _matmul_smem_bytes(S, K, C)
+    if need > _MAX_SMEM_BYTES:
+        raise ValueError(
+            f"S={S}, K={K}, C={C} needs {need} bytes of shared memory per "
+            f"block ({K * C * 4} for B), above {_MAX_SMEM_BYTES}")
+    blocks = G * -(-S // matmul_tile_plan(S)[0])
+    if blocks >= 2 ** 31:
+        raise ValueError(f"G={G}, S={S} needs {blocks} blocks, above 2^31 - 1")
+
+
+def _check_matmul(name, A, B, a_params, b_params, a_kind, a_bits, b_bits):
+    if A.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name} takes float32 or bfloat16, not {A.dtype}")
+    if B.dtype != A.dtype:
+        raise TypeError("A and B must share one dtype")
+    if A.dim() != 3 or B.dim() != 3 or B.shape[0] != A.shape[0] \
+            or B.shape[1] != A.shape[2]:
+        raise ValueError(f"shapes A {tuple(A.shape)}, B {tuple(B.shape)}: "
+                         "want (G,S,K), (G,K,C)")
+    G = A.shape[0]
+    for nm, a in (("a_params", a_params), ("b_params", b_params)):
+        if tuple(a.shape) != (G, 2):
+            raise ValueError(f"{nm} must be ({G}, 2), got {tuple(a.shape)}")
+    if a_kind not in A_KINDS:
+        raise ValueError(f"a_kind {a_kind!r}: want one of {A_KINDS}")
+    for b in (a_bits, b_bits):
+        if not 1 <= b <= 16:
+            raise ValueError(f"bit width {b} outside 1..16")
+
+
+def _launch_matmul(wrapper, mode, A, B, a_params, b_params, a_bits, b_bits):
+    G, S, K = A.shape
+    C = B.shape[2]
+    check_matmul_kernel_shape(G, S, K, C)
+    dev = A.device
+    for t in (B, a_params, b_params):
+        if t.device != dev:
+            raise ValueError(f"all {wrapper.__name__} inputs must be on {dev}")
+    A, B = A.contiguous(), B.contiguous()
+    ap = a_params.to(torch.float32).contiguous()
+    bp = b_params.to(torch.float32).contiguous()
+    out = torch.empty((G, S, C), dtype=torch.float32, device=dev)
+    rows, warps = matmul_tile_plan(S)
+    lib = _matmul_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fq_attn_matmul_launch(
+            1 if A.dtype == torch.bfloat16 else 0, mode, A.data_ptr(),
+            B.data_ptr(), ap.data_ptr(), bp.data_ptr(), out.data_ptr(),
+            G, S, K, C, rows, warps, a_bits, b_bits, stream)
+    if err != 0:
+        raise RuntimeError(f"{wrapper.__name__} kernel launch failed: CUDA "
+                           f"error {err}")
+    wrapper.launches += 1
+    return out
+
+
+def fq_attn_matmul(A, B, a_params, b_params, *, a_kind: str, a_bits: int,
+                   b_bits: int):
+    """Fused fake-quant batched matmul for attention sites (K3).
+
+    A: (G, S, K); B: (G, K, C) with G = batch*heads flattened, float32 or
+    bfloat16 (the compute dtype). a_params: (G, 2) [scale-or-q, zp];
+    b_params: (G, 2) [scale, zp]. For a_kind='adalog', a_params[:, 0] holds
+    the log base q (scale is 1.0, A in [0, 1]). Returns (G, S, C) float32.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel; any
+    other device raises."""
+    _check_matmul("fq_attn_matmul", A, B, a_params, b_params, a_kind, a_bits,
+                  b_bits)
+    fq_attn_matmul.calls += 1
+    if A.device.type == "cpu":
+        return fq_attn_matmul_plain(A, B, a_params, b_params, a_kind=a_kind,
+                                    a_bits=a_bits, b_bits=b_bits)
+    if A.device.type != "cuda":
+        raise RuntimeError(f"fq_attn_matmul has no path for {A.device}")
+    return _launch_matmul(fq_attn_matmul, A_KINDS.index(a_kind), A, B,
+                          a_params, b_params, a_bits, b_bits)
+
+
+fq_attn_matmul.launches = 0
+fq_attn_matmul.calls = 0
+
+
+def fq_softmax_attn_matmul(L, B, a_params, b_params, *, a_bits: int,
+                           b_bits: int):
+    """softmax(L) -> AdaLog fake-quant -> @ fake-quant(B), all fused (K2).
+
+    L: (G, S, K) pre-softmax attention logits (scale, bias and mask already
+    applied); the row softmax runs in the kernel, so the probabilities never
+    reach device memory. a_params: (G, 2) with the AdaLog base in column 0;
+    b_params: (G, 2) [scale, zp]. Returns (G, S, C) float32.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel; any
+    other device raises."""
+    _check_matmul("fq_softmax_attn_matmul", L, B, a_params, b_params,
+                  "adalog", a_bits, b_bits)
+    fq_softmax_attn_matmul.calls += 1
+    if L.device.type == "cpu":
+        return fq_softmax_attn_matmul_plain(L, B, a_params, b_params,
+                                            a_bits=a_bits, b_bits=b_bits)
+    if L.device.type != "cuda":
+        raise RuntimeError(f"fq_softmax_attn_matmul has no path for "
+                           f"{L.device}")
+    return _launch_matmul(fq_softmax_attn_matmul, _MODE_SOFTMAX, L, B,
+                          a_params, b_params, a_bits, b_bits)
+
+
+fq_softmax_attn_matmul.launches = 0
+fq_softmax_attn_matmul.calls = 0
 
 
 # ---------------------------------------------------------------------------
@@ -227,8 +433,8 @@ _ENABLED: contextvars.ContextVar = contextvars.ContextVar(
 
 @contextmanager
 def activate(flag: bool):
-    """Route supported attention sites through ``fq_flash_attn`` inside the
-    block (a predictor enters it around its forward)."""
+    """Route supported attention sites through the kernels inside the block
+    (a predictor enters it around its forward)."""
     tok = _ENABLED.set(bool(flag))
     try:
         yield
@@ -238,13 +444,34 @@ def activate(flag: bool):
 
 def enabled() -> bool:
     """On inside ``activate(True)``, and wherever the GEMM kernel's table is
-    active: turning the GEMM kernels on turns this one on too."""
+    active: turning the GEMM kernels on turns these on too."""
     return _ENABLED.get() or fq_gemm.enabled()
 
 
+def supports(site, mode: str) -> bool:
+    """K3: a quant-mode matmul site with uniform B and uniform or AdaLog
+    A."""
+    if not enabled() or mode != "quant":
+        return False
+    Aq, Bq = site.Aq, site.Bq
+    if Bq.kind != "uniform" or Bq.bits == 32 or Aq.bits == 32:
+        return False
+    return Aq.kind in ("uniform", "adalog")
+
+
+def supports_softmax(site, mode: str) -> bool:
+    """K2, the fused-softmax variant: AdaLog A at frozen scale 1.0 only."""
+    if not enabled() or mode != "quant":
+        return False
+    Aq, Bq = site.Aq, site.Bq
+    return (Aq.kind == "adalog" and Aq.bits != 32 and not Aq.shifted
+            and Bq.kind == "uniform" and Bq.bits != 32)
+
+
 def supports_flash(m1_site, m2_site, m1_mode: str, m2_mode: str) -> bool:
-    """Fused path: matmul1 both-uniform, matmul2 AdaLog A (unshifted) and
-    uniform B, both sites in quant mode (the shipped eval configuration)."""
+    """K1, the fully fused path: matmul1 both-uniform, matmul2 AdaLog A
+    (unshifted) and uniform B, both sites in quant mode (the shipped eval
+    configuration)."""
     if not enabled() or m1_mode != "quant" or m2_mode != "quant":
         return False
     if m1_site is None or m2_site is None:
@@ -254,9 +481,7 @@ def supports_flash(m1_site, m2_site, m1_mode: str, m2_mode: str) -> bool:
             or m1a.bits == 32 or m1b.bits == 32
             or m1a.shifted or m1b.shifted):
         return False
-    Aq, Bq = m2_site.Aq, m2_site.Bq
-    return (Aq.kind == "adalog" and Aq.bits != 32 and not Aq.shifted
-            and Bq.kind == "uniform" and Bq.bits != 32)
+    return supports_softmax(m2_site, m2_mode)
 
 
 def _head_params(qs, H: int, device):
@@ -299,3 +524,27 @@ def run_flash(m1_site, m2_site, q, kT, v, *, logit_scale: float, bias=None):
     args, bits = flash_args(m1_site, m2_site, q, kT, v)
     out = fq_flash_attn(*args, bias, logit_scale=logit_scale, **bits)
     return out.reshape(q.shape).to(q.dtype)
+
+
+def run(site, A, B):
+    """Run a 4D (N, H, S, K) @ (N, H, K, C) attention matmul of ``site``
+    through K3. Returns (N, H, S, C) in A's dtype."""
+    N, H, S, K = A.shape
+    C = B.shape[-1]
+    ap, bp = _flat_params(site, N, H, A.device)
+    out = fq_attn_matmul(
+        A.reshape(N * H, S, K), B.reshape(N * H, K, C), ap, bp,
+        a_kind=site.Aq.kind, a_bits=site.Aq.bits, b_bits=site.Bq.bits)
+    return out.reshape(N, H, S, C).to(A.dtype)
+
+
+def run_softmax(site, L, B):
+    """Run 4D logits (N, H, S, K) and values (N, H, K, C) of the matmul2
+    ``site`` through K2. Returns (N, H, S, C) in L's dtype."""
+    N, H, S, K = L.shape
+    C = B.shape[-1]
+    ap, bp = _flat_params(site, N, H, L.device)
+    out = fq_softmax_attn_matmul(
+        L.reshape(N * H, S, K), B.reshape(N * H, K, C), ap, bp,
+        a_bits=site.Aq.bits, b_bits=site.Bq.bits)
+    return out.reshape(N, H, S, C).to(L.dtype)

@@ -4,10 +4,11 @@
 ``adalog_tpu``) and returns ``predict(images) -> logits``: NHWC float32
 images in, float32 logits out. Fake-quantized Linear weights are prepared
 once at load time (ops/weight_prep.py); on a CUDA device the attention of
-every block runs in the hand-written fused kernel (ops/fq_attn.py) unless
-the caller turns it off, and, when the caller turns it on (``Config``'s
-``use_pallas_gemm``, off by default as in the JAX package), every supported
-Linear site runs in the fused activation-quant GEMM kernel (ops/fq_gemm.py).
+every block (ViT/DeiT) or window (Swin) runs in the hand-written fused
+kernels (ops/fq_attn.py) unless the caller turns them off, and, when the
+caller turns it on (``Config``'s ``use_pallas_gemm``, off by default as in
+the JAX package), every supported Linear site runs in the fused
+activation-quant GEMM kernel (ops/fq_gemm.py).
 
 Multi-device meshes and the int8 GEMM path of the JAX package are not
 ported yet and raise ``NotImplementedError``.
@@ -43,11 +44,12 @@ def make_predictor(spec, params, qstate, *, eval_dtype: str = "float32",
     The model is copied to ``device`` (default: the model's) in
     ``eval_dtype`` ('float32' or 'bfloat16'; quantizer math stays fp32);
     the caller's module is left as it was. ``use_kernels`` routes the
-    attention through the fused kernel; False runs the plain PyTorch ops
-    of the unfused path. ``use_gemm_kernels`` routes every Linear site that
-    ``ops.fq_gemm.supports`` through the fused activation-quant GEMM, and
-    the attention through its kernel too; which sites take it is decided
-    here, once.
+    attention through the fused kernels (the whole attention in one where
+    the sites allow it, else the matmul kernels); False runs the plain
+    PyTorch ops of the unfused path. ``use_gemm_kernels`` routes every
+    Linear site that ``ops.fq_gemm.supports`` through the fused
+    activation-quant GEMM, and the attention through its kernels too; which
+    sites take it is decided here, once.
     """
     from adalog_tpu_torch.models.zoo import model_forward_fn
     from adalog_tpu_torch.ops import fq_attn, fq_gemm, weight_prep
@@ -59,7 +61,7 @@ def make_predictor(spec, params, qstate, *, eval_dtype: str = "float32",
     dtype = _DTYPES[eval_dtype]
     fwd = model_forward_fn(spec)
     device = torch.device(device) if device is not None \
-        else params.head.weight.device
+        else next(params.parameters()).device
     if device.type == "cuda" and dtype == torch.float32:
         _pin_fp32_precision()
 
@@ -113,9 +115,6 @@ def load_quantized(model: str, checkpoint: str, *, config=None,
             "yet; load a v2 .ckpt")
 
     spec = model_spec(model)
-    if spec.family != "vit":
-        raise NotImplementedError(
-            f"{spec.name}: the Swin family is not ported to PyTorch yet")
     resolve_kernel_config(cfg, spec)
     if cfg.eval_int8:
         raise NotImplementedError(

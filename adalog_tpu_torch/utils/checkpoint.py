@@ -3,8 +3,8 @@
 A .ckpt is an .npz archive: raw arrays plus one JSON schema string that
 describes the params and qstate trees. Dataclass nodes are encoded by class
 NAME against a whitelist, so loading runs no pickled code. The port writes
-its ``VisionTransformer`` as the JAX package's ``ViTParams`` tree and its
-qstate dataclasses under their shared names, so a file written by either
+its ``VisionTransformer`` or ``SwinTransformer`` as the JAX package's
+``ViTParams`` or ``SwinParams`` tree and its qstate dataclasses under their shared names, so a file written by either
 package loads in the other. The round-1 pickle format is not read here.
 """
 
@@ -20,8 +20,7 @@ import numpy as np
 import torch
 
 from adalog_tpu_torch.utils.interop import (
-    Node, QSTATE_CLASSES, load_vit, params_to_tree, qstate_from_tree,
-    vit_state_dict,
+    Node, QSTATE_CLASSES, model_from_tree, params_to_tree, qstate_from_tree,
 )
 
 FORMAT_VERSION = 2
@@ -93,7 +92,7 @@ def _decode(node, arrays):
 
 
 def save_checkpoint(path: str, params, qstate, meta: dict | None = None):
-    """Write a port ``VisionTransformer`` and qstate dict as a v2 .ckpt."""
+    """Write a port model (ViT or Swin) and qstate dict as a v2 .ckpt."""
     arrays: list = []
     schema = {
         "version": FORMAT_VERSION,
@@ -112,8 +111,8 @@ def save_checkpoint(path: str, params, qstate, meta: dict | None = None):
 
 
 def load_checkpoint(path: str, cfg):
-    """Returns (VisionTransformer, qstate, meta) on the CPU; ``cfg`` is the
-    model's ViTConfig."""
+    """Returns (model, qstate, meta) on the CPU; ``cfg`` is the model's
+    ViTConfig or SwinConfig."""
     if not zipfile.is_zipfile(path):
         raise ValueError(f"{path}: not a v2 (npz) checkpoint; round-1 pickle "
                          f"checkpoints are read only by adalog_tpu")
@@ -123,6 +122,6 @@ def load_checkpoint(path: str, cfg):
         arrays = [z[f"a{i}"] for i in range(n)]
     if schema.get("version") != FORMAT_VERSION:
         raise ValueError(f"{path}: checkpoint version {schema.get('version')}")
-    model = load_vit(cfg, vit_state_dict(_decode(schema["params"], arrays)))
+    model = model_from_tree(cfg, _decode(schema["params"], arrays))
     return (model, qstate_from_tree(_decode(schema["qstate"], arrays)),
             schema.get("meta", {}))

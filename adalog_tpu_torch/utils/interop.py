@@ -1,12 +1,17 @@
 """Weight carrying between the JAX package's pytrees and the port.
 
-``adalog_tpu`` holds ViT parameters as a tree of dataclasses (``ViTParams``,
-``BlockP``, ``AttentionP``, ``MlpP``, ``LinearP``, ``ConvP``,
-``LayerNormP``) and quantizer state as a dict of site dataclasses
+``adalog_tpu`` holds parameters as a tree of dataclasses (``ViTParams``,
+``BlockP``, ``AttentionP``, ``MlpP``; ``SwinParams``, ``SwinStageP``,
+``SwinBlockP``, ``PatchMergingP``, ``WindowAttentionP``; ``LinearP``,
+``ConvP``, ``LayerNormP``) and quantizer state as a dict of site dataclasses
 (``LinearSite``, ``ConvSite``, ``MatMulSite``, ``QuantizerState``,
 ``WeightQuantizerState``). The functions here go by class NAME and field
 names only, so they take either those dataclasses (with numpy leaves) or the
 ``Node`` records a v2 checkpoint decodes into, and need no ``jax`` import.
+
+The JAX package keeps a Swin attention's relative-position bias gathered,
+(1, heads, N, N); the port's module holds timm's table. ``ungather`` /
+``gather`` carry one into the other exactly.
 """
 
 from __future__ import annotations
@@ -17,7 +22,10 @@ import numpy as np
 import torch
 
 from adalog_tpu_torch.models.layers import LinearSite, ConvSite, MatMulSite
-from adalog_tpu_torch.models.load import load_vit
+from adalog_tpu_torch.models.load import load_swin, load_vit
+from adalog_tpu_torch.models.swin import (
+    SwinTransformer, gather_rel_pos_bias, ungather_rel_pos_bias,
+)
 from adalog_tpu_torch.quantizers.state import (
     QuantizerState, WeightQuantizerState,
 )
@@ -71,9 +79,6 @@ def _put_affine(sd, prefix, node, w="w", b="b"):
 
 def vit_state_dict(params) -> dict:
     """A ``ViTParams`` tree -> {timm key: float32 array}."""
-    if node_name(params) != "ViTParams":
-        raise NotImplementedError(
-            f"{node_name(params)} parameters are not ported to PyTorch yet")
     f = node_fields(params)
     sd = {}
     _put_affine(sd, "patch_embed.proj", f["patch_proj"])
@@ -97,6 +102,39 @@ def vit_state_dict(params) -> dict:
     return sd
 
 
+def swin_state_dict(params) -> dict:
+    """A ``SwinParams`` tree -> {timm key: float32 array}; each gathered
+    rel-pos bias goes back to its table."""
+    f = node_fields(params)
+    sd = {}
+    _put_affine(sd, "patch_embed.proj", f["patch_proj"])
+    _put_affine(sd, "patch_embed.norm", f["patch_norm"], "g")
+    for i, sp in enumerate(f["stages"]):
+        st = node_fields(sp)
+        if st["downsample"] is not None:
+            pm = node_fields(st["downsample"])
+            _put_affine(sd, f"layers.{i}.downsample.norm", pm["norm"], "g")
+            _put_affine(sd, f"layers.{i}.downsample.reduction",
+                        pm["reduction"])
+        for j, bp in enumerate(st["blocks"]):
+            b = node_fields(bp)
+            attn = node_fields(b["attn"])
+            p = f"layers.{i}.blocks.{j}"
+            _put_affine(sd, f"{p}.norm1", b["norm1"], "g")
+            _put_affine(sd, f"{p}.attn.qkv", attn["qkv"])
+            _put_affine(sd, f"{p}.attn.proj", attn["proj"])
+            bias = _np(attn["rel_pos_bias"])
+            ws = int(round(bias.shape[-1] ** 0.5))
+            sd[f"{p}.attn.relative_position_bias_table"] = \
+                ungather_rel_pos_bias(bias, ws)
+            _put_affine(sd, f"{p}.norm2", b["norm2"], "g")
+            _put_affine(sd, f"{p}.mlp.fc1", b["fc1"])
+            _put_affine(sd, f"{p}.mlp.fc2", b["fc2"])
+    _put_affine(sd, "norm", f["norm"], "g")
+    _put_affine(sd, "head.fc", f["head"])
+    return sd
+
+
 def _host(t):
     return None if t is None else t.detach().to("cpu", torch.float32).numpy()
 
@@ -110,10 +148,49 @@ def _ln_node(m):
                                "eps": float(m.eps)})
 
 
+def _conv_node(conv):
+    return Node("ConvP", {
+        "w": _host(conv.weight), "b": _host(conv.bias),
+        "stride": tuple(conv.stride), "padding": tuple(conv.padding)})
+
+
+def _swin_to_tree(model) -> Node:
+    def block(bp):
+        table = _host(bp.attn.relative_position_bias_table)
+        return Node("SwinBlockP", {
+            "norm1": _ln_node(bp.norm1),
+            "attn": Node("WindowAttentionP", {
+                "qkv": _linear_node(bp.attn.qkv),
+                "proj": _linear_node(bp.attn.proj),
+                "rel_pos_bias": np.ascontiguousarray(
+                    gather_rel_pos_bias(table, bp.attn.ws))}),
+            "norm2": _ln_node(bp.norm2),
+            "fc1": _linear_node(bp.mlp.fc1),
+            "fc2": _linear_node(bp.mlp.fc2)})
+
+    stages = tuple(
+        Node("SwinStageP", {
+            "downsample": None if sp.downsample is None
+            else Node("PatchMergingP", {
+                "norm": _ln_node(sp.downsample.norm),
+                "reduction": _linear_node(sp.downsample.reduction)}),
+            "blocks": tuple(block(bp) for bp in sp.blocks),
+        }) for sp in model.layers)
+    return Node("SwinParams", {
+        "patch_proj": _conv_node(model.patch_embed.proj),
+        "patch_norm": _ln_node(model.patch_embed.norm),
+        "stages": stages,
+        "norm": _ln_node(model.norm),
+        "head": _linear_node(model.head.fc),
+    })
+
+
 def params_to_tree(model) -> Node:
-    """A port ``VisionTransformer`` -> the ``ViTParams`` tree of the JAX
-    package, as Nodes with numpy leaves (what a v2 checkpoint stores)."""
-    conv = model.patch_embed.proj
+    """A port ``VisionTransformer`` or ``SwinTransformer`` -> the
+    ``ViTParams`` or ``SwinParams`` tree of the JAX package, as Nodes with
+    numpy leaves (what a v2 checkpoint stores)."""
+    if isinstance(model, SwinTransformer):
+        return _swin_to_tree(model)
     blocks = tuple(
         Node("BlockP", {
             "norm1": _ln_node(bp.norm1),
@@ -129,9 +206,7 @@ def params_to_tree(model) -> Node:
                                  "fc2": _linear_node(bp.mlp.fc2)}),
         }) for bp in model.blocks)
     return Node("ViTParams", {
-        "patch_proj": Node("ConvP", {
-            "w": _host(conv.weight), "b": _host(conv.bias),
-            "stride": tuple(conv.stride), "padding": tuple(conv.padding)}),
+        "patch_proj": _conv_node(model.patch_embed.proj),
         "cls_token": _host(model.cls_token),
         "pos_embed": _host(model.pos_embed),
         "blocks": blocks,
@@ -162,8 +237,19 @@ def qstate_from_tree(qstate) -> dict:
     return {name: _qleaf(site) for name, site in qstate.items()}
 
 
+def model_from_tree(cfg, params):
+    """A ``ViTParams`` or ``SwinParams`` tree -> the port's module for the
+    model config ``cfg``."""
+    name = node_name(params)
+    if name == "ViTParams":
+        return load_vit(cfg, vit_state_dict(params))
+    if name == "SwinParams":
+        return load_swin(cfg, swin_state_dict(params))
+    raise TypeError(f"not a parameter tree of the JAX package: {name!r}")
+
+
 def from_jax(cfg, params, qstate=None):
     """The JAX package's (params, qstate) with numpy leaves -> the port's
-    (VisionTransformer, qstate dict or None)."""
-    model = load_vit(cfg, vit_state_dict(params))
-    return model, (None if qstate is None else qstate_from_tree(qstate))
+    (VisionTransformer or SwinTransformer, qstate dict or None)."""
+    return (model_from_tree(cfg, params),
+            None if qstate is None else qstate_from_tree(qstate))

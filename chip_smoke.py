@@ -1,13 +1,14 @@
 """Drive the PyTorch/CUDA port (adalog_tpu_torch) on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py              # phases 1-5, each a hard check
+    python3 chip_smoke.py              # every phase, each a hard check
     python3 chip_smoke.py --profile    # phases 1-2, then the profile below
 
 Phases, each a hard check (any failure raises and exits non-zero):
   1. the card's name and power limit (nvidia-smi); no CUDA device -> exit 1;
-  2. build both kernels with nvcc, one process each, started together:
-     K1 (csrc/fq_flash_attn.cu) and K4 (csrc/fq_gemm.cu); the ptxas
-     register and spill lines are printed;
+  2. build the three kernel sources with nvcc, one process each, started
+     together: K1 (csrc/fq_flash_attn.cu), K2 and K3
+     (csrc/fq_attn_matmul.cu) and K4 (csrc/fq_gemm.cu); the ptxas register
+     and spill lines are printed;
   3. K1 kernel phase: the fused attention kernel against its plain PyTorch
      version at the deit_small attention shapes (batch 64: G=384, S=197,
      D=64), fp32 and bf16, with and without a (6, S, S) bias, per-slice
@@ -20,25 +21,44 @@ Phases, each a hard check (any failure raises and exits non-zero):
      past tolerance, the quantized activations themselves (through an
      identity weight: uniform bit for bit, AdaLog flips bounded), the
      fused bias equal to the unfused add bit for bit, median times;
-  5. serving phase: deit_small at full depth and width with random weights
-     from a numpy seed and a smoke quantizer state whose fc2 biases carry
-     the folded GeLU shift (calib/reparam.py); K1 against its plain version
-     on the q/kT/v of all 12 blocks and K4 against its plain version on the
-     inputs of all 49 Linear sites (block check); then the state saved as a
-     v2 .ckpt and served through load_quantized in float32 and bfloat16,
-     with the attention kernel only, with the attention and GEMM kernels,
-     and plain, on 4 batches of 32 images each: per batch K1 must run 12
-     times with either kernel switch on and K4 49 times with the GEMM
-     switch on (0 off), logits finite and of the right shape; img/s and
-     the agreement of the logits between the settings are reported.
-The last two lines are a JSON summary of the kernels and the ok line.
+  5. K2/K3 kernel phase: the fused attention matmuls against their plain
+     versions at the attention shapes of batch 32 of deit_small (G=192,
+     S=197, D=64) and of swin_tiny's first and last stage (S=49, D=32,
+     G=6144 and 768), fp32 and bf16: K3 on q @ kT (uniform A), K3 on
+     probabilities @ v (AdaLog A), K2 on logits and v; and K2 on the plain
+     matmul1's logits against K1 on the same q, kT, v (fp32);
+  6. serving phase, for deit_small and for swin_tiny (embed 96, depths
+     2-2-6-2, heads 3-6-12-24, window 7, 224 px), each at full depth and
+     width with random weights from a numpy seed and a smoke quantizer
+     state whose fc2 biases carry the folded GeLU shift (calib/reparam.py):
+     K1 against its plain version on the q/kT/v of all 12 blocks (for
+     swin_tiny with each block's rel-pos bias and, in the shifted blocks,
+     its mask) and K4 against its plain version on the inputs of all 49
+     (deit_small) or 52 (swin_tiny) Linear sites (block check); then the
+     state saved as a v2 .ckpt and served through load_quantized in float32
+     and bfloat16, with the attention kernel only, with the attention and
+     GEMM kernels, and plain, on 4 batches of 32 images each: per batch K1
+     must run 12 times with either kernel switch on and K4 49 or 52 times
+     with the GEMM switch on (0 off), K2 and K3 never; logits finite and of
+     the right shape; img/s and the agreement of the logits between the
+     settings are reported;
+  7. fall-back phase, for both models: K2 and K3 against their plain
+     versions, and against the forward with the kernels off, on the tensors
+     all 12 attentions of the quantized model form (block check); then the
+     three configurations that reach them, launch counts asserted: a
+     post_softmax_quantizer='log2' state served through load_quantized (K3
+     12 times a batch), a quant-mode forward with capture=True (K3 24
+     times), and the forward's modes with every matmul1 site 'raw' (K2 12
+     times).
+The last two lines are a JSON summary of the kernels (launches summed over
+the main paths of phases 6 and 7; times of the fp32 kernel phases; the bound
+from those phases' shapes) and the ok line.
 
-With --profile, after the build: the same smoke model served in each
-dtype and setting, 5 batches of 32 after 3 warm-up batches, wall ms a
-batch untraced, then one torch.profiler trace: device busy ms a batch,
-idle share of the traced span, device time split into K1, K4, cuBLAS/cuDNN
-GEMM and convolution, and the rest (the top kernels of the last two are
-printed).
+With --profile, after the build: each smoke model served in each dtype and
+setting, 5 batches of 32 after 3 warm-up batches, wall ms a batch untraced,
+then one torch.profiler trace: device busy ms a batch, idle share of the
+traced span, device time split into K1, K4, cuBLAS/cuDNN GEMM and
+convolution, and the rest (the top kernels of the last two are printed).
 """
 
 import json
@@ -52,9 +72,13 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 SEED = 0
-KERNELS = ("fq_flash_attn", "fq_gemm")        # csrc/<name>.cu
+KERNELS = ("fq_flash_attn", "fq_attn_matmul", "fq_gemm")   # csrc/<name>.cu
 KERNEL_SHAPE = dict(G=384, S=197, D=64, P=6)     # deit_small, batch 64
 BATCH, N_BATCHES = 32, 4
+# K2 and K3 at the attention shapes of batch 32: (model, G, S, D)
+MATMUL_SHAPES = (("deit_small", 192, 197, 64),
+                 ("swin_tiny stage 0", 6144, 49, 32),
+                 ("swin_tiny stage 3", 768, 49, 32))
 # K4 at deit_small's Linear sites, batch 32 (T = 32 images x 197 tokens):
 # (site, T, K, O, kind)
 GEMM_SHAPES = (("qkv", 6304, 384, 1152, "uniform"),
@@ -86,6 +110,12 @@ GEMM_RTOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
 # whole quantization noise. The kernel is instead held to its plain version
 # on the real q/kT/v of every block of the served model (block check).
 
+def w4a4_config(**kw):
+    from adalog_tpu_torch.utils.config import Config
+
+    return Config(w_bit=4, a_bit=4, s_bit=4, qhead_a_bit=4, **kw)
+
+
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
@@ -115,6 +145,21 @@ def cuda_ms(torch, fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
+# NVIDIA's published H100 SXM peaks, for the kernels' bounds: device memory
+# rate, fp32 outside the tensor cores (fp32 inputs: the reference's exact
+# fp32 products rule TF32 out) and dense bf16 on the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+
+
+def bound_ms(nbytes, flops, dtype):
+    """(ms, "bytes" | "operations"): the least time the card could take to
+    move nbytes once and do flops operations on inputs of dtype."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[str(dtype).split(".")[-1]] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def attention_inputs(torch, G, S, D, P, seed, device, bits=4):
     """[q, kT, v, m1a, m1b, m2q, m2b, bias (P, S, S)] float32 tensors from a
     numpy seed: logits spread over several units, per-slice uniform scales
@@ -135,6 +180,24 @@ def attention_inputs(torch, G, S, D, P, seed, device, bits=4):
               rng.standard_normal((P, S, S))]
     return [torch.from_numpy(np.asarray(a, np.float32)).to(device)
             for a in arrays]
+
+
+def flash_bound_ms(G, S, D, P, dtype):
+    """(bound ms, what binds) of one K1 call: q, kT, v in ``dtype``, the
+    fp32 output, parameters and (P, S, S) bias each once, against the
+    4*G*S*S*D operations of its two products."""
+    itemsize = 2 if "bfloat16" in str(dtype) else 4
+    nbytes = G * S * D * (3 * itemsize + 4) + (7 * G + P * S * S) * 4
+    return bound_ms(nbytes, 4 * G * S * S * D, dtype)
+
+
+def gemm_bound_ms(T, K, O, dtype):
+    """(bound ms, what binds) of one K4 call with a bias: x, w, bias and the
+    output in ``dtype`` and the (4,) parameters each once, against 2*T*K*O
+    operations."""
+    itemsize = 2 if "bfloat16" in str(dtype) else 4
+    return bound_ms((T * K + O * K + O + T * O) * itemsize + 16,
+                    2 * T * K * O, dtype)
 
 
 def kernel_phase(torch, fq_attn, device):
@@ -162,16 +225,126 @@ def kernel_phase(torch, fq_attn, device):
             p_ms = cuda_ms(torch, lambda: fq_attn.fq_flash_attn_plain(
                 *args, b, **kw))
             tag = f"{str(dtype).split('.')[-1]}, {'bias' if b is not None else 'no bias'}"
+            b_ms, by = flash_bound_ms(G, S, D, 0 if b is None else P, dtype)
             print(f"kernel K1 fq_flash_attn [{tag}] G={G} S={S} D={D}: "
                   f"max|diff|={max_diff:.3e} share_past_tol={share:.3e} "
                   f"(atol={ATOL} rtol={RTOL}; allowed share {FLIP_SHARE}, "
-                  f"max {FLIP_MAX}) kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f}")
+                  f"max {FLIP_MAX}) kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+                  f"bound_ms={b_ms:.4f} ({by})")
             check(share <= FLIP_SHARE, f"[{tag}] share past tolerance {share}")
             check(max_diff <= FLIP_MAX, f"[{tag}] max|diff| {max_diff}")
             worst = max(worst, max_diff)
             if dtype == torch.float32 and b is None:
                 fp32_times = (k_ms, p_ms)
     return fp32_times, worst
+
+
+def matmul_cases(torch, fq_attn, G, S, D, seed, device, dtype):
+    """The three K2/K3 calls of one attention at (G, S, D), on
+    attention_inputs' tensors: {name: (wrapper, plain version, args,
+    kwargs)} for K3 on q @ kT (uniform A), K3 on probabilities @ v (AdaLog
+    A, the probabilities from the plain softmax of the plain matmul1's
+    logits) and K2 on those logits and v. A and B are in ``dtype``; also
+    returns the fp32 logits."""
+    q, kT, v, m1a, m1b, m2q, m2b, _ = attention_inputs(
+        torch, G, S, D, 1, seed, device)
+    logits = fq_attn.fq_attn_matmul_plain(
+        q, kT, m1a, m1b, a_kind="uniform", a_bits=4, b_bits=4) * D ** -0.5
+    probs = torch.softmax(logits, dim=-1)
+    m2a = torch.stack([m2q, torch.zeros_like(m2q)], dim=1)
+    q, kT, v, lg, probs = (t.to(dtype) for t in (q, kT, v, logits, probs))
+    return {
+        "K3 uniform A (q @ kT)": (
+            fq_attn.fq_attn_matmul, fq_attn.fq_attn_matmul_plain,
+            (q, kT, m1a, m1b), dict(a_kind="uniform", a_bits=4, b_bits=4)),
+        "K3 AdaLog A (probs @ v)": (
+            fq_attn.fq_attn_matmul, fq_attn.fq_attn_matmul_plain,
+            (probs, v, m2a, m2b), dict(a_kind="adalog", a_bits=4, b_bits=4)),
+        "K2 (softmax, AdaLog, @ v)": (
+            fq_attn.fq_softmax_attn_matmul,
+            fq_attn.fq_softmax_attn_matmul_plain,
+            (lg, v, m2a, m2b), dict(a_bits=4, b_bits=4)),
+    }, logits
+
+
+def matmul_bound_ms(args, itemsize_out=4):
+    """(bound ms, what binds) of one K2/K3 call: the larger of its bytes
+    (A, B, the parameters and the fp32 output, each once) over the memory
+    rate and its 2*G*S*K*C operations over the peak rate of its type."""
+    A, B, ap, bp = args
+    G, S, K = A.shape
+    C = B.shape[2]
+    nbytes = sum(t.numel() * t.element_size() for t in args) \
+        + G * S * C * itemsize_out
+    return bound_ms(nbytes, 2 * G * S * K * C, A.dtype)
+
+
+def matmul_kernel_phase(torch, fq_attn, device):
+    """Hold K2 and K3 against their plain versions at MATMUL_SHAPES, fp32
+    and bf16, and K2 on the plain matmul1's logits against K1 on the same
+    q, kT, v (fp32). Returns {"K2" | "K3": dict(ms, plain_ms, bound_ms,
+    bound_by, max_abs_err)} with the times and bounds of the deit_small
+    fp32 calls (K3: its two calls summed) and the largest max|diff| of all
+    cases."""
+    res = {k: dict(ms=0.0, plain_ms=0.0, bound=[], max_abs_err=0.0)
+           for k in ("K2", "K3")}
+    for i, (model, G, S, D) in enumerate(MATMUL_SHAPES):
+        for dt in ("float32", "bfloat16"):
+            cases, logits = matmul_cases(torch, fq_attn, G, S, D,
+                                         SEED + 20 + i, device,
+                                         getattr(torch, dt))
+            for name, (fn, plain, args, kw) in cases.items():
+                tag = f"{name}, {model}, {dt}"
+                before = fn.launches
+                got = fn(*args, **kw)
+                check(fn.launches == before + 1, f"[{tag}] no launch counted")
+                want = plain(*args, **kw)
+                torch.cuda.synchronize()
+                C = args[1].shape[2]
+                check(tuple(got.shape) == (G, S, C)
+                      and got.dtype == torch.float32,
+                      f"[{tag}] kernel output shape/dtype")
+                check(bool(torch.isfinite(got).all()), f"[{tag}] not finite")
+                max_diff, share = compare(got, want, RTOL)
+                k_ms = cuda_ms(torch, lambda: fn(*args, **kw))
+                p_ms = cuda_ms(torch, lambda: plain(*args, **kw))
+                b_ms, by = matmul_bound_ms(args)
+                print(f"kernel {tag} G={G} S={S} D={D}: max|diff|="
+                      f"{max_diff:.3e} share_past_tol={share:.3e} (atol={ATOL}"
+                      f" rtol={RTOL}; allowed share {FLIP_SHARE}, max "
+                      f"{FLIP_MAX}) kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+                      f"bound_ms={b_ms:.4f} ({by})")
+                check(share <= FLIP_SHARE,
+                      f"[{tag}] share past tolerance {share}")
+                check(max_diff <= FLIP_MAX, f"[{tag}] max|diff| {max_diff}")
+                r = res[name[:2]]
+                r["max_abs_err"] = max(r["max_abs_err"], max_diff)
+                if model == "deit_small" and dt == "float32":
+                    r["ms"] += k_ms
+                    r["plain_ms"] += p_ms
+                    r["bound"].append((b_ms, by))
+            if dt == "float32":
+                # K1 forms the same logits inside; K2 must land where K1 does
+                q, kT, v, m1a, m1b, m2q, m2b, _ = attention_inputs(
+                    torch, G, S, D, 1, SEED + 20 + i, device)
+                k1 = fq_attn.fq_flash_attn(
+                    q, kT, v, m1a, m1b, m2q, m2b, m1a_bits=4, m1b_bits=4,
+                    m2a_bits=4, m2b_bits=4, logit_scale=D ** -0.5)
+                _, _, args, kw = cases["K2 (softmax, AdaLog, @ v)"]
+                k2 = fq_attn.fq_softmax_attn_matmul(*args, **kw)
+                torch.cuda.synchronize()
+                max_diff, share = compare(k2, k1, RTOL)
+                print(f"kernel K2 on the plain matmul1's logits vs K1, "
+                      f"{model}, float32: max|diff|={max_diff:.3e} "
+                      f"share_past_tol={share:.3e} (allowed share "
+                      f"{FLIP_SHARE}, max {FLIP_MAX})")
+                check(share <= FLIP_SHARE, f"K2 vs K1 {model}: share {share}")
+                check(max_diff <= FLIP_MAX, f"K2 vs K1 {model}: {max_diff}")
+    for r in res.values():
+        bounds = r.pop("bound")
+        r["bound_ms"] = sum(b for b, _ in bounds)
+        r["bound_by"] = max(bounds)[1]
+    return res
 
 
 def gemm_inputs(torch, T, K, O, kind, seed, device, bits=4):
@@ -241,7 +414,8 @@ def gemm_kernel_phase(torch, fq_gemm, device):
                   f"max|diff|={max_diff:.3e} share_past_tol={share:.3e} "
                   f"(atol={ATOL} rtol={GEMM_RTOL[dt]:.3e}; allowed share "
                   f"{FLIP_SHARE}, max {FLIP_MAX}) quantized_x_differ="
-                  f"{flips:.3e} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f}")
+                  f"{flips:.3e} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+                  "bound_ms=%.4f (%s)" % gemm_bound_ms(T, K, O, dtype))
             check(flips == 0.0 if kind == "uniform" else flips <= FLIP_SHARE,
                   f"[{tag}] quantized activations differ: share {flips}")
             check(share <= FLIP_SHARE, f"[{tag}] share past tolerance {share}")
@@ -252,15 +426,17 @@ def gemm_kernel_phase(torch, fq_gemm, device):
     return (k_sum, p_sum), worst
 
 
-def fold_fc2(torch, spec, model, qstate):
+def fold_fc2(torch, model, qstate):
     """Fold the GeLU shift through each fc2's quantized weight into its
     bias (calib/reparam.py), as calibration finishes, and set the flag: fc2
     then quantizes x + shift with no subtract-back and takes K4."""
     from adalog_tpu_torch.calib.reparam import fold_gelu_shift_into_bias
     from adalog_tpu_torch.quantizers.state import GELU_MIN
 
-    for i in range(spec.cfg.depth):
-        mlp, site = model.blocks[i].mlp, qstate[f"blocks.{i}.mlp.fc2"]
+    for name, site in qstate.items():
+        if not name.endswith(".mlp.fc2"):
+            continue
+        mlp = model.get_submodule(name[:-len(".fc2")])
         mlp.fc2 = fold_gelu_shift_into_bias(mlp.fc2, site, shift=GELU_MIN)
         site.aq.bias_reparamed = torch.ones((), dtype=torch.bool,
                                             device=site.aq.scale.device)
@@ -299,21 +475,44 @@ def timm_weights(cfg, seed):
     return sd
 
 
-def smoke_qstate(torch, spec, model, images, device):
+def swin_weights(cfg, seed):
+    """A timm-keyed Swin state dict from a numpy seed: normal weights and
+    rel-pos tables (std 0.02; qkv of a stage of width C std sqrt(2 / C), so
+    the window logits have a std of about 2 and attention rows are peaked),
+    zero biases, unit LayerNorms, bias-free reductions."""
+    import torch
+    from adalog_tpu_torch.models.swin import SwinTransformer
+
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for key, t in SwinTransformer(cfg, device="meta").state_dict().items():
+        shape = tuple(t.shape)
+        if key.endswith("bias"):
+            sd[key] = np.zeros(shape, np.float32)
+        elif ".norm" in key or key.startswith("norm"):
+            sd[key] = np.ones(shape, np.float32)
+        else:
+            std = (2.0 / shape[1]) ** 0.5 if key.endswith("qkv.weight") \
+                else 0.02
+            sd[key] = (std * rng.standard_normal(shape)).astype(np.float32)
+    return sd
+
+
+def smoke_qstate(torch, spec, model, images, device, post="adalog"):
     """A SMOKE quantizer state, not an FPCS calibration: init_qstate with
     activation scales and zero points set by min/max from one raw capture
     pass (per head at the attention matmuls) and the AdaLog bases of the
-    post-GeLU and post-softmax sites set to SMOKE_LOG_Q."""
+    post-GeLU and post-softmax sites set to SMOKE_LOG_Q. ``post`` is the
+    configuration's post_softmax_quantizer."""
     from adalog_tpu_torch.calib.init_state import init_qstate
     from adalog_tpu_torch.models.layers import LinearSite, MatMulSite
-    from adalog_tpu_torch.models.vit import vit_forward
-    from adalog_tpu_torch.utils.config import Config
+    from adalog_tpu_torch.models.zoo import model_forward_fn
 
-    qstate = init_qstate(spec, Config(w_bit=4, a_bit=4, s_bit=4,
-                                      qhead_a_bit=4), model)
+    qstate = init_qstate(spec, w4a4_config(post_softmax_quantizer=post),
+                         model)
     with torch.no_grad():
-        _, taps = vit_forward(spec.cfg, model, images.to(device),
-                              capture=True)
+        _, taps = model_forward_fn(spec)(spec.cfg, model, images.to(device),
+                                         capture=True)
 
     def minmax(qs, x, dims):
         n = 2 ** qs.bits - 1
@@ -337,26 +536,51 @@ def smoke_qstate(torch, spec, model, images, device):
                 A, B = taps[name][0], taps[name][1]
                 if site.Aq.kind == "uniform":
                     minmax(site.Aq, A, (0, 2, 3))
-                else:
+                elif site.Aq.kind == "adalog":
                     site.Aq.log_q = log_q
                 minmax(site.Bq, B, (0, 2, 3))
     return qstate
 
 
-def block_check(torch, fq_attn, fq_gemm, spec, model, qstate, x, dt):
-    """Hold K1 against its plain version on the q/kT/v that every block of
-    the quantized model gives it for images x, and K4 on the input of every
-    Linear site that takes it, from one capture pass with the served
-    path's tables active; returns {kernel: (largest max|diff|, largest
-    share past tolerance)}."""
-    from adalog_tpu_torch.models.vit import vit_forward
-    from adalog_tpu_torch.ops import weight_prep
-    from adalog_tpu_torch.utils.config import Config
+def attention_blocks(spec):
+    """[(site prefix '….attn', attention module path, stage, block)] of
+    every attention of the model, in forward order."""
+    if spec.family == "vit":
+        return [(f"blocks.{i}.attn", f"blocks.{i}.attn", 0, i)
+                for i in range(spec.cfg.depth)]
+    return [(f"layers.{i}.blocks.{j}.attn", f"layers.{i}.blocks.{j}.attn",
+             i, j)
+            for i, depth in enumerate(spec.cfg.depths) for j in range(depth)]
 
-    wprep = weight_prep.prepare(spec, model, qstate, Config())
+
+def attention_bias(spec, model, path, stage, blk, dtype):
+    """(logit_scale, flash bias or None, shift mask or None) of one
+    attention: ViT scales the logits and has no bias; Swin scales q before
+    matmul1 and adds the rel-pos bias and, in a shifted block, the mask."""
+    if spec.family == "vit":
+        return spec.cfg.head_dim ** -0.5, None, None
+    from adalog_tpu_torch.models import swin
+
+    ap = model.get_submodule(path)
+    mask = swin.block_shift_mask(spec.cfg, stage, blk,
+                                 ap.qkv.weight.device, dtype)
+    return 1.0, swin.flash_bias(ap, mask), mask
+
+
+def block_check(torch, fq_attn, fq_gemm, spec, model, qstate, x, dt):
+    """Hold K1 against its plain version on the q/kT/v (and, for Swin, the
+    rel-pos bias and shift mask) that every block of the quantized model
+    gives it for images x, and K4 on the input of every Linear site that
+    takes it, from one capture pass with the served path's tables active;
+    returns {kernel: (largest max|diff|, largest share past tolerance)}."""
+    from adalog_tpu_torch.models.zoo import model_forward_fn
+    from adalog_tpu_torch.ops import weight_prep
+
+    wprep = weight_prep.prepare(spec, model, qstate, w4a4_config())
     table = fq_gemm.prepare(qstate)
-    check(len(table) == 4 * spec.cfg.depth + 1,
-          f"{len(table)} Linear sites take K4, want {4 * spec.cfg.depth + 1}")
+    n_linear = MODELS[spec.name]["K4"]
+    check(len(table) == n_linear,
+          f"{len(table)} Linear sites take K4, want {n_linear}")
     worst = {"K1": (0.0, 0.0), "K4": (0.0, 0.0)}
 
     def note(k, d, share):
@@ -364,17 +588,18 @@ def block_check(torch, fq_attn, fq_gemm, spec, model, qstate, x, dt):
 
     with torch.inference_mode(), weight_prep.activate(wprep), \
             fq_gemm.activate(table):
-        _, taps = vit_forward(spec.cfg, model, x, qstate, {"*": "quant"},
-                              capture=True)
-        for i in range(spec.cfg.depth):
-            p = f"blocks.{i}.attn"
+        _, taps = model_forward_fn(spec)(spec.cfg, model, x, qstate,
+                                         {"*": "quant"}, capture=True)
+        for p, path, stage, blk in attention_blocks(spec):
             q, kT, _ = taps[f"{p}.matmul1"]
             _, v, _ = taps[f"{p}.matmul2"]
             args, bits = fq_attn.flash_args(qstate[f"{p}.matmul1"],
                                             qstate[f"{p}.matmul2"], q, kT, v)
-            kw = dict(logit_scale=spec.cfg.head_dim ** -0.5, **bits)
-            got = fq_attn.fq_flash_attn(*args, **kw)
-            want = fq_attn.fq_flash_attn_plain(*args, **kw)
+            scale, bias, _ = attention_bias(spec, model, path, stage, blk,
+                                            x.dtype)
+            kw = dict(logit_scale=scale, **bits)
+            got = fq_attn.fq_flash_attn(*args, bias, **kw)
+            want = fq_attn.fq_flash_attn_plain(*args, bias, **kw)
             check(bool(torch.isfinite(got).all()), f"{p}: K1 not finite")
             note("K1", *compare(got, want, RTOL))
         for name, (kind, bits, prm) in table.items():
@@ -392,17 +617,37 @@ def block_check(torch, fq_attn, fq_gemm, spec, model, qstate, x, dt):
 SETTINGS = (("attention kernel", True, False),
             ("attention + GEMM kernels", True, True),
             ("plain", False, False))
+# launches a batch with the kernels on: K1 once a block (deit_small 12;
+# swin_tiny 2 + 2 + 6 + 2), K4 at every Linear site (deit_small 4 a block
+# and the head; swin_tiny 4 a block, 3 reductions and head.fc)
+MODELS = {"deit_small": {"K1": 12, "K4": 49},
+          "swin_tiny": {"K1": 12, "K4": 52}}
 
 
-def smoke_model(torch, device, ckpt_dir):
-    """deit_small with random weights from SEED and its smoke state with
-    fc2 folded, saved as a v2 .ckpt; returns (spec, model, qstate, ckpt
-    path, N_BATCHES numpy batches of BATCH images)."""
-    from adalog_tpu_torch.models.load import load_vit
+def wrappers(fq_attn, fq_gemm):
+    return {"K1": fq_attn.fq_flash_attn, "K2": fq_attn.fq_softmax_attn_matmul,
+            "K3": fq_attn.fq_attn_matmul, "K4": fq_gemm.fq_gemm}
+
+
+def zero_launches(fq_attn, fq_gemm):
+    for w in wrappers(fq_attn, fq_gemm).values():
+        w.launches = 0
+
+
+def read_launches(fq_attn, fq_gemm):
+    return {k: w.launches for k, w in wrappers(fq_attn, fq_gemm).items()}
+
+
+def smoke_model(torch, device, ckpt_dir, name="deit_small", post="adalog"):
+    """Model ``name`` at full depth and width with random weights from SEED
+    and its smoke state (post-softmax quantizer ``post``) with fc2 folded,
+    saved as a v2 .ckpt; returns (spec, model, qstate, ckpt path, N_BATCHES
+    numpy batches of BATCH images)."""
+    from adalog_tpu_torch.models.load import load_state_dict
     from adalog_tpu_torch.models.zoo import model_spec
     from adalog_tpu_torch.utils.checkpoint import save_checkpoint
 
-    spec = model_spec("deit_small")
+    spec = model_spec(name)
     cfg = spec.cfg
     rng = np.random.default_rng(SEED + 1)
     shape = (BATCH, cfg.img_size, cfg.img_size, cfg.in_chans)
@@ -410,41 +655,57 @@ def smoke_model(torch, device, ckpt_dir):
                for _ in range(N_BATCHES)]
     calib = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
 
-    model = load_vit(cfg, timm_weights(cfg, SEED)).to(device)
-    qstate = smoke_qstate(torch, spec, model, calib, device)
-    fold_fc2(torch, spec, model, qstate)
+    weights = timm_weights if spec.family == "vit" else swin_weights
+    model = load_state_dict(spec, weights(cfg, SEED)).to(device)
+    qstate = smoke_qstate(torch, spec, model, calib, device, post)
+    fold_fc2(torch, model, qstate)
     os.makedirs(ckpt_dir, exist_ok=True)
-    ckpt = os.path.join(ckpt_dir, "deit_small_smoke_w4a4.ckpt")
-    save_checkpoint(ckpt, model, qstate, {"model": "deit_small",
+    ckpt = os.path.join(ckpt_dir, f"{name}_smoke_w4a4_{post}.ckpt")
+    save_checkpoint(ckpt, model, qstate, {"model": name,
                                           "state": "smoke, not FPCS"})
     return spec, model, qstate, ckpt, batches
 
 
-def predictors(ckpt, device, batch):
+def predictors(ckpt, device, batch, name="deit_small", settings=SETTINGS,
+               **cfg_kw):
     """{(dtype, setting): predict} for every serving setting in float32 and
     bfloat16, loaded through load_quantized and run once on ``batch``."""
     from adalog_tpu_torch.serve import load_quantized
-    from adalog_tpu_torch.utils.config import Config
 
     preds = {}
     for dt in ("float32", "bfloat16"):
-        for name, attn, gemm in SETTINGS:
+        for setting, attn, gemm in settings:
             predict, *_ = load_quantized(
-                "deit_small", ckpt, device=device, eval_dtype=dt,
-                use_pallas=attn, config=Config(w_bit=4, a_bit=4, s_bit=4,
-                                               qhead_a_bit=4,
-                                               use_pallas_gemm=gemm))
+                name, ckpt, device=device, eval_dtype=dt, use_pallas=attn,
+                config=w4a4_config(use_pallas_gemm=gemm, **cfg_kw))
             predict(batch)                           # warm-up
-            preds[dt, name] = predict
+            preds[dt, setting] = predict
     return preds
 
 
-def serving_phase(torch, fq_attn, fq_gemm, device, ckpt_dir):
-    """Serve deit_small through load_quantized; returns ({kernel: launches
-    on this slice's main path, attention + GEMM kernels}, {kernel: largest
+def serve(torch, predict, batches):
+    """(logits of all batches, img/s) of one pass, synchronized."""
+    t0 = time.perf_counter()
+    outs = [predict(x) for x in batches]
+    torch.cuda.synchronize()
+    return torch.cat(outs), len(batches) * BATCH / (time.perf_counter() - t0)
+
+
+def check_logits(torch, y, spec, n, tag):
+    check(tuple(y.shape) == (n, spec.cfg.num_classes),
+          f"{tag} logits shape {tuple(y.shape)}")
+    check(bool(torch.isfinite(y).all()), f"{tag} logits not finite")
+    check(y.float().std().item() > 0, f"{tag} logits constant")
+
+
+def serving_phase(torch, fq_attn, fq_gemm, device, ckpt_dir,
+                  name="deit_small"):
+    """Serve model ``name`` through load_quantized; returns ({kernel:
+    launches on the main path, attention + GEMM kernels}, {kernel: largest
     block-check max|diff|})."""
-    spec, model, qstate, ckpt, batches = smoke_model(torch, device, ckpt_dir)
-    cfg = spec.cfg
+    spec, model, qstate, ckpt, batches = smoke_model(torch, device, ckpt_dir,
+                                                     name)
+    n_attn, n_linear = MODELS[name]["K1"], MODELS[name]["K4"]
     worst = {"K1": 0.0, "K4": 0.0}
     x0 = torch.from_numpy(batches[0]).to(device)
     for dt, dtype in (("float32", torch.float32),
@@ -452,67 +713,205 @@ def serving_phase(torch, fq_attn, fq_gemm, device, ckpt_dir):
         m = model.to(dtype)
         res = block_check(torch, fq_attn, fq_gemm, spec, m, qstate,
                           x0.to(dtype), dt)
-        for k, what in (("K1", f"the q/kT/v of all {cfg.depth} blocks"),
-                        ("K4", f"the inputs of all {4 * cfg.depth + 1} "
-                               "Linear sites")):
+        for k, what in (("K1", f"the q/kT/v of all {n_attn} blocks"),
+                        ("K4", f"the inputs of all {n_linear} Linear sites")):
             d, share = res[k]
-            print(f"block check {dt}: {k} vs plain on {what}, batch "
+            print(f"block check {name} {dt}: {k} vs plain on {what}, batch "
                   f"{BATCH}: max|diff|={d:.3e} share_past_tol={share:.3e} "
                   f"(allowed share {FLIP_SHARE}, max {FLIP_MAX})")
-            check(share <= FLIP_SHARE, f"{dt} {k} block check share {share}")
-            check(d <= FLIP_MAX, f"{dt} {k} block check max|diff| {d}")
+            check(share <= FLIP_SHARE,
+                  f"{name} {dt} {k} block check share {share}")
+            check(d <= FLIP_MAX, f"{name} {dt} {k} block check max|diff| {d}")
             worst[k] = max(worst[k], d)
     del model, qstate, m
     torch.cuda.empty_cache()
 
-    preds = predictors(ckpt, device, batches[0])
+    preds = predictors(ckpt, device, batches[0], name)
     os.remove(ckpt)
     torch.cuda.synchronize()
 
-    def serve(predict):
-        t0 = time.perf_counter()
-        outs = [predict(x) for x in batches]
-        torch.cuda.synchronize()
-        return torch.cat(outs), BATCH * N_BATCHES / (time.perf_counter() - t0)
-
     # each setting is a path of its own, driven in both dtypes with the
     # launch counts set to 0 just before and read just after; the main path
-    # of this slice is the second, attention + GEMM kernels
-    per_batch = {"attention kernel": (cfg.depth, 0),
-                 "attention + GEMM kernels": (cfg.depth, 4 * cfg.depth + 1),
+    # is the second, attention + GEMM kernels
+    per_batch = {"attention kernel": (n_attn, 0),
+                 "attention + GEMM kernels": (n_attn, n_linear),
                  "plain": (0, 0)}
     served, launches = {}, {}
-    for name, *_ in SETTINGS:
-        fq_attn.fq_flash_attn.launches = fq_gemm.fq_gemm.launches = 0
+    for setting, *_ in SETTINGS:
+        zero_launches(fq_attn, fq_gemm)
         for dt in ("float32", "bfloat16"):
-            served[dt, name] = serve(preds[dt, name])
-        got = (fq_attn.fq_flash_attn.launches, fq_gemm.fq_gemm.launches)
-        want = tuple(n * N_BATCHES * 2 for n in per_batch[name])
-        print(f"serving path '{name}': K1 {got[0]}, K4 {got[1]} launches "
-              f"for 2 x {N_BATCHES} batches of {BATCH} (want K1 "
-              f"{per_batch[name][0]}, K4 {per_batch[name][1]} per batch = "
-              f"{want[0]}, {want[1]})")
-        check(got == want, f"'{name}' launches {got} != {want}")
-        launches[name] = dict(zip(("fq_flash_attn", "fq_gemm"), got))
+            served[dt, setting] = serve(torch, preds[dt, setting], batches)
+        got = read_launches(fq_attn, fq_gemm)
+        want = {"K1": per_batch[setting][0] * N_BATCHES * 2, "K2": 0, "K3": 0,
+                "K4": per_batch[setting][1] * N_BATCHES * 2}
+        print(f"serving path {name} '{setting}': launches {got} for 2 x "
+              f"{N_BATCHES} batches of {BATCH} (want K1 "
+              f"{per_batch[setting][0]}, K4 {per_batch[setting][1]} per "
+              f"batch: {want})")
+        check(got == want, f"{name} '{setting}' launches {got} != {want}")
+        launches[setting] = got
 
     for dt in ("float32", "bfloat16"):
-        for name, *_ in SETTINGS:
-            y, ips = served[dt, name]
-            check(tuple(y.shape) == (BATCH * N_BATCHES, cfg.num_classes),
-                  f"{dt} {name} logits shape {tuple(y.shape)}")
-            check(bool(torch.isfinite(y).all()), f"{dt} {name} logits")
-            check(y.std().item() > 0, f"{dt} {name} logits constant")
-            print(f"serving deit_small {dt}, {name}: {ips:.1f} img/s")
+        for setting, *_ in SETTINGS:
+            y, ips = served[dt, setting]
+            check_logits(torch, y, spec, BATCH * N_BATCHES,
+                         f"{name} {dt} {setting}")
+            print(f"serving {name} {dt}, {setting}: {ips:.1f} img/s")
         for a, b in ((1, 0), (1, 2), (0, 2)):
             (ya, _), (yb, _) = served[dt, SETTINGS[a][0]], \
                 served[dt, SETTINGS[b][0]]
             agree = (ya.argmax(-1) == yb.argmax(-1)).float().mean().item()
             rel = ((ya - yb).norm() / yb.norm()).item()
-            print(f"serving deit_small {dt} logits, {SETTINGS[a][0]} vs "
+            print(f"serving {name} {dt} logits, {SETTINGS[a][0]} vs "
                   f"{SETTINGS[b][0]}: top-1 agreement {agree:.4f}, max|diff| "
                   f"{(ya - yb).abs().max().item():.4e}, rel L2 {rel:.4e} "
                   f"(max|logit| {yb.abs().max().item():.4e})")
     return launches["attention + GEMM kernels"], worst
+
+
+def matmul_block_check(torch, fq_attn, spec, model, qstate, x, dt):
+    """Hold K2 and K3 against their plain versions, and against the forward
+    with the kernels off, on the tensors every attention of the quantized
+    model forms for images x: one capture pass with the kernels off gives
+    each block's q, kT, matmul1 output, probabilities, v and matmul2 output;
+    the logits K2 takes are formed from the matmul1 output as the forward
+    forms them. Returns {"K2" | "K3": (largest max|diff| to the plain
+    version, largest share past tolerance to it, largest share past
+    tolerance to the forward's own output)}."""
+    from adalog_tpu_torch.models.zoo import model_forward_fn
+
+    worst = {"K2": (0.0, 0.0, 0.0), "K3": (0.0, 0.0, 0.0)}
+
+    def hold(k, tag, fn, plain, args, kw, fwd_out):
+        got = fn(*args, **kw)
+        check(bool(torch.isfinite(got).all()), f"{tag}: {k} not finite")
+        d, share = compare(got, plain(*args, **kw), RTOL)
+        # a batch holds ~1e8 probabilities, so a few lie within an ulp of an
+        # AdaLog code boundary, large ones among them (p = 0.76 is one): a
+        # flipped code moves p by less than one whole probability, so an
+        # output by less than the largest value of B
+        cap = max(FLIP_MAX, args[1].abs().max().item())
+        check(d <= cap, f"{tag} {dt}: {k} max|diff| {d} above {cap}")
+        # the forward's output is in the compute dtype
+        _, fwd_share = compare(got.reshape(fwd_out.shape).to(fwd_out.dtype),
+                               fwd_out, GEMM_RTOL[dt])
+        worst[k] = tuple(max(a, b) for a, b in
+                         zip(worst[k], (d, share, fwd_share)))
+
+    with torch.inference_mode():
+        _, taps = model_forward_fn(spec)(spec.cfg, model, x, qstate,
+                                         {"*": "quant"}, capture=True)
+        for p, path, stage, blk in attention_blocks(spec):
+            q, kT, attn = taps[f"{p}.matmul1"]
+            probs, v, out = taps[f"{p}.matmul2"]
+            (qf, kTf, vf, m1a, m1b, m2q, m2b), bits = fq_attn.flash_args(
+                qstate[f"{p}.matmul1"], qstate[f"{p}.matmul2"], q, kT, v)
+            scale, _, mask = attention_bias(spec, model, path, stage, blk,
+                                            x.dtype)
+            if spec.family == "vit":
+                logits = attn * scale
+            else:
+                from adalog_tpu_torch.models.swin import add_window_bias
+                logits = add_window_bias(model.get_submodule(path), attn,
+                                         mask)
+            G, S = qf.shape[:2]
+            m2a = torch.stack([m2q, torch.zeros_like(m2q)], dim=1)
+            hold("K3", f"{p}.matmul1", fq_attn.fq_attn_matmul,
+                 fq_attn.fq_attn_matmul_plain, (qf, kTf, m1a, m1b),
+                 dict(a_kind="uniform", a_bits=bits["m1a_bits"],
+                      b_bits=bits["m1b_bits"]), attn)
+            hold("K3", f"{p}.matmul2", fq_attn.fq_attn_matmul,
+                 fq_attn.fq_attn_matmul_plain,
+                 (probs.reshape(G, S, S), vf, m2a, m2b),
+                 dict(a_kind="adalog", a_bits=bits["m2a_bits"],
+                      b_bits=bits["m2b_bits"]), out)
+            hold("K2", f"{p}.matmul2", fq_attn.fq_softmax_attn_matmul,
+                 fq_attn.fq_softmax_attn_matmul_plain,
+                 (logits.reshape(G, S, S), vf, m2a, m2b),
+                 dict(a_bits=bits["m2a_bits"], b_bits=bits["m2b_bits"]), out)
+    return worst
+
+
+def fallback_phase(torch, fq_attn, fq_gemm, device, ckpt_dir, name):
+    """Drive K2 and K3 through the forward of model ``name`` at full depth
+    and width, by the three configurations that reach them, in float32 and
+    bfloat16, launch counts asserted:
+      - post_softmax_quantizer='log2', served through load_quantized: the
+        fused paths decline and matmul1 of every block takes K3;
+      - a quant-mode forward with capture=True inside fq_attn.activate: both
+        matmuls of every block take K3;
+      - the forward's modes with every matmul1 site 'raw': K2 once a block.
+    Before that, matmul_block_check on the served model's own tensors.
+    Returns ({"K2" | "K3": launches of these paths}, {"K2" | "K3": largest
+    block-check max|diff|})."""
+    from adalog_tpu_torch.models.zoo import model_forward_fn
+
+    n_attn = MODELS[name]["K1"]
+    spec, model, qstate, ckpt, batches = smoke_model(torch, device, ckpt_dir,
+                                                     name)
+    os.remove(ckpt)
+    fwd = model_forward_fn(spec)
+    x0 = torch.from_numpy(batches[0]).to(device)
+    raw_m1 = {"*": "quant", **{f"{p}.matmul1": "raw"
+                               for p, *_ in attention_blocks(spec)}}
+    worst = {"K2": 0.0, "K3": 0.0}
+    total = {"K2": 0, "K3": 0}
+
+    def drove(path, want):
+        got = read_launches(fq_attn, fq_gemm)
+        print(f"fall-back path {name} '{path}': launches {got} (want "
+              f"{want})")
+        check(got == {"K1": 0, "K4": 0, **want},
+              f"{name} '{path}' launches {got}")
+        for k in total:
+            total[k] += got[k]
+
+    for dt, dtype in (("float32", torch.float32),
+                      ("bfloat16", torch.bfloat16)):
+        m, x = model.to(dtype), x0.to(dtype)
+        res = matmul_block_check(torch, fq_attn, spec, m, qstate, x, dt)
+        for k, (d, share, fwd_share) in res.items():
+            print(f"block check {name} {dt}: {k} on the tensors of all "
+                  f"{n_attn} blocks, batch {BATCH}: vs plain max|diff|="
+                  f"{d:.3e} share_past_tol={share:.3e}; vs the forward with "
+                  f"kernels off share_past_tol={fwd_share:.3e} (allowed "
+                  f"share {FLIP_SHARE}, max the largest value of B)")
+            check(share <= FLIP_SHARE, f"{name} {dt} {k} share {share}")
+            # bf16: the unfused forward rounds the probabilities to bf16
+            # before the AdaLog quantizer and K2 does not, so they take
+            # other codes by design; reported, not held
+            check(fwd_share <= FLIP_SHARE or (k, dt) == ("K2", "bfloat16"),
+                  f"{name} {dt} {k} share to the forward {fwd_share}")
+            worst[k] = max(worst[k], d)
+
+        zero_launches(fq_attn, fq_gemm)
+        with torch.inference_mode(), fq_attn.activate(True):
+            y, _ = fwd(spec.cfg, m, x, qstate, {"*": "quant"}, capture=True)
+        torch.cuda.synchronize()
+        check_logits(torch, y, spec, BATCH, f"{name} {dt} capture")
+        drove(f"capture=True, {dt}", {"K2": 0, "K3": 2 * n_attn})
+
+        zero_launches(fq_attn, fq_gemm)
+        with torch.inference_mode(), fq_attn.activate(True):
+            y = fwd(spec.cfg, m, x, qstate, raw_m1)
+        torch.cuda.synchronize()
+        check_logits(torch, y, spec, BATCH, f"{name} {dt} matmul1 raw")
+        drove(f"matmul1 raw, {dt}", {"K2": n_attn, "K3": 0})
+    del model, qstate, m
+    torch.cuda.empty_cache()
+
+    *_, ckpt, _ = smoke_model(torch, device, ckpt_dir, name, post="log2")
+    preds = predictors(ckpt, device, batches[0], name, SETTINGS[:1],
+                       post_softmax_quantizer="log2")
+    os.remove(ckpt)
+    zero_launches(fq_attn, fq_gemm)
+    for dt in ("float32", "bfloat16"):
+        y, ips = serve(torch, preds[dt, SETTINGS[0][0]], batches)
+        check_logits(torch, y, spec, BATCH * N_BATCHES, f"{name} {dt} log2")
+        print(f"serving {name} {dt}, log2 post-softmax quantizer, K3 on "
+              f"matmul1: {ips:.1f} img/s")
+    drove("log2, load_quantized", {"K2": 0, "K3": n_attn * N_BATCHES * 2})
+    return total, worst
 
 
 PROFILE_WARMUP, PROFILE_BATCHES = 3, 5
@@ -541,7 +940,7 @@ def busy_us(intervals):
     return total
 
 
-def profile_phase(torch, device, ckpt_dir, activity=None):
+def profile_phase(torch, device, ckpt_dir, name="deit_small", activity=None):
     """Where the device time of a served batch goes, per dtype and serving
     setting: PROFILE_BATCHES batches of BATCH images already on the device,
     after PROFILE_WARMUP, first timed untraced (wall ms a batch), then
@@ -550,16 +949,17 @@ def profile_phase(torch, device, ckpt_dir, activity=None):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    spec, model, qstate, ckpt, batches = smoke_model(torch, device, ckpt_dir)
+    spec, model, qstate, ckpt, batches = smoke_model(torch, device, ckpt_dir,
+                                                     name)
     del model, qstate
     x = torch.from_numpy(batches[0]).to(device)
-    preds = predictors(ckpt, device, x)
+    preds = predictors(ckpt, device, x, name)
     os.remove(ckpt)
     activity = ProfilerActivity.CUDA if activity is None else activity
     dev_type = DeviceType.CUDA if activity == ProfilerActivity.CUDA \
         else DeviceType.CPU
     rows = []
-    for (dt, name), predict in preds.items():
+    for (dt, setting), predict in preds.items():
         for _ in range(PROFILE_WARMUP):
             predict(x)
         torch.cuda.synchronize()
@@ -573,7 +973,7 @@ def profile_phase(torch, device, ckpt_dir, activity=None):
                 predict(x)
             torch.cuda.synchronize()
         evs = [e for e in prof.events() if e.device_type == dev_type]
-        check(evs, f"{dt} {name}: the profiler saw no device event")
+        check(evs, f"{name} {dt} {setting}: the profiler saw no device event")
         spans = [(e.time_range.start, e.time_range.end) for e in evs]
         busy = busy_us(spans)
         span = max(b for _, b in spans) - min(a for a, _ in spans)
@@ -585,15 +985,16 @@ def profile_phase(torch, device, ckpt_dir, activity=None):
             ms[c] += t
             if c in by_name:
                 by_name[c][e.name] = by_name[c].get(e.name, 0.0) + t
-        row = dict(dtype=dt, setting=name, wall_ms=wall,
+        row = dict(model=name, dtype=dt, setting=setting, wall_ms=wall,
                    busy_ms=busy / 1e3 / PROFILE_BATCHES,
                    idle=1.0 - busy / span,
                    events=len(evs) / PROFILE_BATCHES,
                    **{k: v / PROFILE_BATCHES for k, v in ms.items()})
         rows.append(row)
-        print(f"profile {dt}, {name}: wall {wall:.2f} ms/batch, device busy "
-              f"{row['busy_ms']:.2f} ms/batch, idle {100 * row['idle']:.1f}%"
-              f", K1 {row['K1']:.2f}, K4 {row['K4']:.2f}, GEMM "
+        print(f"profile {name} {dt}, {setting}: wall {wall:.2f} ms/batch, "
+              f"device busy {row['busy_ms']:.2f} ms/batch, idle "
+              f"{100 * row['idle']:.1f}%, K1 {row['K1']:.2f}, K4 "
+              f"{row['K4']:.2f}, GEMM "
               f"{row['GEMM']:.2f}, other {row['other']:.2f} ms/batch, "
               f"{row['events']:.0f} device events/batch")
         for c, top in (("GEMM", 3), ("other", 5)):
@@ -637,27 +1038,61 @@ def main(argv):
     ckpt_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "checkpoints")
     if profile:
-        profile_phase(torch, device, ckpt_dir)
+        for name in MODELS:
+            profile_phase(torch, device, ckpt_dir, name)
         return
 
     (k_ms, p_ms), worst = kernel_phase(torch, fq_attn, device)
     (g_ms, gp_ms), g_worst = gemm_kernel_phase(torch, fq_gemm, device)
-    launches, block_worst = serving_phase(torch, fq_attn, fq_gemm, device,
-                                          ckpt_dir)
+    mm = matmul_kernel_phase(torch, fq_attn, device)
+    # the main paths, each driven with the counts at 0 just before and read
+    # just after: serving each model with the attention and GEMM kernels
+    # (K1, K4), and the three configurations that reach K2 and K3
+    launches = {k: 0 for k in ("K1", "K2", "K3", "K4")}
+    block_worst = dict(launches, K1=0.0, K2=0.0, K3=0.0, K4=0.0)
+    for name in MODELS:
+        for got, errs in (
+                serving_phase(torch, fq_attn, fq_gemm, device, ckpt_dir,
+                              name),
+                fallback_phase(torch, fq_attn, fq_gemm, device, ckpt_dir,
+                               name)):
+            for k, n in got.items():
+                launches[k] += n
+            for k, d in errs.items():
+                block_worst[k] = max(block_worst[k], d)
+    for k, n in launches.items():
+        check(n > 0, f"{k} was launched no time on the main paths")
+
+    G, S, D = (KERNEL_SHAPE[k] for k in "GSD")
+    k1_bound, k1_by = flash_bound_ms(G, S, D, 0, torch.float32)
+    k4_bounds = [gemm_bound_ms(T, K, O, torch.float32)
+                 for site, T, K, O, kind in GEMM_SHAPES
+                 if (site, kind) != ("fc2", "uniform")]
+
+    def entry(name, source, replaces, key, err, ms, plain_ms, bound, by):
+        # library_ms: no single PyTorch call computes any of the four (the
+        # fake quantizers sit inside the products), so there is none to time
+        return {"name": name, "route": "cuda",
+                "source": f"adalog_tpu_torch/csrc/{source}.cu",
+                "replaces": f"adalog_tpu/ops/{replaces}",
+                "launches": launches[key], "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                "library_ms": None}
 
     print(json.dumps({"kernels": [
-        {"name": "fq_flash_attn", "route": "cuda",
-         "source": "adalog_tpu_torch/csrc/fq_flash_attn.cu",
-         "replaces": "adalog_tpu/ops/fq_attn.py:226",
-         "launches": launches["fq_flash_attn"],
-         "max_abs_err": max(worst, block_worst["K1"]),
-         "ms": k_ms, "plain_ms": p_ms},
-        {"name": "fq_gemm", "route": "cuda",
-         "source": "adalog_tpu_torch/csrc/fq_gemm.cu",
-         "replaces": "adalog_tpu/ops/fq_gemm.py:100",
-         "launches": launches["fq_gemm"],
-         "max_abs_err": max(g_worst, block_worst["K4"]),
-         "ms": g_ms, "plain_ms": gp_ms}]}))
+        entry("fq_flash_attn", "fq_flash_attn", "fq_attn.py:226", "K1",
+              max(worst, block_worst["K1"]), k_ms, p_ms, k1_bound, k1_by),
+        entry("fq_softmax_attn_matmul", "fq_attn_matmul", "fq_attn.py:160",
+              "K2", max(mm["K2"]["max_abs_err"], block_worst["K2"]),
+              mm["K2"]["ms"], mm["K2"]["plain_ms"], mm["K2"]["bound_ms"],
+              mm["K2"]["bound_by"]),
+        entry("fq_attn_matmul", "fq_attn_matmul", "fq_attn.py:146", "K3",
+              max(mm["K3"]["max_abs_err"], block_worst["K3"]),
+              mm["K3"]["ms"], mm["K3"]["plain_ms"], mm["K3"]["bound_ms"],
+              mm["K3"]["bound_by"]),
+        entry("fq_gemm", "fq_gemm", "fq_gemm.py:100", "K4",
+              max(g_worst, block_worst["K4"]), g_ms, gp_ms,
+              sum(b for b, _ in k4_bounds), max(k4_bounds)[1])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,7 +6,8 @@ vit_forward are held to the JAX package's for the raw model, init_qstate,
 and a JAX-calibrated state (FPCS search, LayerNorm reparam, folded post-GeLU
 bias). Both packages quantize identically (see test_torch_quantizers.py),
 so logits differ only by fp32 sum order in the GEMMs: LOGIT_TOL. Checkpoints
-cross in both directions, and the paths the port does not have yet raise.
+cross in both directions, and the paths the port does not have yet raise
+(the Swin family's counterpart of this file is test_torch_swin.py).
 """
 
 import dataclasses
@@ -269,10 +270,6 @@ def test_unported_paths_raise(jax_calibrated, tmp_path):
     params, qstate = jax_calibrated
     path = str(tmp_path / "m.ckpt")
     j_checkpoint.save_checkpoint(path, params, qstate)
-    with pytest.raises(NotImplementedError):
-        zoo.build_model("test_tiny_swin")
-    with pytest.raises(NotImplementedError):
-        load_quantized("test_tiny_swin", path, device="cpu")
     with pytest.raises(NotImplementedError):
         load_quantized("test_tiny", path, device="cpu", mesh_devices=2)
     with pytest.raises(NotImplementedError):
