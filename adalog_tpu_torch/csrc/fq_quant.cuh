@@ -37,17 +37,64 @@ __device__ __forceinline__ float exp2_neg_int(float f) {
   return __int_as_float((127 - static_cast<int>(f)) << 23);
 }
 
+// a / b rounded to nearest even, the IEEE quotient, from y = __frcp_rn(b),
+// the correctly rounded reciprocal, for a divisor shared by many dividends:
+// q = RN(a * y) lies within an ulp of a / b, one FMA gives the remainder
+// r = a - q * b to a rounding of its last bit, and RN(q + r * y) is the
+// correctly rounded quotient (Markstein's correction; a CPU test holds it
+// against exact rational arithmetic on the operands the kernels meet). For
+// finite a and normal b, quotient and remainder; 0 / b is 0. div_rn_by_any also takes an infinite or overflowing a, whose
+// remainder is NaN: the first quotient stands.
+__device__ __forceinline__ float div_rn_by(float a, float b, float y) {
+  const float q = __fmul_rn(a, y);
+  return __fmaf_rn(__fmaf_rn(-q, b, a), y, q);
+}
+
+__device__ __forceinline__ float div_rn_by_any(float a, float b, float y) {
+  const float q = __fmul_rn(a, y);
+  const float r = __fmaf_rn(__fmaf_rn(-q, b, a), y, q);
+  return fabsf(q) <= 3.4028234e38f ? r : q;
+}
+
+// The AdaLog quantizer at scale 1 in two halves. First half: the code of a
+// probability x in [0, 1], before any clamp (codes >= 2N dequantize to 0).
+__device__ __forceinline__ float adalog_code(float x, float q) {
+  return rintf(__fdiv_rn(__fmul_rn(-log2f(fmaxf(x, 1e-15f)), ADALOG_R), q));
+}
+
+// Second half: a code in 0..2N-1 dequantizes to 2^-shift * (steps * ts) with
+// prod = code * q, shift = floor(prod / 37) and steps = rint(2^(-(prod mod
+// 37) / 37) / ts), an integer of at most 4N - 2. The value depends on the
+// code alone, so a slice's 2N values fit a table.
+__device__ __forceinline__ float adalog_pow2(float prod) {
+  return exp2_neg_int(floorf(__fdiv_rn(prod, ADALOG_R)));
+}
+
+__device__ __forceinline__ float adalog_steps(float prod, float ts) {
+  float frac = fmodf(prod, ADALOG_R);
+  return rintf(__fdiv_rn(exp2f(__fdiv_rn(-frac, ADALOG_R)), ts));
+}
+
+__device__ __forceinline__ float adalog_value(float code, float q, float ts) {
+  float prod = __fmul_rn(code, q);
+  return __fmul_rn(adalog_pow2(prod), __fmul_rn(adalog_steps(prod, ts), ts));
+}
+
+// the value without its factor ts: steps * 2^-shift, exact in bf16 while
+// 4N - 2 < 256
+__device__ __forceinline__ float adalog_value_steps(float code, float q,
+                                                    float ts) {
+  float prod = __fmul_rn(code, q);
+  return __fmul_rn(adalog_pow2(prod), adalog_steps(prod, ts));
+}
+
 // AdaLog fake quant at scale 1 of a probability x in [0, 1]
 __device__ __forceinline__ float adalog_unit(float x, float q, float n2,
                                              float ts) {
-  float code = rintf(__fdiv_rn(__fmul_rn(-log2f(fmaxf(x, 1e-15f)), ADALOG_R), q));
+  float code = adalog_code(x, q);
   float keep = code < n2 ? 1.0f : 0.0f;
   code = fminf(fmaxf(code, 0.0f), n2 - 1.0f);
-  float prod = __fmul_rn(code, q);
-  float frac = fmodf(prod, ADALOG_R);
-  float mant = __fmul_rn(rintf(__fdiv_rn(exp2f(__fdiv_rn(-frac, ADALOG_R)), ts)), ts);
-  return __fmul_rn(__fmul_rn(exp2_neg_int(floorf(__fdiv_rn(prod, ADALOG_R))), mant),
-                   keep);
+  return __fmul_rn(adalog_value(code, q, ts), keep);
 }
 
 __device__ __forceinline__ float warp_max(float v) {

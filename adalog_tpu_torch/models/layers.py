@@ -15,6 +15,7 @@ the forward, so one raw pass captures every site's inputs and output.
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from dataclasses import dataclass
 
 import torch
@@ -100,18 +101,37 @@ def quant_conv_weight(p: torch.nn.Conv2d, site: ConvSite) -> torch.Tensor:
     return apply_weight_quantizer(site.wq, wv).reshape(p.weight.shape)
 
 
+@contextmanager
+def _cudnn_full_fp32():
+    """cuDNN convolutions in full fp32 inside the block (its default for
+    fp32 inputs is TF32, about three decimal digits); the process's setting
+    is restored on exit."""
+    was = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = was
+
+
 def qconv2d(p: torch.nn.Conv2d, site, x, *, mode: str = "raw"):
     """Conv on NHWC images with optional fake quantization; returns NHWC.
 
     Activations pass through unquantized when a-bits >= 8; the shipped
-    configs set qconv_a_bit=8, so the patch-embed conv is weight-only."""
+    configs set qconv_a_bit=8, so the patch-embed conv is weight-only. An
+    fp32 convolution on a CUDA device runs in full fp32, as the JAX layer
+    pins Precision.HIGHEST, whatever the process has set for cuDNN."""
     w = p.weight
     if site is not None and mode in ("quant", "w_only"):
         w = quant_conv_weight(p, site)
     if site is not None and mode in ("quant", "a_only") and site.aq.bits < 8:
         x = apply_quantizer(site.aq, x)
-    y = F.conv2d(x.permute(0, 3, 1, 2), w, p.bias, stride=p.stride,
-                 padding=p.padding)
+    xc = x.permute(0, 3, 1, 2)
+    if x.device.type == "cuda" and x.dtype == torch.float32:
+        with _cudnn_full_fp32():
+            y = F.conv2d(xc, w, p.bias, stride=p.stride, padding=p.padding)
+    else:
+        y = F.conv2d(xc, w, p.bias, stride=p.stride, padding=p.padding)
     return y.permute(0, 2, 3, 1)
 
 

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. ``build`` compiles it with
 nvcc for sm_90a into ``csrc/build/lib<name>_<hash>.so``, keyed by the hash
-of the source and of every header (``csrc/*.cuh``), at first use;
+of the source, of every header (``csrc/*.cuh``) and of the preprocessor
+definitions it is given, at first use;
 ``library`` loads it with ctypes. Nothing is built or loaded when a module
 is imported, so the CPU tests import every module without nvcc.
 """
@@ -34,12 +35,12 @@ def _nvcc() -> str:
                        "built from csrc/ at first use")
 
 
-def _lib_path(name: str) -> str:
+def _lib_path(name: str, defines=()) -> str:
     """Where the library of ``csrc/<name>.cu`` is built: the name carries
-    the hash of the source and of all headers of ``csrc/``, so an edit to a
-    shared header rebuilds every kernel; the compiler's report (registers,
-    shared memory, spills) goes to ``<path>.log``."""
-    h = hashlib.sha256()
+    the hash of the source, of all headers of ``csrc/`` and of ``defines``,
+    so an edit to a shared header rebuilds every kernel; the compiler's
+    report (registers, shared memory, spills) goes to ``<path>.log``."""
+    h = hashlib.sha256("\0".join(defines).encode())
     headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
     for fname in [f"{name}.cu"] + headers:
         with open(os.path.join(CSRC, fname), "rb") as f:
@@ -48,16 +49,17 @@ def _lib_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
 
 
-def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless its library exists; returns the
-    library's path."""
-    lib = _lib_path(name)
+def build(name: str, defines=()) -> str:
+    """Compile ``csrc/<name>.cu``, with ``-D`` for each of ``defines``,
+    unless its library exists; returns the library's path."""
+    lib = _lib_path(name, defines)
     if os.path.exists(lib):
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp,
+           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+           *(f"-D{d}" for d in defines), "-o", tmp,
            os.path.join(CSRC, f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:

@@ -27,11 +27,12 @@ log = logging.getLogger("adalog_tpu_torch")
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def _pin_fp32_precision():
-    """Full-fp32 products and convolutions on the GPU, as the JAX package's
-    fp32 eval pins Precision.HIGHEST: cuDNN would otherwise run the
-    patch-embed conv in TF32."""
-    torch.backends.cudnn.allow_tf32 = False
+def pin_fp32_matmul():
+    """Full-fp32 matrix products on the GPU for the rest of the process, as
+    the JAX package's fp32 eval pins Precision.HIGHEST. Every fp32 CUDA
+    entry point calls it (serving here; capture and scoring when they are
+    ported). The patch-embed convolution pins its own precision, inside
+    ``models.layers.qconv2d``, and leaves the process's setting alone."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
 
@@ -63,18 +64,23 @@ def make_predictor(spec, params, qstate, *, eval_dtype: str = "float32",
     device = torch.device(device) if device is not None \
         else next(params.parameters()).device
     if device.type == "cuda" and dtype == torch.float32:
-        _pin_fp32_precision()
+        pin_fp32_matmul()
 
     model = copy.deepcopy(params).to(device=device, dtype=dtype)
     model.requires_grad_(False)
     qs = map_tensors(lambda t: t.to(device), qstate)
     wprep = weight_prep.prepare(spec, model, qs, cfg or Config())
     gemm_table = fq_gemm.prepare(qs) if use_gemm_kernels else None
+    # read once here, so that no served call waits for the device to learn
+    # which variant of the attention kernel its zero points allow
+    exact_ints = fq_attn.integers_exact(qs) \
+        if use_kernels or use_gemm_kernels else None
 
     def predict(x):
         x = torch.as_tensor(x).to(device=device, dtype=dtype)
         with torch.inference_mode(), weight_prep.activate(wprep), \
-                fq_attn.activate(use_kernels), fq_gemm.activate(gemm_table):
+                fq_attn.activate(use_kernels, exact_ints), \
+                fq_gemm.activate(gemm_table):
             return fwd(spec.cfg, model, x, qs, {"*": "quant"}).float()
 
     return predict
@@ -106,6 +112,10 @@ def load_quantized(model: str, checkpoint: str, *, config=None,
         cfg = config
     if eval_dtype is None:
         eval_dtype = getattr(cfg, "eval_dtype", "float32")
+    if mesh_devices == -1:
+        # all local devices, as in the JAX package: one device serves
+        on_cpu = torch.device(device).type == "cpu"
+        mesh_devices = 1 if on_cpu else torch.cuda.device_count()
     if mesh_devices not in (0, 1) or mesh_tp != 1:
         raise NotImplementedError(
             "multi-device serving is not ported to PyTorch yet")

@@ -9,8 +9,15 @@ take the neighbouring code; on these seeded inputs none does.
 
 The CUDA kernel is held against the plain version in
 test_torch_fq_attn_cuda.py, which imports no jax so that it runs on the GPU
-machine.
+machine. Its tensor-core variant ("mma") computes with other operands than
+the plain version (a per-slice table of the AdaLog values; for fp32 inputs
+integer codes with the scales applied to the sums): the second half of this
+file holds that formulation, in plain PyTorch, to the plain version, and the
+routing between the two variants.
 """
+
+import functools
+from fractions import Fraction
 
 import numpy as np
 import jax.numpy as jnp
@@ -202,3 +209,299 @@ def test_kernel_shape_limits():
         fq_attn.check_kernel_shape(577, 64)
     with pytest.raises(ValueError):
         fq_attn.check_kernel_shape(64, 256)
+
+
+# ---------------------------------------------------------------------------
+# The formulation of the kernel's tensor-core variant ("mma")
+# ---------------------------------------------------------------------------
+
+# the integer-operand product against the plain version: exact integer sums
+# against rounded fp32 products, so a probability at a code boundary may
+# take the neighbouring code; at most FLIP_SHARE of the outputs may leave
+# ATOL + RTOL*|ref| (on these seeded inputs none does: the largest |diff|
+# is 3.6e-6)
+FLIP_SHARE = 1e-3
+BASES = [float(b) for b in range(23, 52)] + [29.5, 40.25]
+
+
+def _reachable(q, n_codes):
+    """(G, 2N) mask of the codes a probability can take: x is clamped at
+    1e-15, so codes past round(-log2(1e-15) * 37 / q) never occur and their
+    table entries are never read."""
+    last = torch.round(-torch.log2(torch.tensor(1e-15)) * 37.0 / q)
+    return torch.arange(n_codes).reshape(1, -1) <= last.reshape(-1, 1)
+
+
+@pytest.mark.parametrize("bits", range(2, 9))
+def test_code_table_value_mode_matches_adalog_unit(bits):
+    """The table's entry equals _adalog_unit bit for bit: for a probability
+    at the centre of every reachable code 0..2N-1, for probabilities whose
+    codes lie past 2N (value 0), and for a dense random sample, at integer
+    bases 23..51 and two non-integer ones."""
+    q = torch.tensor(BASES)
+    n_codes = 2 ** bits
+    table = fq_attn._adalog_table(q, bits, steps_only=False)
+    assert table.shape == (len(BASES), n_codes) and table.dtype == torch.float32
+    code = torch.arange(n_codes + 40, dtype=torch.float32).reshape(1, 1, -1)
+    qg = q.reshape(-1, 1, 1)
+    rng = np.random.default_rng(bits)
+    for x in (torch.exp2(-code * qg / 37.0),
+              torch.from_numpy(rng.random((len(BASES), 64, 257)
+                                          ).astype(np.float32)),
+              torch.from_numpy(np.exp(-20 * rng.random((len(BASES), 64, 257))
+                                      ).astype(np.float32))):
+        want = fq_attn._adalog_unit(x, qg, bits)
+        got = fq_attn._adalog_lookup(x, table, qg)
+        assert torch.equal(got, want)
+    # the first sample did visit every reachable code and codes past 2N
+    x = torch.exp2(-code * qg / 37.0)
+    seen = torch.round(-torch.log2(torch.clamp(x, min=1e-15)) * 37.0 / qg)
+    for g in range(len(BASES)):
+        reach = _reachable(q[g:g + 1], n_codes)[0]
+        assert set(range(n_codes)) & set(seen[g, 0].int().tolist()) \
+            >= set(torch.nonzero(reach).flatten().tolist())
+    if bits <= 5:
+        assert (seen >= n_codes).any()
+        assert (fq_attn._adalog_lookup(x, table, qg)[seen >= n_codes] == 0).all()
+
+
+@pytest.mark.parametrize("bits", range(2, 9))
+def test_code_table_steps_mode(bits):
+    """fp32 inputs: the table holds steps * 2^-shift. Times ts it is the
+    value bit for bit, and up to 7 bits (4N - 2 <= 254 steps) every entry is
+    exact in bf16, for every reachable code."""
+    q = torch.tensor(BASES)
+    values = fq_attn._adalog_table(q, bits, steps_only=False)
+    steps = fq_attn._adalog_table(q, bits, steps_only=True)
+    reach = _reachable(q, 2 ** bits)
+    ts = torch.tensor(1.0 / (2 ** (bits + 1) - 2), dtype=torch.float32)
+    assert torch.equal((steps * ts)[reach], values[reach])
+    assert (steps[reach] > 0).all() and torch.isfinite(steps[reach]).all()
+    if bits <= 7:
+        assert torch.equal(steps.to(torch.bfloat16).float()[reach],
+                           steps[reach])
+
+
+def _mma_case(G, S, D, P, bits, dtype, seed):
+    arrays, bias = _inputs(seed, G, S, D, P, bits)
+    t = [torch.from_numpy(a) for a in arrays]
+    t[:3] = [a.to(dtype) for a in t[:3]]
+    t[5] = t[5] + torch.tensor([0.0, 0.5, 0.25])[torch.arange(G) % 3]
+    b = None if bias is None else torch.from_numpy(bias)
+    # the probabilities' codes are exact in bf16 up to 7 bits only
+    kw = dict(_kw(bits, D ** -0.5), m2a_bits=min(bits, 7))
+    return t, b, kw
+
+
+@pytest.mark.parametrize("bits", [3, 4, 6, 8])
+@pytest.mark.parametrize("P", [0, 3])
+@pytest.mark.parametrize("G,S,D", [(6, 197, 64), (9, 49, 32), (3, 50, 24)])
+def test_integer_operand_product_matches_plain_fp32(G, S, D, P, bits):
+    """fp32: integer operands c - z in bf16, exact integer sums, the scales
+    sq*sk and ts*sv on the sums, AdaLog values from the table (some bases
+    not integers) equal the plain version's rounded fp32 products to
+    ATOL/RTOL, up to a bounded share of flipped codes."""
+    t, b, kw = _mma_case(G, S, D, P, bits, torch.float32, S + D + P + bits)
+    want = fq_attn.fq_flash_attn_plain(*t, b, **kw)
+    got = fq_attn._flash_mma_plain(*t, b, **kw)
+    assert got.dtype == torch.float32 and got.shape == (G, S, D)
+    diff = (got - want).abs()
+    share = (diff > ATOL + RTOL * want.abs()).float().mean().item()
+    assert share <= FLIP_SHARE, share
+    # one flipped code moves an output by less than one probability times
+    # the largest |uq(v)|
+    ops = fq_attn._mma_operands(*t, **{k: v for k, v in kw.items()
+                                       if k != "logit_scale"})
+    cap = (ops["v"].float().abs().amax()
+           * t[6][:, 0].abs().amax()).item()
+    assert diff.max().item() <= cap
+    for k in ("q", "kT", "v"):       # integers, exact in bf16
+        o = ops[k].float()
+        assert torch.equal(o, torch.round(o)) and o.abs().max() <= 256
+
+
+@pytest.mark.parametrize("P", [0, 3])
+@pytest.mark.parametrize("G,S,D", [(6, 197, 64), (9, 49, 32), (3, 50, 24)])
+def test_bf16_operands_are_the_plain_versions(G, S, D, P):
+    """bf16: the staged operands are the plain version's rounded operands
+    bit for bit, the table's probabilities round to the plain version's,
+    and so the whole product equals the plain version."""
+    t, b, kw = _mma_case(G, S, D, P, 4, torch.bfloat16, S + D + P)
+    ops = fq_attn._mma_operands(*t, **{k: v for k, v in kw.items()
+                                       if k != "logit_scale"})
+
+    def per_g(a):
+        return a.reshape(-1, 1, 1)
+
+    for k, x, prm in (("q", t[0], t[3]), ("kT", t[1], t[4]), ("v", t[2], t[6])):
+        want = fq_attn._uq(x.float(), per_g(prm[:, 0]), per_g(prm[:, 1]), 4)
+        assert ops[k].dtype == torch.bfloat16
+        assert torch.equal(ops[k], want.to(torch.bfloat16))
+    assert torch.equal(ops["logit_scale"], torch.ones(G, 1, 1))
+    assert torch.equal(ops["out_scale"], torch.ones(G, 1, 1))
+    sm = torch.softmax(torch.from_numpy(
+        np.random.default_rng(S).standard_normal((G, S, S)).astype(np.float32)
+        * 3), -1)
+    assert torch.equal(
+        fq_attn._adalog_lookup(sm, ops["table"], per_g(t[5])).to(torch.bfloat16),
+        fq_attn._adalog_unit(sm, per_g(t[5]), kw["m2a_bits"]).to(torch.bfloat16))
+    want = fq_attn.fq_flash_attn_plain(*t, b, **kw)
+    got = fq_attn._flash_mma_plain(*t, b, **kw)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=RTOL, atol=ATOL)
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+@pytest.mark.parametrize("S,D,dtype,bits,exact,want", [
+    (197, 64, F32, (4, 4, 4, 4), True, "mma"),       # deit_small
+    (197, 64, BF16, (4, 4, 4, 4), True, "mma"),
+    (49, 32, F32, (4, 4, 4, 4), True, "mma"),        # swin_tiny
+    (49, 32, BF16, (4, 4, 4, 4), False, "mma"),      # bf16 needs no integers
+    (256, 128, F32, (8, 8, 7, 8), True, "mma"),      # the widest it takes
+    (300, 64, F32, (4, 4, 4, 4), True, "fma"),       # logits past registers
+    (257, 64, BF16, (4, 4, 4, 4), True, "fma"),
+    (197, 64, F32, (9, 4, 4, 4), True, "fma"),       # 9-bit fp32 operands
+    (197, 64, F32, (4, 4, 4, 9), True, "fma"),
+    (197, 64, F32, (4, 4, 8, 4), True, "fma"),       # 510 mantissa steps
+    (197, 64, BF16, (9, 9, 8, 9), True, "mma"),      # values, not integers
+    (197, 64, BF16, (4, 4, 9, 4), True, "fma"),      # 512 codes: no table
+    (197, 64, F32, (4, 4, 4, 4), False, "fma"),      # a zero point of 400
+])
+def test_flash_variant_routing(S, D, dtype, bits, exact, want):
+    assert fq_attn.flash_variant(S, D, dtype, bits, exact) == want
+    if (S, D) == (256, 128):         # bf16 staging fits a block, fp32 does not
+        with pytest.raises(ValueError):
+            fq_attn.flash_variant(S, D, dtype, bits, exact, "fma")
+    else:
+        assert fq_attn.flash_variant(S, D, dtype, bits, exact, "fma") == "fma"
+    if want == "mma":
+        assert fq_attn.flash_variant(S, D, dtype, bits, exact, "mma") == "mma"
+    else:
+        with pytest.raises(ValueError):
+            fq_attn.flash_variant(S, D, dtype, bits, exact, "mma")
+    with pytest.raises(ValueError):
+        fq_attn.flash_variant(S, D, dtype, bits, exact, "wgmma")
+
+
+def test_flash_variant_raises_where_neither_takes_the_call():
+    with pytest.raises(ValueError):
+        fq_attn.flash_variant(577, 64, F32, (4, 4, 4, 4), True)
+    with pytest.raises(ValueError):
+        fq_attn.flash_variant(64, 256, BF16, (4, 4, 4, 4), True, "fma")
+
+
+def test_zero_point_range():
+    """|c - round(z)| <= 256 for every code c: at 4 bits z in -241..256, at
+    8 bits z in -1..256."""
+    def prm(z):
+        return torch.tensor([[0.1, z]])
+
+    for bits, ok, bad in ((4, (-241.0, 0.0, 7.4, 256.0), (-242.0, 257.0, 400.0)),
+                          (8, (-1.0, 128.0, 256.4), (-2.0, 256.6, 400.0))):
+        for z in ok:
+            assert fq_attn.zero_points_exact(prm(z), bits), (bits, z)
+        for z in bad + (float("nan"),):
+            assert not fq_attn.zero_points_exact(prm(z), bits), (bits, z)
+
+
+def test_forced_mma_refuses_inexact_inputs():
+    """A zero point of 400: "auto" would take "fma"; a forced "mma" raises,
+    on the CPU too, whether the wrapper reads the zero points itself or the
+    caller hands the verdict in."""
+    arrays, _ = _inputs(21, 6, 16, 8, 0)
+    t = [torch.from_numpy(a) for a in arrays]
+    kw = _kw(4, 0.5)
+    fq_attn.fq_flash_attn(*t, variant="mma", **kw)
+    fq_attn.fq_flash_attn(*t, variant="mma", exact_ints=True, **kw)
+    with pytest.raises(ValueError):
+        fq_attn.fq_flash_attn(*t, variant="mma", exact_ints=False, **kw)
+    t[4] = t[4].clone()
+    t[4][2, 1] = 400.0
+    with pytest.raises(ValueError):
+        fq_attn.fq_flash_attn(*t, variant="mma", **kw)
+    want = fq_attn.fq_flash_attn_plain(*t, **kw)
+    assert torch.equal(fq_attn.fq_flash_attn(*t, **kw), want)
+    assert torch.equal(fq_attn.fq_flash_attn(*t, variant="fma", **kw), want)
+    bf = [a.to(torch.bfloat16) for a in t[:3]] + t[3:]
+    fq_attn.fq_flash_attn(*bf, variant="mma", **kw)      # values, not integers
+    with pytest.raises(ValueError):
+        fq_attn.fq_flash_attn(*t, variant="tensor", **kw)
+
+
+def test_integers_exact_reads_every_matmul_site():
+    """The predictor's one verdict: every uniform quantizer of every matmul
+    site; run_flash hands it to the wrapper through activate."""
+    rng = np.random.default_rng(5)
+    _, (m1, m2) = _sites(rng, 2, 29.0)
+    state = {"blocks.0.attn.matmul1": m1, "blocks.0.attn.matmul2": m2}
+    assert fq_attn.integers_exact(state)
+    m2.Bq.zero_point = m2.Bq.zero_point.clone()
+    m2.Bq.zero_point[0, 1] = -300.0
+    assert not fq_attn.integers_exact(state)
+    seen = []
+    real = fq_attn.fq_flash_attn
+
+    @functools.wraps(real)          # the counters live on the wrapper
+    def spy(*a, exact_ints=None, **kw):
+        seen.append(exact_ints)
+        return real(*a, exact_ints=exact_ints, **kw)
+
+    q = torch.zeros(1, 2, 16, 8)
+    fq_attn.fq_flash_attn = spy
+    try:
+        for verdict in (None, True, False):
+            with fq_attn.activate(True, verdict):
+                fq_attn.run_flash(m1, m2, q, q.transpose(-2, -1), q,
+                                  logit_scale=1.0)
+        fq_attn.run_flash(m1, m2, q, q.transpose(-2, -1), q, logit_scale=1.0)
+    finally:
+        fq_attn.fq_flash_attn = real
+    assert seen == [None, True, False, None]
+
+
+def _rn32(x: Fraction) -> np.float32:
+    """A rational rounded to the nearest float32, ties to even (normal
+    range)."""
+    if x == 0:
+        return np.float32(0.0)
+    sign, x = (-1, -x) if x < 0 else (1, x)
+    e = x.numerator.bit_length() - x.denominator.bit_length()
+    while Fraction(2) ** e > x:
+        e -= 1
+    while Fraction(2) ** (e + 1) <= x:
+        e += 1
+    ulp = Fraction(2) ** (e - 23)
+    m, rem = divmod(x, ulp)
+    if rem > ulp / 2 or (rem == ulp / 2 and m % 2):
+        m += 1
+    return np.float32(sign * float(m * ulp))
+
+
+@pytest.mark.parametrize("family", ["e / sum", "-log2(p) * 37 / q", "x / s",
+                                    "divisors of many ones"])
+def test_reciprocal_division_is_the_ieee_quotient(family):
+    """The kernel divides by a row's sum, a slice's base and a quantizer's
+    scale through the divisor's rounded reciprocal y = RN(1 / b):
+    q = RN(a * y), r = fma(-q, b, a), RN(q + r * y) (csrc/fq_quant.cuh,
+    div_rn_by). By exact rational arithmetic that is RN(a / b), the IEEE
+    quotient, on the operands the kernel meets."""
+    rng = np.random.default_rng(len(family))
+    n = 2500
+    if family == "e / sum":
+        a, b = np.exp(-30 * rng.random(n)), 1 + 200 * rng.random(n) ** 2
+    elif family == "x / s":
+        a, b = 4 * rng.standard_normal(n), 0.01 + rng.random(n)
+    elif family == "divisors of many ones":
+        a = 100 * rng.random(n)
+        b = 2.0 - 2.0 ** -rng.integers(10, 24, n) * rng.integers(1, 8, n)
+    else:
+        a = 37 * 50 * rng.random(n)
+        b = np.where(rng.random(n) < 0.5, rng.integers(23, 52, n),
+                     23 + 28 * rng.random(n))
+    for a32, b32 in zip(a.astype(np.float32), b.astype(np.float32)):
+        fa, fb = Fraction(float(a32)), Fraction(float(b32))
+        y = Fraction(float(_rn32(1 / fb)))
+        q = Fraction(float(_rn32(fa * y)))
+        r = Fraction(float(_rn32(fa - q * fb)))
+        assert _rn32(q + r * y) == _rn32(fa / fb), (a32, b32)

@@ -1,21 +1,25 @@
-"""The CUDA kernel K1 (adalog_tpu_torch/csrc/fq_flash_attn.cu) against its
-plain PyTorch version on an NVIDIA GPU. Skipped without a CUDA device.
+"""The CUDA kernel K1 (adalog_tpu_torch/csrc/fq_flash_attn.cu), both of its
+variants, against its plain PyTorch version on an NVIDIA GPU, and the
+patch-embed convolution's fp32 precision. Skipped without a CUDA device.
 
 This file imports no jax, so it runs on a GPU machine without JAX:
 
     python -m pytest --noconftest tests/test_torch_fq_attn_cuda.py
 
-Inputs and tolerances are chip_smoke.py's: the two sum in different orders
-and log2f/exp2f may differ by an ulp, so a probability near an AdaLog code
-boundary may take the neighbouring code; at most FLIP_SHARE of the outputs
-may leave ATOL + RTOL*|ref|, none by more than FLIP_MAX.
+Inputs and tolerances are chip_smoke.py's: kernel and plain version sum in
+different orders (variant "mma" on the tensor cores, with exact integer sums
+for fp32 inputs) and log2f/exp2f may differ by an ulp, so a probability near
+an AdaLog code boundary may take the neighbouring code; at most FLIP_SHARE
+of the outputs may leave ATOL + RTOL*|ref|, none by more than one
+probability times the largest |uq(v)| (chip_smoke.flash_cap).
 """
 
 import pytest
 import torch
 
 import chip_smoke
-from chip_smoke import ATOL, RTOL, FLIP_SHARE, FLIP_MAX
+from chip_smoke import ATOL, RTOL, FLIP_SHARE
+from adalog_tpu_torch.models.layers import qconv2d
 from adalog_tpu_torch.ops import fq_attn
 
 
@@ -27,32 +31,70 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _kernel_vs_plain(device, G, S, D, P, dtype, with_bias, seed):
+def _case(device, G, S, D, P, dtype, with_bias, seed, bits=4, frac_base=False):
     q, kT, v, m1a, m1b, m2q, m2b, bias = chip_smoke.attention_inputs(
-        torch, G, S, D, P, seed, device)
+        torch, G, S, D, P, seed, device, bits)
+    if frac_base:                     # bases that are not integers
+        m2q = m2q + 0.5 * (torch.arange(G, device=device) % 2) + 0.25
     args = [t.to(dtype) for t in (q, kT, v)] + [m1a, m1b, m2q, m2b]
-    b = bias if with_bias else None
-    kw = dict(m1a_bits=4, m1b_bits=4, m2a_bits=4, m2b_bits=4,
-              logit_scale=D ** -0.5)
-    before = fq_attn.fq_flash_attn.launches
-    got = fq_attn.fq_flash_attn(*args, b, **kw)
-    torch.cuda.synchronize()
-    assert fq_attn.fq_flash_attn.launches == before + 1
-    want = fq_attn.fq_flash_attn_plain(*args, b, **kw)
-    assert got.dtype == torch.float32 and tuple(got.shape) == (G, S, D)
+    # fp32 inputs of variant "mma": the probabilities' codes up to 7 bits
+    kw = dict(m1a_bits=bits, m1b_bits=bits, m2a_bits=min(bits, 7),
+              m2b_bits=bits, logit_scale=D ** -0.5)
+    return args, (bias if with_bias else None), kw
+
+
+def _hold(got, want, cap):
+    assert got.dtype == torch.float32 and got.shape == want.shape
     assert bool(torch.isfinite(got).all())
     diff = (got - want).abs()
-    assert (diff > ATOL + RTOL * want.abs()).float().mean().item() \
-        <= FLIP_SHARE
-    assert diff.max().item() <= FLIP_MAX
+    share = (diff > ATOL + RTOL * want.abs()).float().mean().item()
+    assert share <= FLIP_SHARE, share
+    assert diff.max().item() <= cap, (diff.max().item(), cap)
+
+
+def _kernel_vs_plain(device, G, S, D, P, dtype, with_bias, seed,
+                     variant="auto", took=None, **case_kw):
+    """One call of ``variant`` against the plain version; ``took`` is the
+    variant that must have been launched."""
+    args, b, kw = _case(device, G, S, D, P, dtype, with_bias, seed, **case_kw)
+    before = fq_attn.fq_flash_attn.launches
+    by_variant = dict(fq_attn.fq_flash_attn.variant_launches)
+    got = fq_attn.fq_flash_attn(*args, b, variant=variant, **kw)
+    torch.cuda.synchronize()
+    assert fq_attn.fq_flash_attn.launches == before + 1
+    took = took or variant
+    if took != "auto":
+        by_variant[took] += 1
+        assert fq_attn.fq_flash_attn.variant_launches == by_variant
+    want = fq_attn.fq_flash_attn_plain(*args, b, **kw)
+    assert tuple(got.shape) == (G, S, D)
+    _hold(got, want, chip_smoke.flash_cap(torch, args[2], args[6],
+                                          kw["m2b_bits"]))
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["mma", "fma"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("with_bias", [False, True])
-def test_kernel_matches_plain_deit_small(cuda_device, dtype, with_bias):
+def test_kernel_matches_plain_deit_small(cuda_device, dtype, with_bias,
+                                         variant):
     """deit_small attention: S=197, D=64, 6 heads, batch 2."""
-    _kernel_vs_plain(cuda_device, 12, 197, 64, 6, dtype, with_bias, seed=1)
+    _kernel_vs_plain(cuda_device, 12, 197, 64, 6, dtype, with_bias, seed=1,
+                     variant=variant)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["mma", "fma"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,P", [
+    (384, 192),             # stage 0: 64 windows x 3 heads, 2 images
+    (96, 24),               # stage 3: 1 window x 24 heads, 4 images
+    (27, 9),                # an odd count of slices
+])
+def test_kernel_matches_plain_swin_tiny(cuda_device, G, P, dtype, variant):
+    """swin_tiny windows: S=49, D=32, the rel-pos bias of period P."""
+    _kernel_vs_plain(cuda_device, G, 49, 32, P, dtype, True, seed=4,
+                     variant=variant)
 
 
 @pytest.mark.cuda
@@ -63,7 +105,98 @@ def test_kernel_matches_plain_deit_small(cuda_device, dtype, with_bias):
     (2, 65, 128, 1),        # the widest head dim the kernel takes
 ])
 def test_kernel_matches_plain_shapes(cuda_device, G, S, D, P):
-    _kernel_vs_plain(cuda_device, G, S, D, P, torch.float32, True, seed=2)
+    _kernel_vs_plain(cuda_device, G, S, D, P, torch.float32, True, seed=2,
+                     variant="fma")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,S,D,P", [
+    (6, 16, 8, 3),          # one row tile a slice, 4 slices a block
+    (5, 50, 24, 5),         # ragged rows, columns and head dim
+    (3, 50, 25, 1),         # an odd head dim: scalar stores
+    (4, 100, 64, 2),        # 16 n8 tiles of logits, 7 row tiles
+    (4, 200, 64, 2),        # 25 n8 tiles, none padded; two blocks a slice
+    (3, 256, 64, 3),        # the longest row "mma" holds in registers
+    (2, 65, 128, 1),        # the widest head dim
+    (2, 256, 128, 2),       # both at once
+])
+def test_mma_matches_plain_shapes(cuda_device, G, S, D, P, dtype):
+    _kernel_vs_plain(cuda_device, G, S, D, P, dtype, True, seed=5,
+                     variant="mma")
+    _kernel_vs_plain(cuda_device, G, S, D, P, dtype, False, seed=6,
+                     variant="auto", took="mma")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [257, 300])
+def test_auto_takes_fma_past_256_columns(cuda_device, S, dtype):
+    _kernel_vs_plain(cuda_device, 4, S, 64, 2, dtype, True, seed=7,
+                     variant="auto", took="fma")
+    args, b, kw = _case(cuda_device, 4, S, 64, 2, dtype, True, 7)
+    with pytest.raises(ValueError):
+        fq_attn.fq_flash_attn(*args, b, variant="mma", **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["mma", "fma"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [3, 4, 6, 8])
+def test_kernel_matches_plain_bits(cuda_device, bits, dtype, variant):
+    _kernel_vs_plain(cuda_device, 6, 197, 64, 6, dtype, True, seed=8 + bits,
+                     variant=variant, bits=bits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["mma", "fma"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_matches_plain_fractional_base(cuda_device, dtype, variant):
+    """AdaLog bases that are not integers: the code table is filled by the
+    float arithmetic of the per-probability quantizer."""
+    _kernel_vs_plain(cuda_device, 8, 49, 32, 4, dtype, True, seed=13,
+                     variant=variant, frac_base=True)
+    _kernel_vs_plain(cuda_device, 6, 197, 64, 6, dtype, False, seed=14,
+                     variant=variant, frac_base=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,S,D,P", [(12, 197, 64, 6), (96, 49, 32, 24)])
+def test_mma_matches_fma(cuda_device, G, S, D, P, dtype):
+    """The two variants on the same inputs, to the tolerance each is held
+    to against the plain version."""
+    args, b, kw = _case(cuda_device, G, S, D, P, dtype, True, 15)
+    mma = fq_attn.fq_flash_attn(*args, b, variant="mma", **kw)
+    fma = fq_attn.fq_flash_attn(*args, b, variant="fma", **kw)
+    torch.cuda.synchronize()
+    _hold(mma, fma, chip_smoke.flash_cap(torch, args[2], args[6], 4))
+
+
+@pytest.mark.cuda
+def test_inexact_integers_never_reach_mma(cuda_device):
+    """fp32 inputs whose integers c - z are not exact in bf16 (a zero point
+    of 400; 9-bit operands; 8-bit probabilities) take "fma" under "auto",
+    and a forced "mma" raises without launching."""
+    args, b, kw = _case(cuda_device, 6, 49, 32, 3, torch.float32, True, 16)
+    far = [a.clone() for a in args]
+    far[3][1, 1] = 400.0
+    cases = [(far, kw), (args, dict(kw, m1b_bits=9)), (args, dict(kw, m2a_bits=8))]
+    for a, k in cases:
+        before = dict(fq_attn.fq_flash_attn.variant_launches)
+        got = fq_attn.fq_flash_attn(*a, b, **k)
+        torch.cuda.synchronize()
+        assert fq_attn.fq_flash_attn.variant_launches == \
+            dict(before, fma=before["fma"] + 1)
+        want = fq_attn.fq_flash_attn_plain(*a, b, **k)
+        _hold(got, want, chip_smoke.flash_cap(torch, a[2], a[6], k["m2b_bits"]))
+        with pytest.raises(ValueError):
+            fq_attn.fq_flash_attn(*a, b, variant="mma", **k)
+        # a caller's verdict is taken at its word only towards "fma"
+        with pytest.raises(ValueError):
+            fq_attn.fq_flash_attn(*a, b, variant="mma", exact_ints=False, **k)
+        assert fq_attn.fq_flash_attn.variant_launches == \
+            dict(before, fma=before["fma"] + 1)
 
 
 @pytest.mark.cuda
@@ -78,3 +211,49 @@ def test_kernel_refuses_oversized_shapes(cuda_device):
                               m1b_bits=4, m2a_bits=4, m2b_bits=4,
                               logit_scale=0.125)
     assert fq_attn.fq_flash_attn.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("process_tf32", [True, False])
+def test_qconv2d_fp32_is_exact_whatever_cudnn_allows(cuda_device,
+                                                     process_tf32):
+    """The patch-embed convolution on fp32 CUDA inputs equals a float64
+    reference to 1e-5 relative with cuDNN's TF32 allowed for the process
+    (TF32 keeps about 1e-3), and leaves the process's setting as it was."""
+    g = torch.Generator().manual_seed(0)
+    conv = torch.nn.Conv2d(3, 384, 16, stride=16)
+    x = torch.randn(8, 224, 224, 3, generator=g)
+    with torch.no_grad():
+        want = torch.nn.functional.conv2d(
+            x.double().permute(0, 3, 1, 2), conv.weight.double(),
+            conv.bias.double(), stride=16).permute(0, 2, 3, 1)
+    conv = conv.to(cuda_device)
+    was = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = process_tf32
+    try:
+        with torch.no_grad():
+            got = qconv2d(conv, None, x.to(cuda_device))
+        assert torch.backends.cudnn.allow_tf32 is process_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = was
+    err = (got.double().cpu() - want).abs().max() / want.abs().max()
+    assert err.item() <= 1e-5, err.item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_phase_cycles_of_the_instrumented_build(cuda_device, dtype):
+    """The second build of the kernel, which counts its warps' cycles by
+    phase: every phase ran, and the AdaLog arithmetic is not the least."""
+    args, b, kw = _case(cuda_device, 12, 197, 64, 6, dtype, True, 17)
+    before = fq_attn.fq_flash_attn.variant_launches["mma"]
+    cycles = fq_attn.flash_phase_cycles(*args, b, **kw)
+    assert fq_attn.fq_flash_attn.variant_launches["mma"] == before + 1
+    assert tuple(cycles) == fq_attn.FLASH_PHASES
+    assert all(c > 0 for c in cycles.values())
+    assert cycles["AdaLog codes and values"] > cycles["store"]
+    far = [a.clone() for a in args]
+    far[4][0, 1] = 400.0
+    if dtype == torch.float32:           # never "mma" past the exact range
+        with pytest.raises(ValueError):
+            fq_attn.flash_phase_cycles(*far, b, **kw)

@@ -282,6 +282,26 @@ def test_unported_paths_raise(jax_calibrated, tmp_path):
         load_quantized("test_tiny", str(tmp_path / "ref.pth"), device="cpu")
 
 
+def test_mesh_devices_minus_one_is_all_local_devices(jax_calibrated, tmp_path,
+                                                     monkeypatch):
+    """mesh_devices=-1 means every local device, as in the JAX package: on
+    the CPU, or with at most one GPU, that is one device and serves; with
+    more it is multi-device serving, which is not ported."""
+    params, qstate = jax_calibrated
+    path = str(tmp_path / "m.ckpt")
+    j_checkpoint.save_checkpoint(path, params, qstate)
+    x = _images(12, n=2)
+    want = load_quantized("test_tiny", path, device="cpu")[0](x)
+    got = load_quantized("test_tiny", path, device="cpu", mesh_devices=-1)[0](x)
+    assert torch.equal(got, want)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    with pytest.raises(NotImplementedError):
+        load_quantized("test_tiny", path, device="cuda", mesh_devices=-1)
+    # the CPU has one device whatever the GPUs
+    got = load_quantized("test_tiny", path, device="cpu", mesh_devices=-1)[0](x)
+    assert torch.equal(got, want)
+
+
 def test_build_model_random_init():
     """zoo.build_model initializes from an explicit seed: the same seed gives
     the same weights, another seed others, and the forward runs."""
