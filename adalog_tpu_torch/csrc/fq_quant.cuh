@@ -1,6 +1,8 @@
-// Device functions shared by the attention kernels (fq_flash_attn.cu,
-// fq_attn_matmul.cu): the fake quantizers of adalog_tpu/ops/fq_attn.py
-// (_uq, _adalog_unit, _exp2_neg_int) and the warp reductions.
+// Device functions shared by the kernels: the fake quantizers of
+// adalog_tpu/ops/fq_attn.py (_uq, _adalog_unit, _exp2_neg_int) and the warp
+// reductions for the attention kernels (fq_flash_attn.cu,
+// fq_attn_matmul.cu); the division by a shared divisor also for the GEMM
+// kernel (fq_gemm.cu).
 //
 // Numerics follow the JAX kernels: rintf for every round (half to even),
 // IEEE division and no FMA contraction inside the quantizers (the _rn

@@ -83,9 +83,7 @@ def qlinear(p: torch.nn.Linear, site, x, *, mode: str = "raw", name=None):
     if site is not None and mode in ("quant", "a_only"):
         hit = fq_gemm.lookup(name) if mode == "quant" else None
         if hit is not None:
-            kind, bits, params = hit
-            y = fq_gemm.fq_gemm(x.reshape(-1, x.shape[-1]), w, params, p.bias,
-                                kind=kind, bits=bits)
+            y = fq_gemm.run(hit, x.reshape(-1, x.shape[-1]), w, p.bias)
             return y.reshape(*x.shape[:-1], w.shape[0])
         x = apply_quantizer(site.aq, x)
     return F.linear(x, w, p.bias)

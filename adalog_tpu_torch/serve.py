@@ -70,7 +70,13 @@ def make_predictor(spec, params, qstate, *, eval_dtype: str = "float32",
     model.requires_grad_(False)
     qs = map_tensors(lambda t: t.to(device), qstate)
     wprep = weight_prep.prepare(spec, model, qs, cfg or Config())
-    gemm_table = fq_gemm.prepare(qs) if use_gemm_kernels else None
+    gemm_table = None
+    if use_gemm_kernels:
+        # the weights as integers let fp32 inputs take the tensor-core
+        # variant of the GEMM kernel; bf16 inputs take it as they are
+        codes = weight_prep.weight_codes(spec, model, qs, cfg or Config()) \
+            if dtype == torch.float32 else None
+        gemm_table = fq_gemm.prepare(qs, codes)
     # read once here, so that no served call waits for the device to learn
     # which variant of the attention kernel its zero points allow
     exact_ints = fq_attn.integers_exact(qs) \

@@ -20,10 +20,18 @@ Phases, each a hard check (any failure raises and exits non-zero):
   4. K4 kernel phase: the fused activation-quant GEMM against its plain
      version at the five deit_small Linear shapes of batch 32 (T=6304:
      qkv 384->1152, proj 384->384, fc1 384->1536, fc2 1536->384 in both
-     kinds; the head at T=32, 384->1000), fp32 and bf16: max|diff|, share
-     past tolerance, the quantized activations themselves (through an
-     identity weight: uniform bit for bit, AdaLog flips bounded), the
-     fused bias equal to the unfused add bit for bit, median times;
+     kinds; the head at T=32, 384->1000) and at swin_tiny's longest and
+     deepest Linear (T=100352, 96->288; T=1568, 3072->768, adalog_shift),
+     fp32 and bf16, on a weight fake-quantized to 4 bits with its integer
+     codes as a served site has it: as the wrapper routes it (variant
+     "mma", asserted), variant "fma" forced, and in fp32 a bare call
+     without codes (must take "fma"): max|diff|, share past tolerance, the
+     quantized activations themselves (through an identity weight: uniform
+     bit for bit, AdaLog flips bounded; fp32 "mma" forms an AdaLog value
+     as (steps * 2^-shift) * (ts * s), held to 2 ulp), the fused bias equal
+     to the unfused add bit for bit, median times of one call a timing, of
+     ten in a row, and of ten replayed from a CUDA graph (the device
+     alone);
   5. K2/K3 kernel phase: the fused attention matmuls against their plain
      versions at the attention shapes of batch 32 of deit_small (G=192,
      S=197, D=64) and of swin_tiny's first and last stage (S=49, D=32,
@@ -37,14 +45,16 @@ Phases, each a hard check (any failure raises and exits non-zero):
      state whose fc2 biases carry the folded GeLU shift (calib/reparam.py):
      K1 against its plain version on the q/kT/v of all 12 blocks (for
      swin_tiny with each block's rel-pos bias and, in the shifted blocks,
-     its mask) and K4 against its plain version on the inputs of all 49
-     (deit_small) or 52 (swin_tiny) Linear sites (block check); then the
+     its mask) and K4, called as the served path calls it (the table entry
+     with its weight codes; every launch "mma", asserted), against its plain
+     version on the inputs of all 49 (deit_small) or 52 (swin_tiny) Linear
+     sites (block check); then the
      state saved as a v2 .ckpt and served through load_quantized in float32
      and bfloat16, with the attention kernel only, with the attention and
      GEMM kernels, and plain, on 4 batches of 32 images each: per batch K1
      must run 12 times with either kernel switch on and K4 49 or 52 times
-     with the GEMM switch on (0 off), K2 and K3 never, and every K1 launch
-     is variant "mma"; logits finite and of
+     with the GEMM switch on (0 off), K2 and K3 never, and every K1 and
+     every K4 launch is variant "mma"; logits finite and of
      the right shape; img/s and the agreement of the logits between the
      settings are reported;
   7. fall-back phase, for both models: K2 and K3 against their plain
@@ -57,11 +67,12 @@ Phases, each a hard check (any failure raises and exits non-zero):
      times).
 The last two lines are a JSON summary of the kernels (launches summed over
 the main paths of phases 6 and 7; times of the fp32 kernel phases; the bound
-from those phases' shapes; K1's entry is the variant the served path
-launches, "mma") and the ok line.
+from those phases' shapes; K1's and K4's entries are the variant the served
+path launches, "mma") and the ok line.
 
-With --profile, after the build: the share of K1's cycles in each phase of
-the kernel (a second, instrumented build), then each smoke model served in
+With --profile, after the build: the share of K1's and of K4's cycles in
+each phase of the kernel (second, instrumented builds), then each smoke
+model served in
 each dtype and setting, 5 batches of 32 after 3 warm-up, wall ms untraced,
 then one torch.profiler trace: device busy ms a batch, idle share of the
 traced span, device time split into K1, K4, cuBLAS/cuDNN GEMM and
@@ -94,6 +105,10 @@ GEMM_SHAPES = (("qkv", 6304, 384, 1152, "uniform"),
                ("fc2", 6304, 1536, 384, "uniform"),
                ("fc2", 6304, 1536, 384, "adalog_shift"),
                ("head", 32, 384, 1000, "uniform"))
+# and at swin_tiny's longest (stage 0 qkv) and deepest (stage 3 fc2) Linear
+GEMM_SWIN_SHAPES = (("swin_tiny stage 0 qkv", 100352, 96, 288, "uniform"),
+                    ("swin_tiny stage 3 fc2", 1568, 3072, 768,
+                     "adalog_shift"))
 SMOKE_LOG_Q = 29.0          # AdaLog base of the smoke state, not 37
 # qkv weight std: q.k logits of LayerNormed tokens then have a std of about
 # (QKV_STD**2 * dim) * head_dim**0.5 / 8 ~ 2
@@ -156,6 +171,31 @@ def cuda_ms(torch, fn, reps=20, warmup=3, calls=1):
         start.record()
         for _ in range(calls):
             fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def cuda_graph_ms(torch, fn, calls=10, reps=20):
+    """Median milliseconds of one fn() on the device alone: ``calls`` calls
+    captured into one CUDA graph, whose replay launches them with no host
+    time between; fn launches on the current stream and allocates with
+    torch only."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    for _ in range(3):
+        graph.replay()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
@@ -238,13 +278,16 @@ def flash_cap(torch, v, m2b, bits):
     return ((c - z) * s).abs().max().item()
 
 
-def gemm_bound_ms(T, K, O, dtype):
+def gemm_bound_ms(T, K, O, dtype, variant="mma"):
     """(bound ms, what binds) of one K4 call with a bias: x, w, bias and the
     output in ``dtype`` and the (4,) parameters each once, against 2*T*K*O
-    operations."""
+    operations. Variant "mma" runs the products of fp32 inputs too as bf16
+    on the tensor cores (exact integer operands), so its operations are
+    reckoned at the bf16 tensor rate whatever the input dtype; "fma" at the
+    rate of its inputs' type."""
     itemsize = 2 if "bfloat16" in str(dtype) else 4
     return bound_ms((T * K + O * K + O + T * O) * itemsize + 16,
-                    2 * T * K * O, dtype)
+                    2 * T * K * O, "bfloat16" if variant == "mma" else dtype)
 
 
 def flash_case(torch, fq_attn, args, bias, kw, tag, variant, took):
@@ -482,6 +525,39 @@ def gemm_inputs(torch, T, K, O, kind, seed, device, bits=4):
                              .to(device) for a in (w, params, bias)]
 
 
+def weight_with_codes(torch, fq_gemm, w, bits=4):
+    """w (O, K) float32 fake-quantized per output row (asymmetric min/max at
+    ``bits``) as a served weight is: (w_q float32, its WeightCodes), with
+    codes * scale == w_q bit for bit."""
+    lo = torch.clamp(w.amin(dim=1, keepdim=True), max=0.0)
+    hi = torch.clamp(w.amax(dim=1, keepdim=True), min=0.0)
+    scale = torch.clamp((hi - lo) / (2 ** bits - 1), min=1e-8)
+    z = torch.round(-lo / scale)
+    codes = torch.clamp(torch.round(w / scale) + z, 0.0, 2.0 ** bits - 1) - z
+    return codes * scale, fq_gemm.WeightCodes(
+        codes.to(torch.bfloat16).contiguous(), scale.reshape(-1).contiguous())
+
+
+def identity_codes(torch, fq_gemm, K, device):
+    """The identity weight as WeightCodes: it passes variant "mma"'s staged
+    activations of fp32 inputs through the product."""
+    return fq_gemm.WeightCodes(
+        torch.eye(K, dtype=torch.bfloat16, device=device),
+        torch.ones(K, dtype=torch.float32, device=device))
+
+
+def quantized_x_flips(torch, fq_gemm, xq, x, prm, kind, bits, int_mode):
+    """Share of the quantized activations xq (read through an identity
+    weight) that differ from quantize_plain's: bit for bit, but for fp32
+    inputs through variant "mma" with adalog_shift, whose value is (steps *
+    2^-shift) * (ts * s) where the plain version forms (2^-shift * (steps *
+    ts)) * s: the same code within 2 ulp."""
+    ref = fq_gemm.quantize_plain(x, prm, kind=kind, bits=bits).to(x.dtype)
+    if int_mode and kind == "adalog_shift":
+        return ((xq - ref).abs() > 2.5e-7 * ref.abs()).float().mean().item()
+    return (xq != ref).float().mean().item()
+
+
 def compare(got, want, rtol):
     """(max|diff|, share of outputs past ATOL + rtol*|want|), in fp32."""
     got, want = got.float(), want.float()
@@ -490,53 +566,98 @@ def compare(got, want, rtol):
             (diff > ATOL + rtol * want.abs()).float().mean().item())
 
 
+def gemm_case(torch, fq_gemm, x, w, prm, b, codes, kind, variant, took, tag):
+    """One K4 call of ``variant`` against the plain version, checked and
+    timed; ``took`` is the variant the wrapper must have launched. Returns
+    ((kernel ms of one call a timing, of 10 calls in a row a timing, of 10
+    calls replayed from a CUDA graph, plain ms), max|diff|). The first two
+    hold the wrapper's host time, which is longer than some of these
+    kernels; the graph's replay is the device's time alone."""
+    (T, K), O, dt = x.shape, w.shape[0], str(x.dtype).split(".")[-1]
+    kw = dict(kind=kind, bits=4, variant=variant, codes=codes)
+    plain_kw = dict(kind=kind, bits=4)
+    before = dict(fq_gemm.fq_gemm.variant_launches)
+    got = fq_gemm.fq_gemm(x, w, prm, **kw)
+    got_b = fq_gemm.fq_gemm(x, w, prm, b, **kw)
+    # an identity weight passes the quantized activations through the
+    # product exactly
+    xq = fq_gemm.fq_gemm(
+        x, torch.eye(K, dtype=x.dtype, device=x.device), prm,
+        **dict(kw, codes=None if codes is None else identity_codes(
+            torch, fq_gemm, K, x.device)))
+    want = fq_gemm.fq_gemm_plain(x, w, prm, **plain_kw)
+    torch.cuda.synchronize()
+    before[took] += 3
+    check(fq_gemm.fq_gemm.variant_launches == before,
+          f"[{tag}] variant '{variant}' did not launch '{took}'")
+    check(tuple(got.shape) == (T, O) and got.dtype == x.dtype,
+          f"[{tag}] kernel output shape/dtype")
+    check(bool(torch.isfinite(got).all()), f"[{tag}] not finite")
+    check(torch.equal(got_b, got + b), f"[{tag}] fused bias differs "
+          "from the product plus the bias")
+    flips = quantized_x_flips(torch, fq_gemm, xq, x, prm, kind, 4,
+                              took == "mma" and dt == "float32")
+    max_diff, share = compare(got, want, GEMM_RTOL[dt])
+    # as a served call: the verdict on the zero point read once, not by
+    # every call (that waits for the device)
+    exact = fq_gemm.activation_ints_exact(prm, kind, 4)
+
+    def call():
+        return fq_gemm.fq_gemm(x, w, prm, b, exact_ints=exact, **kw)
+
+    k_ms = cuda_ms(torch, call)
+    q_ms = cuda_ms(torch, call, calls=10)
+    g_ms = cuda_graph_ms(torch, call)
+    p_ms = cuda_ms(torch, lambda: fq_gemm.fq_gemm_plain(x, w, prm, b,
+                                                        **plain_kw))
+    print(f"kernel K4 fq_gemm [{tag}] variant={took} T={T} K={K} O={O}: "
+          f"max|diff|={max_diff:.3e} share_past_tol={share:.3e} "
+          f"(atol={ATOL} rtol={GEMM_RTOL[dt]:.3e}; allowed share "
+          f"{FLIP_SHARE}, max {FLIP_MAX}) quantized_x_differ={flips:.3e} "
+          f"kernel_ms={k_ms:.4f} back_to_back_ms={q_ms:.4f} "
+          f"graph_ms={g_ms:.4f} plain_ms={p_ms:.4f} "
+          "bound_ms=%.4f (%s)" % gemm_bound_ms(T, K, O, x.dtype, took))
+    check(flips == 0.0 if kind == "uniform" else flips <= FLIP_SHARE,
+          f"[{tag}] quantized activations differ: share {flips}")
+    check(share <= FLIP_SHARE, f"[{tag}] share past tolerance {share}")
+    check(max_diff <= FLIP_MAX, f"[{tag}] max|diff| {max_diff}")
+    return (k_ms, q_ms, g_ms, p_ms), max_diff
+
+
 def gemm_kernel_phase(torch, fq_gemm, device):
-    """Hold K4 against its plain version at the deit_small Linear shapes;
-    returns (the fp32 times summed over one block's four sites, fc2 as
-    adalog_shift, and the head: kernel ms, plain ms) and the largest
-    max|diff|."""
-    worst, k_sum, p_sum = 0.0, 0.0, 0.0
+    """Hold K4 against its plain version at the deit_small Linear shapes and
+    at two of swin_tiny's, fp32 and bf16, on a weight fake-quantized to 4
+    bits with its codes, as a served site has it: as routed ("mma",
+    asserted) and "fma" forced; and, in fp32, a bare call on the weight
+    without codes, which must take "fma". Returns (the fp32 times of "mma"
+    summed over one deit_small block's four sites, fc2 as adalog_shift, and
+    the head: gemm_case's four) and the largest max|diff| of all cases."""
+    worst, sums = 0.0, [0.0, 0.0, 0.0, 0.0]
     for dt in ("float32", "bfloat16"):
         dtype = getattr(torch, dt)
-        for i, (site, T, K, O, kind) in enumerate(GEMM_SHAPES):
+        for i, (site, T, K, O, kind) in enumerate(GEMM_SHAPES
+                                                  + GEMM_SWIN_SHAPES):
             x, w, prm, b = gemm_inputs(torch, T, K, O, kind, SEED + 10 + i,
                                        device)
+            w, codes = weight_with_codes(torch, fq_gemm, w)
             x, w, b = x.to(dtype), w.to(dtype), b.to(dtype)
-            kw = dict(kind=kind, bits=4)
-            got = fq_gemm.fq_gemm(x, w, prm, **kw)
-            want = fq_gemm.fq_gemm_plain(x, w, prm, **kw)
-            got_b = fq_gemm.fq_gemm(x, w, prm, b, **kw)
-            # an identity weight passes the quantized activations through
-            # the product exactly
-            xq = fq_gemm.fq_gemm(x, torch.eye(K, dtype=dtype, device=device),
-                                 prm, **kw)
-            xq_ref = fq_gemm.quantize_plain(x, prm, **kw).to(dtype)
-            torch.cuda.synchronize()
             tag = f"{dt}, {site} {kind}"
-            check(tuple(got.shape) == (T, O) and got.dtype == dtype,
-                  f"[{tag}] kernel output shape/dtype")
-            check(bool(torch.isfinite(got).all()), f"[{tag}] not finite")
-            check(torch.equal(got_b, got + b), f"[{tag}] fused bias differs "
-                  "from the product plus the bias")
-            flips = (xq != xq_ref).float().mean().item()
-            max_diff, share = compare(got, want, GEMM_RTOL[dt])
-            k_ms = cuda_ms(torch, lambda: fq_gemm.fq_gemm(x, w, prm, b, **kw))
-            p_ms = cuda_ms(torch, lambda: fq_gemm.fq_gemm_plain(
-                x, w, prm, b, **kw))
-            print(f"kernel K4 fq_gemm [{tag}] T={T} K={K} O={O}: "
-                  f"max|diff|={max_diff:.3e} share_past_tol={share:.3e} "
-                  f"(atol={ATOL} rtol={GEMM_RTOL[dt]:.3e}; allowed share "
-                  f"{FLIP_SHARE}, max {FLIP_MAX}) quantized_x_differ="
-                  f"{flips:.3e} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-                  "bound_ms=%.4f (%s)" % gemm_bound_ms(T, K, O, dtype))
-            check(flips == 0.0 if kind == "uniform" else flips <= FLIP_SHARE,
-                  f"[{tag}] quantized activations differ: share {flips}")
-            check(share <= FLIP_SHARE, f"[{tag}] share past tolerance {share}")
-            check(max_diff <= FLIP_MAX, f"[{tag}] max|diff| {max_diff}")
-            worst = max(worst, max_diff)
-            if dt == "float32" and (site, kind) != ("fc2", "uniform"):
-                k_sum, p_sum = k_sum + k_ms, p_sum + p_ms
-    return (k_sum, p_sum), worst
+            times, d = gemm_case(torch, fq_gemm, x, w, prm, b, codes, kind,
+                                 "auto", "mma", tag)
+            worst = max(worst, d)
+            if dt == "float32" and i < len(GEMM_SHAPES) \
+                    and (site, kind) != ("fc2", "uniform"):
+                sums = [a + t for a, t in zip(sums, times)]
+            _, d = gemm_case(torch, fq_gemm, x, w, prm, b, codes, kind, "fma",
+                             "fma", tag)
+            worst = max(worst, d)
+            if dt == "float32":
+                _, d = gemm_case(torch, fq_gemm, x, w, prm, b, None, kind,
+                                 "auto", "fma", tag + ", no weight codes")
+                worst = max(worst, d)
+            del x, w, b
+            torch.cuda.empty_cache()
+    return tuple(sums), worst
 
 
 def fold_fc2(torch, model, qstate):
@@ -685,19 +806,25 @@ def block_check(torch, fq_attn, fq_gemm, spec, model, qstate, x, dt):
     rel-pos bias and shift mask) that every block of the quantized model
     gives it for images x (as the wrapper routes it: variant "mma",
     asserted; max|diff| of each block at most its largest |uq(v)|), and K4
-    on the input of every Linear site that takes it, from one capture pass
-    with the served path's tables active; returns {kernel: (largest
+    on the input of every Linear site that takes it, called as the served
+    path calls it (``fq_gemm.run`` on the table entry, weight codes
+    included for fp32; every launch variant "mma", asserted), from one
+    capture pass with the served path's tables active; returns {kernel: (largest
     max|diff|, largest share past tolerance)}."""
     from adalog_tpu_torch.models.zoo import model_forward_fn
     from adalog_tpu_torch.ops import weight_prep
 
     wprep = weight_prep.prepare(spec, model, qstate, w4a4_config())
-    table = fq_gemm.prepare(qstate)
+    # as make_predictor builds it: fp32 sites carry their weight codes
+    table = fq_gemm.prepare(
+        qstate, weight_prep.weight_codes(spec, model, qstate, w4a4_config())
+        if dt == "float32" else None)
     n_linear = MODELS[spec.name]["K4"]
     check(len(table) == n_linear,
           f"{len(table)} Linear sites take K4, want {n_linear}")
     worst = {"K1": (0.0, 0.0), "K4": (0.0, 0.0)}
     fma_before = fq_attn.fq_flash_attn.variant_launches["fma"]
+    gemm_fma_before = fq_gemm.fq_gemm.variant_launches["fma"]
 
     def note(k, d, share):
         worst[k] = (max(worst[k][0], d), max(worst[k][1], share))
@@ -722,16 +849,19 @@ def block_check(torch, fq_attn, fq_gemm, spec, model, qstate, x, dt):
             check(d <= cap, f"{p} {dt}: K1 max|diff| {d} above the largest "
                   f"|uq(v)| {cap}")
             note("K1", d, share)
-        for name, (kind, bits, prm) in table.items():
+        for name, site in table.items():
             xin = taps[name][0]
             xin = xin.reshape(-1, xin.shape[-1])
-            args = (xin, wprep[name], prm, model.get_submodule(name).bias)
-            got = fq_gemm.fq_gemm(*args, kind=kind, bits=bits)
-            want = fq_gemm.fq_gemm_plain(*args, kind=kind, bits=bits)
+            w, bias = wprep[name], model.get_submodule(name).bias
+            got = fq_gemm.run(site, xin, w, bias)      # the served call
+            want = fq_gemm.fq_gemm_plain(xin, w, site.params, bias,
+                                         kind=site.kind, bits=site.bits)
             check(bool(torch.isfinite(got).all()), f"{name}: K4 not finite")
             note("K4", *compare(got, want, GEMM_RTOL[dt]))
     check(fq_attn.fq_flash_attn.variant_launches["fma"] == fma_before,
           f"{spec.name} {dt}: a block's K1 call took variant 'fma'")
+    check(fq_gemm.fq_gemm.variant_launches["fma"] == gemm_fma_before,
+          f"{spec.name} {dt}: a Linear site's K4 call took variant 'fma'")
     return worst
 
 
@@ -755,6 +885,7 @@ def zero_launches(fq_attn, fq_gemm):
     for w in wrappers(fq_attn, fq_gemm).values():
         w.launches = 0
     fq_attn.fq_flash_attn.variant_launches.update(mma=0, fma=0)
+    fq_gemm.fq_gemm.variant_launches.update(mma=0, fma=0)
 
 
 def read_launches(fq_attn, fq_gemm):
@@ -877,6 +1008,10 @@ def serving_phase(torch, fq_attn, fq_gemm, device, ckpt_dir,
         by_variant = fq_attn.fq_flash_attn.variant_launches
         check(by_variant == {"mma": want["K1"], "fma": 0},
               f"{name} '{setting}': K1 launches by variant {by_variant}, "
+              "want every one 'mma'")
+        by_variant = fq_gemm.fq_gemm.variant_launches
+        check(by_variant == {"mma": want["K4"], "fma": 0},
+              f"{name} '{setting}': K4 launches by variant {by_variant}, "
               "want every one 'mma'")
         launches[setting] = got
 
@@ -1067,6 +1202,25 @@ def flash_phase_profile(torch, fq_attn, device):
                   + f" of {total / 1e6:.1f} M warp cycles")
 
 
+def gemm_phase_profile(torch, fq_gemm, device):
+    """Where the cycles of K4 "mma" go, by phase of the kernel, at
+    GEMM_SHAPES and GEMM_SWIN_SHAPES, fp32 and bf16: one launch each of the
+    instrumented build (fq_gemm.gemm_phase_cycles)."""
+    for i, (site, T, K, O, kind) in enumerate(GEMM_SHAPES + GEMM_SWIN_SHAPES):
+        x, w, prm, b = gemm_inputs(torch, T, K, O, kind, SEED + 10 + i, device)
+        w, codes = weight_with_codes(torch, fq_gemm, w)
+        for dtype in (torch.float32, torch.bfloat16):
+            cycles = fq_gemm.gemm_phase_cycles(
+                x.to(dtype), w.to(dtype), prm, b.to(dtype), kind=kind, bits=4,
+                codes=codes)
+            total = sum(cycles.values())
+            print(f"K4 'mma' phases {site} {kind} T={T} K={K} O={O} "
+                  f"{str(dtype).split('.')[-1]}: "
+                  + ", ".join(f"{k} {100 * c / total:.1f}%"
+                              for k, c in cycles.items())
+                  + f" of {total / 1e6:.1f} M warp cycles")
+
+
 PROFILE_WARMUP, PROFILE_BATCHES = 3, 5
 
 
@@ -1194,12 +1348,14 @@ def main(argv):
                             "checkpoints")
     if profile:
         flash_phase_profile(torch, fq_attn, device)
+        gemm_phase_profile(torch, fq_gemm, device)
         for name in MODELS:
             profile_phase(torch, device, ckpt_dir, name)
         return
 
     (k_ms, kq_ms, p_ms), worst = kernel_phase(torch, fq_attn, device)
-    (g_ms, gp_ms), g_worst = gemm_kernel_phase(torch, fq_gemm, device)
+    (g_ms, gq_ms, gg_ms, gp_ms), g_worst = gemm_kernel_phase(torch, fq_gemm,
+                                                             device)
     mm = matmul_kernel_phase(torch, fq_attn, device)
     # the main paths, each driven with the counts at 0 just before and read
     # just after: serving each model with the attention and GEMM kernels
@@ -1252,7 +1408,10 @@ def main(argv):
               mm["K3"]["bound_by"]),
         entry("fq_gemm", "fq_gemm", "fq_gemm.py:100", "K4",
               max(g_worst, block_worst["K4"]), g_ms, gp_ms,
-              sum(b for b, _ in k4_bounds), max(k4_bounds)[1])]}))
+              sum(b for b, _ in k4_bounds), max(k4_bounds)[1],
+              # ms is one call a timing and ms_back_to_back ten in a row,
+              # both with the wrapper's host time; ms_graph the device alone
+              variant="mma", ms_back_to_back=gq_ms, ms_graph=gg_ms)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -13,8 +13,11 @@ exponent bits. bf16: both round the fp32 sum to bf16, and two fp32 sums in
 different orders may round to neighbouring bf16 values, one bf16 ulp apart:
 BF16_RTOL = 2**-7 (one ulp relative to the value), with the fp32 ATOL.
 
-The CUDA kernel is held against the plain version in
-test_torch_fq_gemm_cuda.py, which imports no jax.
+The kernel's tensor-core variant ("mma") is a second formulation of the same
+function (integer operands for fp32 inputs, a value table for AdaLog); its
+plain-PyTorch form, the weight codes it needs and the routing between the
+variants are held here too. The CUDA kernels are held against the plain
+version in test_torch_fq_gemm_cuda.py, which imports no jax.
 """
 
 import numpy as np
@@ -33,7 +36,10 @@ from adalog_tpu.quantizers.uniform import uniform_quant
 from adalog_tpu.utils.config import Config as JConfig
 from adalog_tpu_torch.calib import reparam
 from adalog_tpu_torch.models import zoo
-from adalog_tpu_torch.ops import fq_gemm
+from adalog_tpu_torch.models.layers import LinearSite, quant_linear_weight
+from adalog_tpu_torch.ops import fq_gemm, weight_prep
+from adalog_tpu_torch.quantizers.state import (QuantizerState,
+                                               WeightQuantizerState)
 from adalog_tpu_torch.utils.interop import from_jax, qstate_from_tree
 
 torch.set_num_threads(1)
@@ -307,3 +313,213 @@ def test_gemm_switch_turns_attention_kernel_on():
     with fq_gemm.activate(None):
         assert not fq_attn.enabled()
     assert not fq_gemm.enabled()
+
+
+# ---------------------------------------------------------------------------
+# Variant "mma" of the kernel: its formulation in plain PyTorch, and routing
+# ---------------------------------------------------------------------------
+
+def _weight_site(seed, O, K, bits, n_V=1, symmetric=False, adaround=False,
+                 zp_frac=0.0):
+    """(nn.Linear, LinearSite) with a per-row min/max weight quantizer from
+    a numpy seed; ``adaround`` adds a rounding logit, ``zp_frac`` moves the
+    zero points off the integers."""
+    rng = np.random.default_rng(seed)
+    lin = torch.nn.Linear(K, O)
+    w = (0.05 * rng.standard_normal((O, K))).astype(np.float32)
+    with torch.no_grad():
+        lin.weight.copy_(torch.from_numpy(w))
+    wv = w.reshape(n_V, O // n_V, K)
+    levels = 2 ** bits - 1
+    if symmetric:
+        scale = np.abs(wv).max(-1, keepdims=True) / (2 ** (bits - 1) - 1)
+        zp = None
+    else:
+        lo, hi = wv.min(-1, keepdims=True), wv.max(-1, keepdims=True)
+        scale = (hi - lo) / levels
+        zp = torch.from_numpy((np.round(-lo / scale) + zp_frac)
+                              .astype(np.float32))
+    alpha = torch.from_numpy(rng.standard_normal(wv.shape).astype(np.float32)) \
+        if adaround else None
+    wq = WeightQuantizerState(scale=torch.from_numpy(scale.astype(np.float32)),
+                              zero_point=zp, alpha=alpha, bits=bits,
+                              symmetric=symmetric)
+    aq = QuantizerState(scale=torch.ones(1), zero_point=torch.zeros(1),
+                        bits=bits)
+    return lin, LinearSite(wq=wq, aq=aq, n_V=n_V)
+
+
+@pytest.mark.parametrize("bits", [3, 4, 6, 8])
+@pytest.mark.parametrize("n_V", [1, 3])
+@pytest.mark.parametrize("form", ["asymmetric", "symmetric", "adaround",
+                                  "adaround symmetric"])
+def test_weight_codes_times_scale_is_the_quantized_weight(form, n_V, bits):
+    """codes * s_w[row] equals quant_linear_weight bit for bit, and the
+    codes are whole numbers of magnitude at most 2^bits - 1."""
+    lin, site = _weight_site(bits + 10 * n_V, 24, 16, bits, n_V,
+                             symmetric="symmetric" in form,
+                             adaround="adaround" in form)
+    codes, scale = weight_prep.site_weight_codes(lin.weight, site)
+    assert codes.shape == (24, 16) and scale.shape == (24,)
+    assert torch.equal(codes * scale[:, None], quant_linear_weight(lin, site))
+    assert torch.equal(codes, torch.round(codes))
+    assert codes.abs().max() <= 2 ** bits - 1
+    assert torch.equal(codes.to(torch.bfloat16).float(), codes)
+
+
+def _adalog_params(bits, log_q, scale=3.0):
+    return torch.tensor([scale, 0.0, GELU_MIN, log_q], dtype=torch.float32)
+
+
+def _every_code(params, bits):
+    """Inputs that land on every adalog_shift code 0..2N+3, on both sides of
+    it, and a spread of ordinary ones."""
+    s, _, shift, q = params.double().tolist()
+    c = np.arange(0, 2 ** bits + 4, dtype=np.float64)
+    hits = [s * 2.0 ** (-(c + d) * q / 37.0) - shift for d in (-0.3, 0, 0.3)]
+    rnd = np.abs(np.random.default_rng(bits).standard_normal(4096)) - shift
+    return torch.from_numpy(np.concatenate(hits + [rnd]).astype(np.float32))
+
+
+@pytest.mark.parametrize("log_q", [1.0, 23.0, 29.0, 37.0, 74.0])
+@pytest.mark.parametrize("bits", [2, 3, 4, 5, 6, 7, 8])
+def test_adalog_value_table_is_quantize_plain(bits, log_q):
+    """The 2N-entry value table plus the code arithmetic equals
+    quantize_plain bit for bit on inputs that hit every code and the codes
+    past 2N; its steps-only form is whole numbers times a power of two,
+    exact in bf16 up to 7 bits (in the normal range), and gives the same values within 2 ulp once
+    scaled by ts * s."""
+    params = _adalog_params(bits, log_q)
+    x = _every_code(params, bits)
+    want = fq_gemm.quantize_plain(x, params, kind="adalog_shift", bits=bits)
+    table = fq_gemm._adalog_value_table(params, bits, False)
+    assert table.shape == (2 ** bits,)
+    got = fq_gemm._adalog_lookup(x, params, table)
+    assert torch.equal(got, want)
+    # every code whose input survives fp32's x + shift is hit, and codes
+    # past 2N where they can be reached
+    scaled = torch.clamp((x + params[2]) / params[0], 1e-15, 1.0)
+    hit = set(torch.round(-torch.log2(scaled) * 37.0 / log_q).int().tolist())
+    reach = [c for c in range(2 ** bits + 4) if 2.0 ** (-c * log_q / 37) > 1e-4]
+    assert set(reach) <= hit and (max(reach) < 2 ** bits or (want == 0).any())
+    steps = fq_gemm._adalog_value_table(params, bits, True)
+    if bits <= 7:       # subnormal entries (below 2^-126) are as good as 0
+        normal = steps >= 2.0 ** -126
+        assert torch.equal(steps.to(torch.bfloat16).float()[normal],
+                           steps[normal])
+    ts_s = torch.tensor(1.0 / (2 ** (bits + 1) - 2)) * params[0]
+    np.testing.assert_allclose(
+        (fq_gemm._adalog_lookup(x, params, steps) * ts_s).numpy(),
+        want.numpy(), rtol=2.5e-7, atol=0.0)
+
+
+def _mma_case(seed, kind, T, K, O, bits=4, w_bits=4):
+    """(x, w_q, params, bias, codes): activations as _case's, a weight
+    fake-quantized per row at ``w_bits`` with its codes."""
+    x, _, params = _case(seed, kind, bits, T, K, O)
+    lin, site = _weight_site(seed + 1, O, K, w_bits)
+    codes, scale = weight_prep.site_weight_codes(lin.weight, site)
+    w_q = quant_linear_weight(lin, site).detach()
+    bias = torch.from_numpy(np.random.default_rng(seed + 2).standard_normal(O)
+                            .astype(np.float32))
+    return (torch.from_numpy(x), w_q, torch.from_numpy(params), bias,
+            fq_gemm.WeightCodes(codes.to(torch.bfloat16), scale))
+
+
+# share of outputs the integer-operand product may leave ATOL + 1e-5 |ref|
+# of the plain version by: both are fp32 roundings of the same exact sum
+# (measured 0 at these shapes)
+MMA_SHARE = 1e-4
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("kind", ["uniform", "adalog_shift"])
+@pytest.mark.parametrize("T,K,O", [(197, 384, 1152), (64, 1536, 384),
+                                   (50, 100, 72)])
+def test_integer_operand_product_matches_plain(T, K, O, kind, with_bias):
+    """fp32 inputs through variant "mma"'s formulation (integers c - z or
+    steps * 2^-shift times c_w - z_w, the sum scaled by s * s_w) against
+    fq_gemm_plain, and both against the float64 product of the plain
+    version's operands: the integer form is no farther from it."""
+    x, w, params, bias, codes = _mma_case(T + K, kind, T, K, O)
+    b = bias if with_bias else None
+    kw = dict(kind=kind, bits=4)
+    a, bop, scale = fq_gemm._mma_operands(x, w, params, codes=codes, **kw)
+    assert a.dtype == bop.dtype == torch.bfloat16 and scale.shape == (O,)
+    got = fq_gemm._gemm_mma_plain(x, w, params, b, codes=codes, **kw)
+    want = fq_gemm.fq_gemm_plain(x, w, params, b, **kw)
+    past = ((got - want).abs() > 1e-5 + 1e-5 * want.abs()).float().mean()
+    assert past.item() <= MMA_SHARE, past
+    ref = fq_gemm.quantize_plain(x, params, **kw).double() @ w.double().t()
+    if with_bias:
+        ref = ref + bias.double()
+    err_mma = (got.double() - ref).abs().max().item()
+    err_plain = (want.double() - ref).abs().max().item()
+    assert err_mma <= max(err_plain, 1e-6 * ref.abs().max().item()), \
+        (err_mma, err_plain)
+
+
+@pytest.mark.parametrize("bits", [3, 4, 6, 8])
+@pytest.mark.parametrize("kind", ["uniform", "adalog_shift"])
+def test_bf16_operands_are_the_plain_versions(kind, bits):
+    """bf16 inputs: variant "mma" multiplies the plain version's own
+    operands, bit for bit, and has no scale."""
+    x, w, params = _case(bits, kind, bits, 64, 96, 8)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    wb = torch.from_numpy(w).to(torch.bfloat16)
+    p = torch.from_numpy(params)
+    a, b, scale = fq_gemm._mma_operands(xb, wb, p, kind=kind, bits=bits)
+    want = fq_gemm.quantize_plain(xb, p, kind=kind, bits=bits)
+    assert torch.equal(a, want.to(torch.bfloat16))
+    assert b is wb and scale is None
+    assert torch.equal(
+        fq_gemm._gemm_mma_plain(xb, wb, p, kind=kind, bits=bits),
+        fq_gemm.fq_gemm_plain(xb, wb, p, kind=kind, bits=bits))
+
+
+@pytest.mark.parametrize("dtype,kind,bits,zp,with_codes,want", [
+    ("bfloat16", "uniform", 4, 7.0, False, "mma"),
+    ("bfloat16", "adalog_shift", 8, 0.0, False, "mma"),
+    ("bfloat16", "uniform", 9, 400.0, False, "mma"),
+    ("float32", "uniform", 4, 7.0, True, "mma"),
+    ("float32", "uniform", 8, 255.0, True, "mma"),
+    ("float32", "adalog_shift", 7, 0.0, True, "mma"),
+    ("float32", "uniform", 4, 7.0, False, "fma"),       # no weight codes
+    ("float32", "uniform", 9, 7.0, True, "fma"),        # 9-bit activations
+    ("float32", "adalog_shift", 8, 0.0, True, "fma"),   # 8-bit AdaLog
+    ("float32", "uniform", 4, 400.0, True, "fma"),      # |c - z| > 256
+    ("float32", "uniform", 4, -300.0, True, "fma"),
+])
+def test_variant_routing(dtype, kind, bits, zp, with_codes, want):
+    """gemm_variant routes from dtype, bits, the codes and the zero point;
+    a forced "mma" on a call it cannot take raises (on the CPU too), a
+    forced "fma" always goes."""
+    dt = getattr(torch, dtype)
+    x, w, params, _, codes = _mma_case(5, kind, 6, 16, 8, bits=min(bits, 8))
+    params[1] = zp
+    codes = codes if with_codes else None
+    exact = fq_gemm.activation_ints_exact(params, kind, bits)
+    assert fq_gemm.gemm_variant(dt, kind, bits, codes, exact) == want
+    assert fq_gemm.gemm_variant(dt, kind, bits, codes, exact, "fma") == "fma"
+    kw = dict(kind=kind, bits=bits, codes=codes)
+    args = (x.to(dt), w.to(dt), params)
+    plain = fq_gemm.fq_gemm_plain(*args, kind=kind, bits=bits)
+    assert torch.equal(fq_gemm.fq_gemm(*args, variant="fma", **kw), plain)
+    if want == "mma":
+        assert torch.equal(fq_gemm.fq_gemm(*args, variant="mma", **kw), plain)
+    else:
+        with pytest.raises(ValueError, match="refused"):
+            fq_gemm.fq_gemm(*args, variant="mma", **kw)
+    with pytest.raises(ValueError):
+        fq_gemm.fq_gemm(*args, variant="wgmma", **kw)
+
+
+def test_wrapper_rejects_bad_codes():
+    x, w, params, _, codes = _mma_case(6, "uniform", 6, 16, 8)
+    kw = dict(kind="uniform", bits=4)
+    with pytest.raises(ValueError, match="codes"):
+        fq_gemm.fq_gemm(x, w, params, codes=fq_gemm.WeightCodes(
+            codes.codes.float(), codes.scale), **kw)
+    with pytest.raises(ValueError, match="codes"):
+        fq_gemm.fq_gemm(x, w, params, codes=fq_gemm.WeightCodes(
+            codes.codes[:4], codes.scale), **kw)

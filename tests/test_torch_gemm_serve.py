@@ -15,7 +15,7 @@ from adalog_tpu.calib.init_state import init_qstate as j_init_qstate
 from adalog_tpu.utils import checkpoint as j_checkpoint
 from adalog_tpu.utils.config import Config as JConfig
 from adalog_tpu_torch.models.vit import vit_forward
-from adalog_tpu_torch.ops import fq_gemm
+from adalog_tpu_torch.ops import fq_gemm, weight_prep
 from adalog_tpu_torch.serve import load_quantized
 from adalog_tpu_torch.utils.config import Config
 from adalog_tpu_torch.utils.interop import from_jax, qstate_from_tree
@@ -48,8 +48,8 @@ def test_gemm_dispatch_logits_match_jax(jax_calibrated):
     x = _images(12)
     y, calls, table = _gemm_logits(model, tq, x)
     assert calls == len(table) == 4 * DEPTH + 1
-    assert {k for k, (kind, _, _) in table.items()
-            if kind == "adalog_shift"} == \
+    assert {k for k, site in table.items()
+            if site.kind == "adalog_shift"} == \
         {f"blocks.{i}.mlp.fc2" for i in range(DEPTH)}
     np.testing.assert_allclose(y, _jax_logits(params, x, qstate,
                                               {"*": "quant"}),
@@ -107,7 +107,92 @@ def test_prepare_checks_adalog_base(jax_calibrated, log_q, ok):
     _, tq = from_jax(SPEC.cfg, params, qstate)
     tq["blocks.0.mlp.fc2"].aq.log_q = torch.tensor(log_q)
     if ok:
-        assert fq_gemm.prepare(tq)["blocks.0.mlp.fc2"][2][3] == log_q
+        assert fq_gemm.prepare(tq)["blocks.0.mlp.fc2"].params[3] == log_q
     else:
         with pytest.raises(ValueError, match="blocks.0.mlp.fc2"):
             fq_gemm.prepare(tq)
+
+
+def _mma_formulation(site, x, w, bias=None):
+    """``fq_gemm.run`` with variant "mma"'s fp32 formulation in plain
+    PyTorch in the kernel's place: what a CUDA launch of the site computes."""
+    assert site.mma_fp32 and site.variant(x.dtype) == "mma"
+    fq_gemm.fq_gemm.calls += 1
+    return fq_gemm._gemm_mma_plain(x, w, site.params, bias, kind=site.kind,
+                                   bits=site.bits, codes=site.codes)
+
+
+def test_weight_codes_table_matches_prepared_weights(jax_calibrated):
+    """weight_codes gives every Linear site of the W4A4 model (qkv with
+    n_V = 3 among them) codes exact in bf16 whose product with the row
+    scales is the prepared weight bit for bit; the table built with them
+    routes every site to "mma" in both dtypes, and without them fp32 to
+    "fma"."""
+    params, qstate = jax_calibrated
+    model, tq = from_jax(SPEC.cfg, params, qstate)
+    cfg = Config(**W4A4)
+    wprep = weight_prep.prepare(SPEC, model, tq, cfg)
+    codes = weight_prep.weight_codes(SPEC, model, tq, cfg)
+    assert set(codes) == set(wprep) and len(codes) == 4 * DEPTH + 1
+    assert tq["blocks.0.attn.qkv"].n_V == 3
+    for name, c in codes.items():
+        assert c.codes.dtype == torch.bfloat16
+        assert torch.equal(c.codes.float() * c.scale[:, None], wprep[name])
+    table = fq_gemm.prepare(tq, codes)
+    assert len(table) == 4 * DEPTH + 1
+    for site in table.values():
+        assert site.mma_fp32 and site.codes is not None
+        assert site.variant(torch.float32) == "mma"
+        assert site.variant(torch.bfloat16) == "mma"
+    for site in fq_gemm.prepare(tq).values():
+        assert not site.mma_fp32 and site.codes is None
+        assert site.variant(torch.float32) == "fma"
+        assert site.variant(torch.bfloat16) == "mma"
+
+
+@pytest.mark.parametrize("what,value", [("a_bits", 9), ("fc2_bits", 8),
+                                        ("zero_point", 400.0),
+                                        ("w_zero_point", 7.5)])
+def test_inexact_sites_stay_on_fma(jax_calibrated, what, value):
+    """A site whose fp32 integers are not exact in bf16 (9-bit activations,
+    8-bit AdaLog, a zero point of 400, a fractional AdaRound zero point)
+    keeps variant "fma" for fp32 inputs; the other sites take "mma"."""
+    params, qstate = jax_calibrated
+    model, tq = from_jax(SPEC.cfg, params, qstate)
+    name = "blocks.0.mlp.fc2" if what == "fc2_bits" else "blocks.0.attn.proj"
+    site = tq[name]
+    if what in ("a_bits", "fc2_bits"):
+        site.aq.bits = value
+    elif what == "zero_point":
+        site.aq.zero_point = torch.full_like(site.aq.zero_point, value)
+    else:
+        w = model.get_submodule(name).weight
+        site.wq.alpha = torch.zeros_like(w).reshape(site.n_V, -1, w.shape[1])
+        site.wq.zero_point = torch.full_like(site.wq.zero_point, value)
+    cfg = Config(**W4A4)
+    table = fq_gemm.prepare(tq, weight_prep.weight_codes(SPEC, model, tq, cfg))
+    assert {k for k, s in table.items() if not s.mma_fp32} == {name}
+    assert table[name].variant(torch.float32) == "fma"
+    assert (table[name].codes is None) == (what == "w_zero_point")
+
+
+def test_gemm_dispatch_mma_formulation_matches_jax(jax_calibrated,
+                                                   monkeypatch):
+    """The whole fp32 forward with every Linear site computed as variant
+    "mma" computes it (integer operands from the table's codes, scaled
+    sums): the JAX package's logits at LOGIT_TOL."""
+    params, qstate = jax_calibrated
+    model, tq = from_jax(SPEC.cfg, params, qstate)
+    cfg = Config(**W4A4)
+    x = _images(15)
+    table = fq_gemm.prepare(tq, weight_prep.weight_codes(SPEC, model, tq, cfg))
+    monkeypatch.setattr(fq_gemm, "run", _mma_formulation)
+    before = fq_gemm.fq_gemm.calls
+    with torch.no_grad(), fq_gemm.activate(table), weight_prep.activate(
+            weight_prep.prepare(SPEC, model, tq, cfg)):
+        y = vit_forward(SPEC.cfg, model, torch.from_numpy(x), tq,
+                        {"*": "quant"}).numpy()
+    assert fq_gemm.fq_gemm.calls - before == 4 * DEPTH + 1
+    np.testing.assert_allclose(y, _jax_logits(params, x, qstate,
+                                              {"*": "quant"}),
+                               rtol=LOGIT_TOL, atol=LOGIT_TOL)

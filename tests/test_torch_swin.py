@@ -392,6 +392,40 @@ def test_jax_checkpoint_serves_in_port(jax_calibrated, tmp_path):
         assert fq_gemm.fq_gemm.calls - before == (4 * 3 + 2 if gemm else 0)
 
 
+def test_gemm_dispatch_mma_formulation_matches_jax(jax_calibrated,
+                                                   monkeypatch):
+    """The fp32 Swin forward with every Linear site (the bias-free reduction
+    and head.fc among them) computed as variant "mma" of the GEMM kernel
+    computes it, from the table's weight codes: the JAX package's logits."""
+    from adalog_tpu_torch.ops import weight_prep
+
+    params, qstate = jax_calibrated
+    model, tq = from_jax(SPEC.cfg, params, qstate)
+    cfg = Config(**W4A4)
+    x = _images(9)
+    wprep = weight_prep.prepare(SPEC, model, tq, cfg)
+    table = fq_gemm.prepare(tq, weight_prep.weight_codes(SPEC, model, tq, cfg))
+    assert len(table) == 4 * 3 + 2
+    assert all(site.mma_fp32 for site in table.values())
+
+    def mma_formulation(site, x2, w, bias=None):
+        fq_gemm.fq_gemm.calls += 1
+        return fq_gemm._gemm_mma_plain(x2, w, site.params, bias,
+                                       kind=site.kind, bits=site.bits,
+                                       codes=site.codes)
+
+    monkeypatch.setattr(fq_gemm, "run", mma_formulation)
+    before = fq_gemm.fq_gemm.calls
+    with torch.no_grad(), fq_gemm.activate(table), \
+            weight_prep.activate(wprep):
+        y = swin_forward(SPEC.cfg, model, torch.from_numpy(x), tq,
+                         {"*": "quant"}).numpy()
+    assert fq_gemm.fq_gemm.calls - before == len(table)
+    np.testing.assert_allclose(y, _jax_logits(params, x, qstate,
+                                              {"*": "quant"}),
+                               rtol=LOGIT_TOL, atol=LOGIT_TOL)
+
+
 def test_port_checkpoint_loads_in_jax(jax_calibrated, tmp_path):
     """A Swin .ckpt written by the port loads in adalog_tpu with the same
     arrays (tables gathered back to the JAX package's biases) and the same
