@@ -104,7 +104,7 @@
 // log2f/exp2f may differ by an ulp, so a probability within an ulp of a
 // code boundary can take the neighbouring AdaLog code.
 
-#include "fq_quant.cuh"
+#include "fq_mma.cuh"
 
 namespace {
 
@@ -274,7 +274,6 @@ cudaError_t launch_fma(const FlashArgs& a) {
 // variant "mma": tensor cores, logits in registers, a per-slice code table
 // ---------------------------------------------------------------------------
 
-constexpr int MAX_CODES = 256;       // AdaLog codes of a slice: m2a_bits <= 8
 constexpr int MAX_SLICES_PER_BLOCK = 4;
 
 // Warps a block. Few, so that several blocks share an SM and one block's
@@ -314,135 +313,6 @@ struct Mma {
                : NT >= 16 ? (DT >= 8 ? 3 : 4) : (DT >= 8 ? 3 : DT >= 4 ? 4 : 5);
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);   // .x = lo: low 16 bits
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// Two B operands (k16 x n8 each, columns n0..n0+7 and n0+8..n0+15) of a
-// [k][n] bf16 matrix in shared memory. Lane l gives the address of row
-// k0 + (l & 15), column n0 + 8 * (l >> 4); b[0..1] is the first operand,
-// b[2..3] the second.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* b, uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// The staged operand of one element: the integer c - z (exact in bf16) for
-// fp32 inputs, the dequantized value (rounded to bf16 by the store) for
-// bf16 inputs. A uniform quantizer of one slice as the staging needs it: zr
-// is the already-rounded zero point, inv_s the rounded reciprocal of s (the
-// division by s is the IEEE quotient, div_rn_by_any).
-struct Uniform {
-  float s, inv_s, zr, qmax;
-};
-
-__device__ __forceinline__ Uniform uniform_of(const float* params, int g,
-                                              int bits) {
-  const float s = params[2 * g];
-  return {s, __frcp_rn(s), rintf(params[2 * g + 1]), qmax_of(bits)};
-}
-
-template <bool kInt>
-__device__ __forceinline__ __nv_bfloat16 staged(float x, const Uniform& u) {
-  const float c = fminf(
-      fmaxf(rintf(div_rn_by_any(x, u.s, u.inv_s)) + u.zr, 0.0f), u.qmax);
-  return __float2bfloat16_rn(kInt ? c - u.zr : __fmul_rn(c - u.zr, u.s));
-}
-
-// The floats of one 16-byte load of T.
-__device__ __forceinline__ void unpack16(const uint4& w, float (&x)[4], float) {
-  x[0] = __uint_as_float(w.x);
-  x[1] = __uint_as_float(w.y);
-  x[2] = __uint_as_float(w.z);
-  x[3] = __uint_as_float(w.w);
-}
-__device__ __forceinline__ void unpack16(const uint4& w, float (&x)[8],
-                                         __nv_bfloat16) {
-  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    x[2 * i] = __uint_as_float(u[i] << 16);
-    x[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
-  }
-}
-
-// Stage ``count`` contiguous elements of device memory, whole rows of
-// ``cols`` elements from row 0 on, into the [row][LD] bf16 matrix dst
-// (zero-filled before: the pads are not touched). Global-load latency is
-// what staging costs, so every thread has LOADS loads in flight before it
-// uses the first: of 16 bytes where the run is aligned (a slice of the zoo's
-// shapes always is), else of one element. Not inlined: the loads' registers
-// stay out of the tile loop's allocation.
-template <bool kInt, int LD, int LOADS, typename T>
-__device__ __noinline__ void stage_rows(__nv_bfloat16* dst,
-                                        const T* __restrict__ src, int count,
-                                        int cols, Uniform uq, int tid,
-                                        int nthreads) {
-  constexpr int VEC = 16 / sizeof(T);
-  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0 && count % VEC == 0) {
-    const uint4* src16 = reinterpret_cast<const uint4*>(src);
-    const int n = count / VEC;
-    for (int j0 = tid; j0 < n; j0 += LOADS * nthreads) {
-      uint4 raw[LOADS];
-#pragma unroll
-      for (int u = 0; u < LOADS; ++u)      // past the end: the last one again
-        raw[u] = __ldg(src16 + min(j0 + u * nthreads, n - 1));
-#pragma unroll
-      for (int u = 0; u < LOADS; ++u) {
-        const int i = (j0 + u * nthreads) * VEC;
-        if (i < count) {
-          float x[VEC];
-          unpack16(raw[u], x, T());
-          int r = i / cols, c = i - r * cols;
-#pragma unroll
-          for (int k = 0; k < VEC; ++k) {
-            dst[r * LD + c] = staged<kInt>(x[k], uq);
-            if (++c == cols) {
-              c = 0;
-              ++r;
-            }
-          }
-        }
-      }
-    }
-  } else {
-    for (int i0 = tid; i0 < count; i0 += LOADS * nthreads) {
-      float x[LOADS];
-#pragma unroll
-      for (int u = 0; u < LOADS; ++u)
-        x[u] = to_f32(src[min(i0 + u * nthreads, count - 1)]);
-#pragma unroll
-      for (int u = 0; u < LOADS; ++u) {
-        const int i = i0 + u * nthreads;
-        if (i < count) {
-          const int r = i / cols;
-          dst[r * LD + i - r * cols] = staged<kInt>(x[u], uq);
-        }
-      }
-    }
-  }
-}
-
 // With -DK1_PROFILE the kernel sums its warps' cycles by phase (clock64 at
 // the K1_TICK marks) into k1_prof; fq_flash_attn_profile reads it. The
 // shipped build has none of it.
@@ -459,52 +329,16 @@ __device__ unsigned long long k1_prof[16];
 #define K1_TICK(i)
 #endif
 
-// The sum of a softmax row with its reciprocal, and an AdaLog base with its.
-struct Divisor {
-  float b, y;                        // y = __frcp_rn(b)
-};
-
 // What a slice's warps read more than once, in shared memory beside the
 // staged operands rather than in registers that the logits need: the code
-// table, the AdaLog base, uq(q)'s quantizer and the scales of fp32 inputs
-// (the integer sums times sq*sk, the output times ts*sv; 1 for bf16).
+// table with the AdaLog base (fq_mma.cuh), uq(q)'s quantizer and the scales
+// of fp32 inputs (the integer sums times sq*sk, the output times ts*sv; 1
+// for bf16).
 struct SliceConsts {
-  float tab[MAX_CODES];
-  Divisor base;
-  float n2_half;                     // 2N - 0.5: codes below it are kept
+  CodeTable codes;
   Uniform uq_q;
   float qk_scale, out_scale;
 };
-
-// The AdaLog values of one thread's four exponentials of an n8 tile (ea0,
-// ea1 of row a, eb0, eb1 of row b; ``left`` columns of the row remain from
-// the first of them, so the padded ones get 0), packed to bf16: .x is row
-// a's pair, .y row b's. Both divisions are IEEE quotients, taken through
-// the divisors' reciprocals (div_rn_by). The code is rint(y) with y =
-// -log2(p) * 37 / q, and rint(y) < 2N exactly when y < 2N - 0.5 (2N is even,
-// so the tie rounds up to it): one compare on y and one rounding conversion
-// replace the round, the clamp and the compare of adalog_unit, to the same
-// code. Not inlined: a row tile runs it S/8 times, and inlined the kernel's
-// straight-line code outgrows the I-cache.
-__device__ __noinline__ uint2 quantize_tile(float ea0, float ea1, float eb0,
-                                            float eb1, Divisor sum_a,
-                                            Divisor sum_b,
-                                            const SliceConsts* sc, int left) {
-  const float e[4] = {ea0, ea1, eb0, eb1};
-  const Divisor base = sc->base;
-  const float n2_half = sc->n2_half;
-  float pv[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const Divisor& sum = i < 2 ? sum_a : sum_b;
-    const float p = fmaxf(div_rn_by(e[i], sum.b, sum.y), 1e-15f);
-    const float y = div_rn_by(__fmul_rn(-log2f(p), ADALOG_R), base.b, base.y);
-    const bool keep = y < n2_half && (i & 1) < left;
-    const float val = sc->tab[keep ? __float2int_rn(y) : 0];
-    pv[i] = keep ? val : 0.0f;
-  }
-  return make_uint2(pack_bf16(pv[0], pv[1]), pack_bf16(pv[2], pv[3]));
-}
 
 template <typename T, int NT, int DT>
 __global__ void __launch_bounds__(Mma<NT, DT>::WARPS * 32,
@@ -561,14 +395,9 @@ fq_flash_attn_mma_kernel(const T* __restrict__ q, const T* __restrict__ kT,
         threadIdx.x, blockDim.x);
     const float aq = m2q[g];
     SliceConsts* sc = consts_s + ls;
-    for (int c = threadIdx.x; c < n_codes; c += blockDim.x) {
-      const float code = static_cast<float>(c);
-      sc->tab[c] =
-          kInt ? adalog_value_steps(code, aq, ts) : adalog_value(code, aq, ts);
-    }
+    fill_code_table<kInt>(&sc->codes, aq, n_codes, ts, threadIdx.x,
+                          blockDim.x);
     if (threadIdx.x == blockDim.x - 1) {
-      sc->base = {aq, __frcp_rn(aq)};
-      sc->n2_half = n2 - 0.5f;
       sc->uq_q = uniform_of(m1a, g, m1a_bits);
       sc->qk_scale = kInt ? __fmul_rn(m1a[2 * g], m1b[2 * g]) : 1.0f;
       sc->out_scale = kInt ? __fmul_rn(ts, m2b[2 * g]) : 1.0f;
@@ -701,7 +530,7 @@ fq_flash_attn_mma_kernel(const T* __restrict__ q, const T* __restrict__ kT,
 #pragma unroll
     for (int nt = 0; nt < C::NT; ++nt) {
       const uint2 h = quantize_tile(acc[nt][0], acc[nt][1], acc[nt][2],
-                                    acc[nt][3], div_a, div_b, sc,
+                                    acc[nt][3], div_a, div_b, &sc->codes,
                                     S - (8 * nt + 2 * t4));
       pa[nt >> 1][2 * (nt & 1)] = h.x;
       pa[nt >> 1][2 * (nt & 1) + 1] = h.y;

@@ -33,6 +33,15 @@ and a per-slice table of the AdaLog values; "fma", the first kernel, runs
 exact fp32 products on the FMA pipes and takes what "mma" does not (S above
 256, more than 256 AdaLog codes, fp32 operands whose integer codes are not
 exact in bf16). ``fq_flash_attn(..., variant="mma" | "fma")`` forces one.
+
+K2 and K3 have the same two variants in their one source
+(``matmul_variant`` routes, ``variant=`` on either wrapper forces): "mma"
+has one body a mode (K2: the row of logits in registers, as K1; K3 with
+AdaLog A: A streamed through registers; K3 with uniform A: the wide output
+stored in row runs), with the same code table and integer operands; "fma"
+is their first kernel. ``prepare(qstate)`` flattens each matmul site's
+per-head parameters once; ``activate(..., site_params=)`` carries the table
+to ``run`` and ``run_softmax``.
 """
 
 from __future__ import annotations
@@ -155,6 +164,16 @@ def _adalog_lookup(x, table, q):
     return torch.gather(rows, 2, idx) * keep
 
 
+def _mma_operand(x, params, bits: int, int_mode: bool):
+    """One uniform-quantized (G, ., .) operand as variant "mma" of a kernel
+    stages it, in bf16: the integers c - z (``int_mode``, fp32 inputs) or
+    the dequantized values (c - z) * s rounded to bf16."""
+    s = params[:, 0].to(torch.float32).reshape(-1, 1, 1)
+    zr = torch.round(params[:, 1].to(torch.float32).reshape(-1, 1, 1))
+    c = torch.clamp(torch.round(x.float() / s) + zr, 0.0, 2.0 ** bits - 1)
+    return ((c - zr) if int_mode else (c - zr) * s).to(torch.bfloat16)
+
+
 def _mma_operands(q, kT, v, m1a_params, m1b_params, m2q, m2b_params, *,
                   m1a_bits: int, m1b_bits: int, m2a_bits: int, m2b_bits: int):
     """What variant "mma" of the kernel stages, in plain PyTorch: the bf16
@@ -172,9 +191,7 @@ def _mma_operands(q, kT, v, m1a_params, m1b_params, m2q, m2b_params, *,
         return a.to(torch.float32).reshape(-1, 1, 1)
 
     def operand(x, params, bits):
-        s, zr = per_g(params[:, 0]), torch.round(per_g(params[:, 1]))
-        c = torch.clamp(torch.round(x.float() / s) + zr, 0.0, 2.0 ** bits - 1)
-        return ((c - zr) if int_mode else (c - zr) * s).to(torch.bfloat16)
+        return _mma_operand(x, params, bits, int_mode)
 
     one = torch.ones((q.shape[0], 1, 1), dtype=torch.float32, device=q.device)
     ts = torch.tensor(1.0 / (2 ** (m2a_bits + 1) - 2), dtype=torch.float32,
@@ -248,6 +265,58 @@ def fq_softmax_attn_matmul_plain(L, B, a_params, b_params, *, a_bits: int,
     ``fq_softmax_attn_matmul``."""
     return _attn_matmul_plain(L, B, a_params, b_params, "adalog", a_bits,
                               b_bits, True)
+
+
+def _matmul_mma_operands(A, B, a_params, b_params, *, a_kind: str,
+                         a_bits: int, b_bits: int):
+    """What variant "mma" of K2 / K3 stages, in plain PyTorch: uq(B) in bf16,
+    for uniform A uq(A) in bf16 (``A``), for AdaLog A the (G, 2N) code table
+    (``table``), and the per-slice (G, 1, 1) scale of the output.
+
+    bf16 inputs: operands and table hold the dequantized values, the scale
+    is 1. fp32 inputs: the operands are the integers c - z (exact in bf16
+    while |c - z| <= 256) and the table holds steps * 2^-shift; the output
+    is scaled by s_a * s_b (uniform A) or ts * s_b (AdaLog A)."""
+    int_mode = A.dtype == torch.float32
+    sb = b_params[:, 0].to(torch.float32).reshape(-1, 1, 1)
+    ops = dict(B=_mma_operand(B, b_params, b_bits, int_mode), A=None,
+               table=None, out_scale=torch.ones_like(sb))
+    if a_kind == "uniform":
+        ops["A"] = _mma_operand(A, a_params, a_bits, int_mode)
+        if int_mode:
+            ops["out_scale"] = a_params[:, 0].to(torch.float32).reshape(
+                -1, 1, 1) * sb
+    else:
+        ops["table"] = _adalog_table(a_params[:, 0], a_bits, int_mode)
+        if int_mode:
+            ts = torch.tensor(1.0 / (2 ** (a_bits + 1) - 2),
+                              dtype=torch.float32, device=A.device)
+            ops["out_scale"] = ts * sb
+    return ops
+
+
+def _attn_matmul_mma_plain(A, B, a_params, b_params, *, a_kind: str,
+                           a_bits: int, b_bits: int,
+                           do_softmax: bool = False):
+    """Variant "mma" of K3 (and, with ``do_softmax``, of K2) step for step
+    in plain PyTorch: the operands of ``_matmul_mma_operands`` multiplied in
+    fp32, AdaLog values from the code table, the scale on the sum. Equal to
+    the plain versions up to the rounding of the fp32 sums."""
+    ops = _matmul_mma_operands(A, B, a_params, b_params, a_kind=a_kind,
+                               a_bits=a_bits, b_bits=b_bits)
+    if a_kind == "uniform":
+        a = ops["A"]
+    else:
+        x = A.float()
+        if do_softmax:
+            m = torch.amax(x, dim=-1, keepdim=True)
+            e = torch.exp(x - m)
+            x = e / torch.sum(e, dim=-1, keepdim=True)
+        a = _adalog_lookup(
+            x, ops["table"],
+            a_params[:, 0].to(torch.float32).reshape(-1, 1, 1)
+        ).to(torch.bfloat16)
+    return torch.matmul(a.float(), ops["B"].float()) * ops["out_scale"]
 
 
 # ---------------------------------------------------------------------------
@@ -514,25 +583,40 @@ def flash_phase_cycles(q, kT, v, m1a_params, m1b_params, m2q, m2b_params,
 # ---------------------------------------------------------------------------
 
 A_KINDS = ("uniform", "adalog")
-_MODE_SOFTMAX = 2                 # fq_attn_matmul.cu: 0 uniform A, 1 AdaLog A
+# the modes of fq_attn_matmul.cu, by index: K3 with uniform A, K3 with AdaLog
+# A, K2 (row softmax, then AdaLog A)
+MATMUL_MODES = ("uniform", "adalog", "softmax")
+# variant "mma" of fq_attn_matmul.cu (must match its launch_mma_mode)
+_MATMUL_MMA_MAX_K_SOFTMAX = 256   # K2: a row of logits in registers
+_MATMUL_MMA_MAX_C_ADALOG = 128    # K2, K3 AdaLog A: 16 n8 tiles of output
+_MATMUL_MMA_MAX_K_UNIFORM = 128   # K3 uniform A: 8 k16 steps of A operands
+_MATMUL_MMA_WARPS = 4
+_MATMUL_MMA_OUT_LD = 72           # floats a row of a warp's output strip
+_MATMUL_MMA_CONSTS_BYTES = 1040   # code table, base, bound, output scale
 
 
 @functools.lru_cache(maxsize=None)
-def _matmul_library():
-    lib = cuda_build.library("fq_attn_matmul")
+def _matmul_library(profile: bool = False):
+    """K2 and K3's library; with ``profile`` the build whose variant "mma"
+    counts its warps' cycles by phase (K23_PROFILE in the source)."""
+    lib = ctypes.CDLL(cuda_build.build("fq_attn_matmul", ("K23_PROFILE",))) \
+        if profile else cuda_build.library("fq_attn_matmul")
     fn = lib.fq_attn_matmul_launch
-    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
-                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
+                   + [ctypes.c_int] * 11 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    if profile:
+        lib.fq_attn_matmul_profile.argtypes = [ctypes.c_void_p]
+        lib.fq_attn_matmul_profile.restype = ctypes.c_int
     return lib
 
 
 def matmul_tile_plan(S: int):
-    """(A rows a block, warps a block) of fq_attn_matmul.cu for S rows a
-    slice: the rows are split evenly over tiles of at most
-    _MAX_ROWS_PER_BLOCK, and a tile's rows evenly over at most _WARPS warps
-    (one warp a row), so S=49 runs 10 warps for 5 rounds and S=197 4 tiles
-    of 50 rows, 10 warps."""
+    """(A rows a block, warps a block) of variant "fma" of
+    fq_attn_matmul.cu for S rows a slice: the rows are split evenly over
+    tiles of at most _MAX_ROWS_PER_BLOCK, and a tile's rows evenly over at
+    most _WARPS warps (one warp a row), so S=49 runs 10 warps for 5 rounds
+    and S=197 4 tiles of 50 rows, 10 warps."""
     tiles = -(-S // _MAX_ROWS_PER_BLOCK)
     rows = -(-S // tiles)
     rounds = -(-rows // _WARPS)
@@ -540,15 +624,16 @@ def matmul_tile_plan(S: int):
 
 
 def _matmul_smem_bytes(S: int, K: int, C: int) -> int:
-    """Dynamic shared memory of one block: uq(B) of the slice plus one A
-    row per warp, all fp32."""
+    """Dynamic shared memory of one block of variant "fma": uq(B) of the
+    slice plus one A row per warp, all fp32."""
     return (K * C + matmul_tile_plan(S)[1] * K) * 4
 
 
 def check_matmul_kernel_shape(G: int, S: int, K: int, C: int):
-    """Raise for shapes K2/K3's kernel does not take: the staged uq(B) of
-    one slice, (K, C) in fp32, plus the warps' A rows must fit in one
-    block's shared memory, and G * tiles must fit the grid's x dimension."""
+    """Raise for shapes variant "fma" of K2/K3's kernel does not take: the
+    staged uq(B) of one slice, (K, C) in fp32, plus the warps' A rows must
+    fit in one block's shared memory, and G * tiles must fit the grid's x
+    dimension. Variant "mma" has its own limits (``matmul_mma_refusal``)."""
     if min(G, S, K, C) < 1:
         raise ValueError(f"empty attention matmul G={G}, S={S}, K={K}, C={C}")
     need = _matmul_smem_bytes(S, K, C)
@@ -561,7 +646,91 @@ def check_matmul_kernel_shape(G: int, S: int, K: int, C: int):
         raise ValueError(f"G={G}, S={S} needs {blocks} blocks, above 2^31 - 1")
 
 
-def _check_matmul(name, A, B, a_params, b_params, a_kind, a_bits, b_bits):
+def _pad_pow2_steps(n: int) -> int:
+    """n rounded up to the 32, 64 or 128 columns of the kernel's templates."""
+    return 32 if n <= 32 else 64 if n <= 64 else 128
+
+
+def _matmul_mma_smem_bytes(mode: str, K: int, C: int) -> int:
+    """Dynamic shared memory of one block of variant "mma": uq(B) of the
+    slice in bf16, rows padded by 8 elements; behind it the slice's code
+    table (AdaLog A) or, for uniform A, a 16-row tile of uq(A) and a
+    16 x 64 fp32 output strip for each of the 4 warps."""
+    if mode == "uniform":
+        k_pad, c_pad = _pad_pow2_steps(K), 16 * -(-C // 16)
+        return k_pad * (c_pad + 8) * 2 + _MATMUL_MMA_WARPS * (
+            16 * (k_pad + 8) * 2 + 16 * _MATMUL_MMA_OUT_LD * 4)
+    k_pad = 16 * -(-K // 16)
+    if mode == "softmax":       # 7, 16, 25 or 32 n8 tiles of logits
+        k_pad = 64 if K <= 56 else 128 if K <= 128 else 208 if K <= 200 \
+            else 256
+    return k_pad * (_pad_pow2_steps(C) + 8) * 2 + _MATMUL_MMA_CONSTS_BYTES
+
+
+def matmul_mma_refusal(mode: str, G: int, S: int, K: int, C: int, dtype,
+                       a_bits: int, b_bits: int,
+                       exact_ints: bool) -> Optional[str]:
+    """Why variant "mma" of K2 / K3 does not take a call, or None when it
+    does. ``mode`` is one of MATMUL_MODES; ``exact_ints`` the verdict on the
+    zero points of fp32 inputs (ignored for bf16)."""
+    if mode not in MATMUL_MODES:
+        raise ValueError(f"mode {mode!r}: want one of {MATMUL_MODES}")
+    if G >= 2 ** 31:
+        return f"G={G} slices do not fit the grid's x dimension"
+    if mode == "uniform":
+        if K > _MATMUL_MMA_MAX_K_UNIFORM:
+            return (f"K={K} > {_MATMUL_MMA_MAX_K_UNIFORM}: the A operands "
+                    "of a row tile do not fit registers")
+    else:
+        if mode == "softmax" and K > _MATMUL_MMA_MAX_K_SOFTMAX:
+            return (f"K={K} > {_MATMUL_MMA_MAX_K_SOFTMAX}: a row of logits "
+                    "does not fit registers")
+        if C > _MATMUL_MMA_MAX_C_ADALOG:
+            return (f"C={C} > {_MATMUL_MMA_MAX_C_ADALOG}: a row tile of "
+                    "output does not fit registers")
+        if a_bits > _MMA_MAX_CODE_BITS:
+            return (f"a_bits={a_bits} > {_MMA_MAX_CODE_BITS}: the code table "
+                    "holds 256 values")
+    need = _matmul_mma_smem_bytes(mode, K, C)
+    if need > _MAX_SMEM_BYTES:
+        return (f"K={K}, C={C} needs {need} bytes of shared memory per "
+                f"block, above {_MAX_SMEM_BYTES}")
+    if dtype == torch.float32:
+        uniform_bits = max(a_bits, b_bits) if mode == "uniform" else b_bits
+        if uniform_bits > _MMA_INT_BITS:
+            return (f"fp32 operands of {uniform_bits} bits: codes past "
+                    f"{_MMA_INT_BITS} bits are not exact in bf16")
+        if mode != "uniform" and a_bits > _MMA_INT_CODE_BITS:
+            return (f"fp32 probabilities of {a_bits} bits: 4N - 2 mantissa "
+                    "steps are not exact in bf16")
+        if not exact_ints:
+            return ("a zero point of the fp32 operands is out of range: "
+                    f"|c - z| > {_MMA_INT_MAX} is not exact in bf16")
+    return None
+
+
+def matmul_variant(mode: str, G: int, S: int, K: int, C: int, dtype,
+                   a_bits: int, b_bits: int, exact_ints: bool,
+                   variant: str = "auto") -> str:
+    """Which hand-written variant of K2 / K3 a call takes, from its mode,
+    shapes, dtype, bit widths and the verdict on its zero points: "mma"
+    where it applies, else "fma". A forced variant that does not take the
+    call raises; so does a call neither takes."""
+    if variant not in VARIANTS:
+        raise ValueError(f"variant {variant!r}: want one of {VARIANTS}")
+    why = matmul_mma_refusal(mode, G, S, K, C, dtype, a_bits, b_bits,
+                             exact_ints)
+    if variant == "mma" and why is not None:
+        raise ValueError(f"attention matmul ({mode} A) variant 'mma' "
+                         f"refused: {why}")
+    if variant == "mma" or (variant == "auto" and why is None):
+        return "mma"
+    check_matmul_kernel_shape(G, S, K, C)
+    return "fma"
+
+
+def _check_matmul(name, A, B, a_params, b_params, a_kind, a_bits, b_bits,
+                  periodic=False):
     if A.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name} takes float32 or bfloat16, not {A.dtype}")
     if B.dtype != A.dtype:
@@ -572,8 +741,13 @@ def _check_matmul(name, A, B, a_params, b_params, a_kind, a_bits, b_bits):
                          "want (G,S,K), (G,K,C)")
     G = A.shape[0]
     for nm, a in (("a_params", a_params), ("b_params", b_params)):
-        if tuple(a.shape) != (G, 2):
-            raise ValueError(f"{nm} must be ({G}, 2), got {tuple(a.shape)}")
+        ok = a.dim() == 2 and a.shape[1] == 2 and a.shape[0] >= 1 and (
+            G % a.shape[0] == 0 if periodic else a.shape[0] == G)
+        if not ok:
+            raise ValueError(
+                f"{nm} must be ({G}, 2)" + (" or (P, 2) with P dividing G"
+                                            if periodic else "")
+                + f", got {tuple(a.shape)}")
     if a_kind not in A_KINDS:
         raise ValueError(f"a_kind {a_kind!r}: want one of {A_KINDS}")
     for b in (a_bits, b_bits):
@@ -581,35 +755,84 @@ def _check_matmul(name, A, B, a_params, b_params, a_kind, a_bits, b_bits):
             raise ValueError(f"bit width {b} outside 1..16")
 
 
-def _launch_matmul(wrapper, mode, A, B, a_params, b_params, a_bits, b_bits):
+def _launch_matmul(wrapper, mode, A, B, ap, bp, a_bits, b_bits, variant,
+                   profile=False):
+    """One launch on the current stream of A's device, which the C call
+    makes current where it is not. ap and bp are (P, 2): slice g reads row
+    g % P."""
     G, S, K = A.shape
     C = B.shape[2]
-    check_matmul_kernel_shape(G, S, K, C)
     dev = A.device
-    for t in (B, a_params, b_params):
-        if t.device != dev:
-            raise ValueError(f"all {wrapper.__name__} inputs must be on {dev}")
-    A, B = A.contiguous(), B.contiguous()
-    ap = a_params.to(torch.float32).contiguous()
-    bp = b_params.to(torch.float32).contiguous()
+    if B.device != dev or ap.device != dev or bp.device != dev:
+        raise ValueError(f"all {wrapper.__name__} inputs must be on {dev}")
+    if not A.is_contiguous():
+        A = A.contiguous()
+    if not B.is_contiguous():
+        B = B.contiguous()
+    if ap.dtype != torch.float32 or not ap.is_contiguous():
+        ap = ap.to(torch.float32).contiguous()
+    if bp.dtype != torch.float32 or not bp.is_contiguous():
+        bp = bp.to(torch.float32).contiguous()
     out = torch.empty((G, S, C), dtype=torch.float32, device=dev)
     rows, warps = matmul_tile_plan(S)
-    lib = _matmul_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fq_attn_matmul_launch(
-            1 if A.dtype == torch.bfloat16 else 0, mode, A.data_ptr(),
-            B.data_ptr(), ap.data_ptr(), bp.data_ptr(), out.data_ptr(),
-            G, S, K, C, rows, warps, a_bits, b_bits, stream)
+    err = _matmul_library(profile).fq_attn_matmul_launch(
+        1 if variant == "mma" else 0, 1 if A.dtype == torch.bfloat16 else 0,
+        MATMUL_MODES.index(mode), A.data_ptr(), B.data_ptr(), ap.data_ptr(),
+        bp.data_ptr(), out.data_ptr(), G, S, K, C, ap.shape[0], bp.shape[0],
+        rows, warps, a_bits, b_bits, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{wrapper.__name__} kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"{wrapper.__name__} kernel ({variant}) launch "
+                           f"failed: CUDA error {err}")
     wrapper.launches += 1
+    wrapper.variant_launches[variant] += 1
     return out
 
 
+def _attn_matmul(wrapper, mode, A, B, a_params, b_params, a_bits, b_bits,
+                 variant, exact_ints):
+    """What both wrappers and the dispatch do once the arguments are
+    checked: count the call, route, then the plain version for CPU tensors
+    or a launch for CUDA tensors. a_params and b_params are (P, 2) with P
+    dividing G (the dispatch hands a site's per-head rows over as they are;
+    the kernel reads row g % P)."""
+    if variant not in VARIANTS:
+        raise ValueError(f"variant {variant!r}: want one of {VARIANTS}")
+    wrapper.calls += 1
+    cpu = A.device.type == "cpu"
+    if not cpu and A.device.type != "cuda":
+        raise RuntimeError(f"{wrapper.__name__} has no path for {A.device}")
+    G, S, K = A.shape
+    C = B.shape[2]
+    if not cpu or variant != "auto":
+        if exact_ints is None:
+            # asked only where the answer decides: an fp32 call that "mma"
+            # would otherwise take (reading the zero points waits for the
+            # device)
+            exact_ints = variant != "fma" and A.dtype == torch.float32 \
+                and matmul_mma_refusal(mode, G, S, K, C, A.dtype, a_bits,
+                                       b_bits, True) is None \
+                and (mode != "uniform"
+                     or zero_points_exact(a_params, a_bits)) \
+                and zero_points_exact(b_params, b_bits)
+        variant = matmul_variant(mode, G, S, K, C, A.dtype, a_bits, b_bits,
+                                 bool(exact_ints), variant)
+    if cpu:
+        if a_params.shape[0] != G:
+            a_params = a_params.repeat(G // a_params.shape[0], 1)
+        if b_params.shape[0] != G:
+            b_params = b_params.repeat(G // b_params.shape[0], 1)
+        return _attn_matmul_plain(
+            A, B, a_params, b_params,
+            "uniform" if mode == "uniform" else "adalog", a_bits, b_bits,
+            mode == "softmax")
+    return _launch_matmul(wrapper, mode, A, B, a_params, b_params, a_bits,
+                          b_bits, variant)
+
+
 def fq_attn_matmul(A, B, a_params, b_params, *, a_kind: str, a_bits: int,
-                   b_bits: int):
+                   b_bits: int, variant: str = "auto",
+                   exact_ints: Optional[bool] = None):
     """Fused fake-quant batched matmul for attention sites (K3).
 
     A: (G, S, K); B: (G, K, C) with G = batch*heads flattened, float32 or
@@ -618,25 +841,26 @@ def fq_attn_matmul(A, B, a_params, b_params, *, a_kind: str, a_bits: int,
     the log base q (scale is 1.0, A in [0, 1]). Returns (G, S, C) float32.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel; any
-    other device raises."""
+    other device raises. ``variant`` picks the kernel: "auto" routes by
+    ``matmul_variant``, "mma" or "fma" force one (and raise where it does
+    not take the call; a CPU call checks that too). ``exact_ints`` is the
+    caller's verdict on the zero points (``integers_exact``); None has the
+    wrapper read them itself when an fp32 call could take "mma", which
+    waits for the device."""
     _check_matmul("fq_attn_matmul", A, B, a_params, b_params, a_kind, a_bits,
                   b_bits)
-    fq_attn_matmul.calls += 1
-    if A.device.type == "cpu":
-        return fq_attn_matmul_plain(A, B, a_params, b_params, a_kind=a_kind,
-                                    a_bits=a_bits, b_bits=b_bits)
-    if A.device.type != "cuda":
-        raise RuntimeError(f"fq_attn_matmul has no path for {A.device}")
-    return _launch_matmul(fq_attn_matmul, A_KINDS.index(a_kind), A, B,
-                          a_params, b_params, a_bits, b_bits)
+    return _attn_matmul(fq_attn_matmul, a_kind, A, B, a_params, b_params,
+                        a_bits, b_bits, variant, exact_ints)
 
 
 fq_attn_matmul.launches = 0
 fq_attn_matmul.calls = 0
+fq_attn_matmul.variant_launches = {"mma": 0, "fma": 0}
 
 
 def fq_softmax_attn_matmul(L, B, a_params, b_params, *, a_bits: int,
-                           b_bits: int):
+                           b_bits: int, variant: str = "auto",
+                           exact_ints: Optional[bool] = None):
     """softmax(L) -> AdaLog fake-quant -> @ fake-quant(B), all fused (K2).
 
     L: (G, S, K) pre-softmax attention logits (scale, bias and mask already
@@ -645,22 +869,58 @@ def fq_softmax_attn_matmul(L, B, a_params, b_params, *, a_bits: int,
     b_params: (G, 2) [scale, zp]. Returns (G, S, C) float32.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel; any
-    other device raises."""
+    other device raises. ``variant`` and ``exact_ints`` as for
+    ``fq_attn_matmul``."""
     _check_matmul("fq_softmax_attn_matmul", L, B, a_params, b_params,
                   "adalog", a_bits, b_bits)
-    fq_softmax_attn_matmul.calls += 1
-    if L.device.type == "cpu":
-        return fq_softmax_attn_matmul_plain(L, B, a_params, b_params,
-                                            a_bits=a_bits, b_bits=b_bits)
-    if L.device.type != "cuda":
-        raise RuntimeError(f"fq_softmax_attn_matmul has no path for "
-                           f"{L.device}")
-    return _launch_matmul(fq_softmax_attn_matmul, _MODE_SOFTMAX, L, B,
-                          a_params, b_params, a_bits, b_bits)
+    return _attn_matmul(fq_softmax_attn_matmul, "softmax", L, B, a_params,
+                        b_params, a_bits, b_bits, variant, exact_ints)
 
 
 fq_softmax_attn_matmul.launches = 0
 fq_softmax_attn_matmul.calls = 0
+fq_softmax_attn_matmul.variant_launches = {"mma": 0, "fma": 0}
+
+# the phases variant "mma" of K2 / K3 counts its cycles by, in the kernels'
+# order (a body counts those it has)
+MATMUL_PHASES = ("stage uq(B), code table", "loads of A", "mask, row max",
+                 "exp, row sum", "AdaLog codes and values", "products",
+                 "store")
+
+
+def matmul_phase_cycles(mode: str, A, B, a_params, b_params, *, a_bits: int,
+                        b_bits: int):
+    """Where the cycles of one call of variant "mma" of K2 (``mode``
+    "softmax") or K3 ("uniform", "adalog") go: {phase: cycles summed over
+    the call's warps}, read with clock64 by a second build of the kernels
+    (K23_PROFILE; the timers cost it some registers and time, so the shares
+    are the result, not the sum; a load's wait is counted where its value is
+    first used). CUDA tensors only; waits for the device."""
+    wrapper = fq_softmax_attn_matmul if mode == "softmax" else fq_attn_matmul
+    _check_matmul(wrapper.__name__, A, B, a_params, b_params,
+                  "uniform" if mode == "uniform" else "adalog", a_bits,
+                  b_bits)
+    if A.device.type != "cuda":
+        raise RuntimeError("matmul_phase_cycles times the kernel on a GPU")
+    exact = A.dtype != torch.float32 or (
+        zero_points_exact(b_params, b_bits)
+        and (mode != "uniform" or zero_points_exact(a_params, a_bits)))
+    G, S, K = A.shape
+    matmul_variant(mode, G, S, K, B.shape[2], A.dtype, a_bits, b_bits, exact,
+                   "mma")
+    lib = _matmul_library(True)
+    cycles = (ctypes.c_ulonglong * 8)()
+    with torch.cuda.device(A.device):
+        torch.cuda.synchronize()
+        err = lib.fq_attn_matmul_profile(cycles)       # reads, then zeroes
+        _launch_matmul(wrapper, mode, A, B, a_params, b_params, a_bits,
+                       b_bits, "mma", profile=True)
+        torch.cuda.synchronize()
+        err = err or lib.fq_attn_matmul_profile(cycles)
+    if err != 0:
+        raise RuntimeError(f"fq_attn_matmul profile read failed: CUDA error "
+                           f"{err}")
+    return dict(zip(MATMUL_PHASES, cycles[:len(MATMUL_PHASES)]))
 
 
 # ---------------------------------------------------------------------------
@@ -671,20 +931,27 @@ _ENABLED: contextvars.ContextVar = contextvars.ContextVar(
     "adalog_fq_attn_enabled", default=False)
 _EXACT_INTS: contextvars.ContextVar = contextvars.ContextVar(
     "adalog_fq_attn_exact_ints", default=None)
+_SITE_PARAMS: contextvars.ContextVar = contextvars.ContextVar(
+    "adalog_fq_attn_site_params", default=None)
 
 
 @contextmanager
-def activate(flag: bool, exact_ints: Optional[bool] = None):
+def activate(flag: bool, exact_ints: Optional[bool] = None,
+             site_params: Optional[dict] = None):
     """Route supported attention sites through the kernels inside the block
     (a predictor enters it around its forward). ``exact_ints`` is the
     verdict of ``integers_exact`` on the quantizer state the forward runs
-    with, taken once by the caller; with None, each fp32 K1 call reads its
-    own zero points."""
+    with, taken once by the caller; with None, each fp32 call that could
+    take a variant "mma" reads its own zero points. ``site_params`` is the
+    table of ``prepare`` for that state; without it ``run`` and
+    ``run_softmax`` flatten a site's parameters on every call."""
     tok = _ENABLED.set(bool(flag))
     tok_exact = _EXACT_INTS.set(exact_ints)
+    tok_params = _SITE_PARAMS.set(site_params)
     try:
         yield
     finally:
+        _SITE_PARAMS.reset(tok_params)
         _EXACT_INTS.reset(tok_exact)
         _ENABLED.reset(tok)
 
@@ -731,31 +998,63 @@ def supports_flash(m1_site, m2_site, m1_mode: str, m2_mode: str) -> bool:
     return supports_softmax(m2_site, m2_mode)
 
 
-def _head_params(qs, H: int, device):
-    """Per-head (scale-or-q, zp) rows -> (H, 2) float32; per-tensor layouts
-    broadcast across heads."""
-    def vec(a):
-        if a is None:
-            return torch.zeros((H,), dtype=torch.float32, device=device)
-        flat = a.reshape(-1).to(torch.float32)
-        return (flat if flat.numel() == H else flat[:1]).expand(H)
+def _period_params(qs):
+    """(P, 2) float32 [scale-or-q, zp] of one quantizer, P its number of
+    per-head rows (1 for a per-tensor layout): slice g = n * H + h of a
+    flattened batch reads row g % P."""
+    p0 = qs.log_q if qs.kind == "adalog" else qs.scale
+    p0 = p0.reshape(-1).to(torch.float32)
+    z = torch.zeros_like(p0[:1]) if qs.zero_point is None \
+        else qs.zero_point.reshape(-1).to(torch.float32)
+    P = max(p0.numel(), z.numel())
+    return torch.stack([a if a.numel() == P else a[:1].expand(P)
+                        for a in (p0, z)], dim=1).contiguous()
 
-    p0 = vec(qs.log_q) if qs.kind == "adalog" else vec(qs.scale)
-    return torch.stack([p0, vec(qs.zero_point)], dim=1)
+
+def site_params(site):
+    """The (P, 2) parameter rows of a matmul site's A and B quantizers as
+    K2 / K3 take them."""
+    return _period_params(site.Aq), _period_params(site.Bq)
 
 
-def _flat_params(site, N: int, H: int, device):
-    ap = _head_params(site.Aq, H, device).repeat(N, 1)
-    bp = _head_params(site.Bq, H, device).repeat(N, 1)
+def prepare(qstate) -> dict:
+    """{id(site): ``site_params(site)``} of every attention matmul site of a
+    quantizer state, built once where a predictor is built and carried by
+    ``activate(..., site_params=)``: the served calls of K2 / K3 then start
+    no small device work of their own. The table is good for the state's
+    own site objects while their tensors are not replaced."""
+    return {id(site): site_params(site) for site in qstate.values()
+            if getattr(site, "Aq", None) is not None
+            and getattr(site, "Bq", None) is not None
+            and site.Bq.kind == "uniform" and site.Bq.bits != 32
+            and site.Aq.kind in A_KINDS and site.Aq.bits != 32}
+
+
+def _site_params(site, G: int):
+    table = _SITE_PARAMS.get()
+    entry = None if table is None else table.get(id(site))
+    ap, bp = site_params(site) if entry is None else entry
+    if G % ap.shape[0] or G % bp.shape[0]:
+        raise ValueError(
+            f"a site with {ap.shape[0]} and {bp.shape[0]} parameter rows "
+            f"does not tile {G} slices")
     return ap, bp
+
+
+def _flat_params(site, N: int, H: int):
+    """A site's parameter rows repeated over the batch, (N * H, 2) each, as
+    ``fq_flash_attn`` takes them; per-tensor layouts broadcast across
+    heads."""
+    return tuple(p.expand(H, 2).repeat(N, 1)
+                 for p in _site_params(site, N * H))
 
 
 def flash_args(m1_site, m2_site, q, kT, v):
     """The (G, ...) tensors and bit widths ``fq_flash_attn`` takes for 4D
     q, v: (N, H, S, D) and kT: (N, H, D, S) of the two attention sites."""
     N, H, S, D = q.shape
-    m1a, m1b = _flat_params(m1_site, N, H, q.device)
-    m2a, m2b = _flat_params(m2_site, N, H, q.device)
+    m1a, m1b = _flat_params(m1_site, N, H)
+    m2a, m2b = _flat_params(m2_site, N, H)
     args = (q.reshape(N * H, S, D), kT.reshape(N * H, D, S),
             v.reshape(N * H, S, D), m1a, m1b, m2a[:, 0], m2b)
     bits = dict(m1a_bits=m1_site.Aq.bits, m1b_bits=m1_site.Bq.bits,
@@ -779,10 +1078,12 @@ def run(site, A, B):
     through K3. Returns (N, H, S, C) in A's dtype."""
     N, H, S, K = A.shape
     C = B.shape[-1]
-    ap, bp = _flat_params(site, N, H, A.device)
-    out = fq_attn_matmul(
-        A.reshape(N * H, S, K), B.reshape(N * H, K, C), ap, bp,
-        a_kind=site.Aq.kind, a_bits=site.Aq.bits, b_bits=site.Bq.bits)
+    ap, bp = _site_params(site, N * H)
+    A3, B3 = A.reshape(N * H, S, K), B.reshape(N * H, K, C)
+    _check_matmul("fq_attn_matmul", A3, B3, ap, bp, site.Aq.kind,
+                  site.Aq.bits, site.Bq.bits, periodic=True)
+    out = _attn_matmul(fq_attn_matmul, site.Aq.kind, A3, B3, ap, bp,
+                       site.Aq.bits, site.Bq.bits, "auto", _EXACT_INTS.get())
     return out.reshape(N, H, S, C).to(A.dtype)
 
 
@@ -791,8 +1092,10 @@ def run_softmax(site, L, B):
     ``site`` through K2. Returns (N, H, S, C) in L's dtype."""
     N, H, S, K = L.shape
     C = B.shape[-1]
-    ap, bp = _flat_params(site, N, H, L.device)
-    out = fq_softmax_attn_matmul(
-        L.reshape(N * H, S, K), B.reshape(N * H, K, C), ap, bp,
-        a_bits=site.Aq.bits, b_bits=site.Bq.bits)
+    ap, bp = _site_params(site, N * H)
+    L3, B3 = L.reshape(N * H, S, K), B.reshape(N * H, K, C)
+    _check_matmul("fq_softmax_attn_matmul", L3, B3, ap, bp, "adalog",
+                  site.Aq.bits, site.Bq.bits, periodic=True)
+    out = _attn_matmul(fq_softmax_attn_matmul, "softmax", L3, B3, ap, bp,
+                       site.Aq.bits, site.Bq.bits, "auto", _EXACT_INTS.get())
     return out.reshape(N, H, S, C).to(L.dtype)

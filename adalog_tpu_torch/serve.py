@@ -81,11 +81,14 @@ def make_predictor(spec, params, qstate, *, eval_dtype: str = "float32",
     # which variant of the attention kernel its zero points allow
     exact_ints = fq_attn.integers_exact(qs) \
         if use_kernels or use_gemm_kernels else None
+    # and each attention matmul site's per-head parameters flattened once
+    attn_params = fq_attn.prepare(qs) \
+        if use_kernels or use_gemm_kernels else None
 
     def predict(x):
         x = torch.as_tensor(x).to(device=device, dtype=dtype)
         with torch.inference_mode(), weight_prep.activate(wprep), \
-                fq_attn.activate(use_kernels, exact_ints), \
+                fq_attn.activate(use_kernels, exact_ints, attn_params), \
                 fq_gemm.activate(gemm_table):
             return fwd(spec.cfg, model, x, qs, {"*": "quant"}).float()
 

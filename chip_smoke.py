@@ -36,9 +36,14 @@ Phases, each a hard check (any failure raises and exits non-zero):
      versions at the attention shapes of batch 32 of deit_small (G=192,
      S=197, D=64) and of swin_tiny's first and last stage (S=49, D=32,
      G=6144 and 768), fp32 and bf16: K3 on q @ kT (uniform A), K3 on
-     probabilities @ v (AdaLog A), K2 on logits and v; and K2 on the plain
-     matmul1's logits against K1 on the same q, kT, v (fp32): bit for bit
-     against variant "fma", to K1's own tolerance against "mma";
+     probabilities @ v (AdaLog A), K2 on logits and v, each as the wrapper
+     routes it (variant "mma", asserted; share past tolerance and a cap of
+     one probability times the largest |uq(B)|) and with variant "fma"
+     forced (bit for bit), timed as one call, ten in a row and ten replayed
+     from a CUDA graph; K2 at S=300 as routed ("fma", asserted); and K2 on
+     the plain matmul1's logits against K1 on the same q, kT, v (fp32):
+     "fma" against "fma" bit for bit, "mma" against "mma" to K1's own
+     tolerance;
   6. serving phase, for deit_small and for swin_tiny (embed 96, depths
      2-2-6-2, heads 3-6-12-24, window 7, 224 px), each at full depth and
      width with random weights from a numpy seed and a smoke quantizer
@@ -64,14 +69,14 @@ Phases, each a hard check (any failure raises and exits non-zero):
      post_softmax_quantizer='log2' state served through load_quantized (K3
      12 times a batch), a quant-mode forward with capture=True (K3 24
      times), and the forward's modes with every matmul1 site 'raw' (K2 12
-     times).
+     times); every one of these launches is variant "mma", asserted.
 The last two lines are a JSON summary of the kernels (launches summed over
 the main paths of phases 6 and 7; times of the fp32 kernel phases; the bound
-from those phases' shapes; K1's and K4's entries are the variant the served
-path launches, "mma") and the ok line.
+from those phases' shapes; every entry is the variant its paths launch,
+"mma") and the ok line.
 
-With --profile, after the build: the share of K1's and of K4's cycles in
-each phase of the kernel (second, instrumented builds), then each smoke
+With --profile, after the build: the share of K1's, K2's, K3's and K4's
+cycles in each phase of the kernel (second, instrumented builds), then each smoke
 model served in
 each dtype and setting, 5 batches of 32 after 3 warm-up, wall ms untraced,
 then one torch.profiler trace: device busy ms a batch, idle share of the
@@ -118,8 +123,8 @@ QKV_STD = 0.075
 # the neighbouring code and move its row's outputs. At most FLIP_SHARE of
 # the outputs may leave ATOL + RTOL*|ref|. None may leave it by more than a
 # flipped code can move it: for K1 one whole probability times the largest
-# |uq(v)| of the inputs (flash_cap); FLIP_MAX for K2-K4 at the kernel
-# phases' inputs.
+# |uq(v)| of the inputs (flash_cap), for K2 and K3 the same of uq(B)
+# (matmul_cap); FLIP_MAX for K4 at the kernel phase's inputs.
 ATOL = RTOL = 1e-5
 FLIP_SHARE = 1e-3
 FLIP_MAX = 0.1
@@ -411,82 +416,146 @@ def matmul_cases(torch, fq_attn, G, S, D, seed, device, dtype):
     }, logits
 
 
-def matmul_bound_ms(args, itemsize_out=4):
+def matmul_bound_ms(args, variant="mma", itemsize_out=4):
     """(bound ms, what binds) of one K2/K3 call: the larger of its bytes
     (A, B, the parameters and the fp32 output, each once) over the memory
-    rate and its 2*G*S*K*C operations over the peak rate of its type."""
+    rate and its 2*G*S*K*C operations over the peak rate of their type.
+    Variant "mma" runs the product of fp32 inputs too as bf16 on the tensor
+    cores (exact integer operands), so its operations are reckoned at the
+    bf16 tensor rate whatever the input dtype; "fma" at the rate of its
+    inputs' type."""
     A, B, ap, bp = args
     G, S, K = A.shape
     C = B.shape[2]
     nbytes = sum(t.numel() * t.element_size() for t in args) \
         + G * S * C * itemsize_out
-    return bound_ms(nbytes, 2 * G * S * K * C, A.dtype)
+    return bound_ms(nbytes, 2 * G * S * K * C,
+                    "bfloat16" if variant == "mma" else A.dtype)
+
+
+def matmul_cap(torch, args, kw, want):
+    """The most an output of K2 / K3 may differ from its reference. With
+    AdaLog A one flipped code moves an output by at most one whole
+    probability times the largest |uq(B)| of these inputs (flash_cap). With
+    uniform A no code can flip (kernel and plain version take the same IEEE
+    quotients), so only the rounding of the fp32 sums is left: 1e-4 of the
+    largest |output|."""
+    _, B, _, bp = args
+    if kw.get("a_kind") == "uniform":
+        return 1e-4 * max(1.0, want.abs().max().item())
+    return flash_cap(torch, B, bp, kw["b_bits"])
+
+
+def matmul_case(torch, fq_attn, fn, plain, args, kw, tag, variant, took,
+                p_ms=None, bitwise=None):
+    """One K2 / K3 call of ``variant`` against the plain version, checked
+    and timed; ``took`` is the variant the wrapper must have launched.
+    With ``bitwise`` (by default where "fma" was launched) it must equal the
+    plain version bit for bit. Returns (dict(ms of one
+    call a timing, ms_back_to_back of ten in a row, ms_graph of ten replayed
+    from a CUDA graph, plain_ms, bound_ms, bound_by), max|diff|, the
+    output). The first two times hold the wrapper's host time, which is
+    longer than these kernels; the graph's replay is the device alone."""
+    G, S, K = args[0].shape
+    C = args[1].shape[2]
+    before, by_variant = fn.launches, dict(fn.variant_launches)
+    got = fn(*args, variant=variant, **kw)
+    want = plain(*args, **kw)
+    torch.cuda.synchronize()
+    by_variant[took] += 1
+    check(fn.launches == before + 1 and fn.variant_launches == by_variant,
+          f"[{tag}] variant '{variant}' did not launch '{took}' once")
+    check(tuple(got.shape) == (G, S, C) and got.dtype == torch.float32,
+          f"[{tag}] kernel output shape/dtype")
+    check(bool(torch.isfinite(got).all()), f"[{tag}] not finite")
+    max_diff, share = compare(got, want, RTOL)
+    cap = matmul_cap(torch, args, kw, want)
+    bitwise = took == "fma" if bitwise is None else bitwise
+    # timed as a predictor calls it: the verdict on the zero points read
+    # once, not by every call (that waits for the device)
+    exact = fq_attn.zero_points_exact(args[3], kw["b_bits"]) and (
+        kw.get("a_kind") != "uniform"
+        or fq_attn.zero_points_exact(args[2], kw["a_bits"]))
+
+    def call():
+        return fn(*args, variant=variant, exact_ints=exact, **kw)
+
+    t = dict(ms=cuda_ms(torch, call), ms_back_to_back=cuda_ms(torch, call,
+                                                              calls=10),
+             ms_graph=cuda_graph_ms(torch, call),
+             plain_ms=cuda_ms(torch, lambda: plain(*args, **kw))
+             if p_ms is None else p_ms)
+    t["bound_ms"], t["bound_by"] = matmul_bound_ms(args, took)
+    print(f"kernel {tag} variant={took} G={G} S={S} K={K} C={C}: max|diff|="
+          f"{max_diff:.3e} share_past_tol={share:.3e} (atol={ATOL} "
+          f"rtol={RTOL}; allowed share {FLIP_SHARE}, max {cap:.3e}"
+          + (", bit for bit" if bitwise else "")
+          + f") kernel_ms={t['ms']:.4f} back_to_back_ms="
+          f"{t['ms_back_to_back']:.4f} graph_ms={t['ms_graph']:.4f} "
+          f"plain_ms={t['plain_ms']:.4f} bound_ms={t['bound_ms']:.4f} "
+          f"({t['bound_by']})")
+    check(share <= FLIP_SHARE, f"[{tag}] share past tolerance {share}")
+    check(max_diff <= cap, f"[{tag}] max|diff| {max_diff} above {cap}")
+    if bitwise:
+        check(torch.equal(got, want),
+              f"[{tag}] 'fma' is not bit for bit the plain version")
+    return t, max_diff, got
 
 
 def matmul_kernel_phase(torch, fq_attn, device):
     """Hold K2 and K3 against their plain versions at MATMUL_SHAPES, fp32
-    and bf16, and K2 on the plain matmul1's logits against K1 on the same
-    q, kT, v (fp32). Returns {"K2" | "K3": dict(ms, plain_ms, bound_ms,
-    bound_by, max_abs_err)} with the times and bounds of the deit_small
-    fp32 calls (K3: its two calls summed) and the largest max|diff| of all
-    cases."""
-    res = {k: dict(ms=0.0, plain_ms=0.0, bound=[], max_abs_err=0.0)
+    and bf16: as routed (variant "mma", asserted) and with "fma" forced
+    (bit for bit); K2 at LONG_SHAPE's S > 256 as routed ("fma", asserted);
+    and K2 on the plain matmul1's logits against K1 on the same q, kT, v
+    (fp32): "fma" against "fma" bit for bit, "mma" against "mma" to K1's
+    own tolerance. Returns {"K2" | "K3": dict(ms, ms_back_to_back,
+    ms_graph, plain_ms, bound_ms, bound_by, max_abs_err)} with the times and
+    bounds of the routed deit_small fp32 calls (K3: its two calls summed)
+    and the largest max|diff| of all cases."""
+    keys = ("ms", "ms_back_to_back", "ms_graph", "plain_ms", "bound_ms")
+    res = {k: dict({key: 0.0 for key in keys}, by=[], max_abs_err=0.0)
            for k in ("K2", "K3")}
     for i, (model, G, S, D) in enumerate(MATMUL_SHAPES):
         for dt in ("float32", "bfloat16"):
             cases, logits = matmul_cases(torch, fq_attn, G, S, D,
                                          SEED + 20 + i, device,
                                          getattr(torch, dt))
+            outs = {}
             for name, (fn, plain, args, kw) in cases.items():
                 tag = f"{name}, {model}, {dt}"
-                before = fn.launches
-                got = fn(*args, **kw)
-                check(fn.launches == before + 1, f"[{tag}] no launch counted")
-                want = plain(*args, **kw)
-                torch.cuda.synchronize()
-                C = args[1].shape[2]
-                check(tuple(got.shape) == (G, S, C)
-                      and got.dtype == torch.float32,
-                      f"[{tag}] kernel output shape/dtype")
-                check(bool(torch.isfinite(got).all()), f"[{tag}] not finite")
-                max_diff, share = compare(got, want, RTOL)
-                k_ms = cuda_ms(torch, lambda: fn(*args, **kw))
-                p_ms = cuda_ms(torch, lambda: plain(*args, **kw))
-                b_ms, by = matmul_bound_ms(args)
-                print(f"kernel {tag} G={G} S={S} D={D}: max|diff|="
-                      f"{max_diff:.3e} share_past_tol={share:.3e} (atol={ATOL}"
-                      f" rtol={RTOL}; allowed share {FLIP_SHARE}, max "
-                      f"{FLIP_MAX}) kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-                      f"bound_ms={b_ms:.4f} ({by})")
-                check(share <= FLIP_SHARE,
-                      f"[{tag}] share past tolerance {share}")
-                check(max_diff <= FLIP_MAX, f"[{tag}] max|diff| {max_diff}")
+                t, d, outs[name, "mma"] = matmul_case(
+                    torch, fq_attn, fn, plain, args, kw, tag, "auto", "mma")
                 r = res[name[:2]]
-                r["max_abs_err"] = max(r["max_abs_err"], max_diff)
+                r["max_abs_err"] = max(r["max_abs_err"], d)
                 if model == "deit_small" and dt == "float32":
-                    r["ms"] += k_ms
-                    r["plain_ms"] += p_ms
-                    r["bound"].append((b_ms, by))
+                    for key in keys:
+                        r[key] += t[key]
+                    r["by"].append((t["bound_ms"], t["bound_by"]))
+                _, d, outs[name, "fma"] = matmul_case(
+                    torch, fq_attn, fn, plain, args, kw, tag, "fma", "fma",
+                    t["plain_ms"])
+                r["max_abs_err"] = max(r["max_abs_err"], d)
             if dt == "float32":
                 # K1 forms the same logits inside; K2 must land where K1
-                # does: on the same bits as variant "fma" (the same fp32
-                # products and sums in the same order), and within K1's own
-                # tolerance of variant "mma" (exact integer sums)
+                # does: "fma" on the same bits as K1 "fma" (the same fp32
+                # products and sums in the same order), "mma" within K1's
+                # own tolerance of K1 "mma" (K1 forms exact integer logits,
+                # K2 is handed the plain matmul1's rounded fp32 ones)
                 q, kT, v, m1a, m1b, m2q, m2b, _ = attention_inputs(
                     torch, G, S, D, 1, SEED + 20 + i, device)
-                _, _, args, kw = cases["K2 (softmax, AdaLog, @ v)"]
-                k2 = fq_attn.fq_softmax_attn_matmul(*args, **kw)
                 cap = flash_cap(torch, v, m2b, 4)
                 for variant in ("fma", "mma"):
+                    k2 = outs["K2 (softmax, AdaLog, @ v)", variant]
                     k1 = fq_attn.fq_flash_attn(
                         q, kT, v, m1a, m1b, m2q, m2b, m1a_bits=4, m1b_bits=4,
                         m2a_bits=4, m2b_bits=4, logit_scale=D ** -0.5,
                         variant=variant)
                     torch.cuda.synchronize()
                     max_diff, share = compare(k2, k1, RTOL)
-                    print(f"kernel K2 on the plain matmul1's logits vs K1 "
-                          f"'{variant}', {model}, float32: max|diff|="
-                          f"{max_diff:.3e} share_past_tol={share:.3e} "
+                    print(f"kernel K2 '{variant}' on the plain matmul1's "
+                          f"logits vs K1 '{variant}', {model}, float32: "
+                          f"max|diff|={max_diff:.3e} share_past_tol="
+                          f"{share:.3e} "
                           + ("(must be bit for bit)" if variant == "fma" else
                              f"(allowed share {FLIP_SHARE}, max {cap:.3f})"))
                     if variant == "fma":
@@ -496,10 +565,25 @@ def matmul_kernel_phase(torch, fq_attn, device):
                           f"K2 vs K1 '{variant}' {model}: share {share}")
                     check(max_diff <= cap,
                           f"K2 vs K1 '{variant}' {model}: {max_diff}")
+            del cases, outs, logits
+            torch.cuda.empty_cache()
+
+    # a row of logits past the 256 columns "mma" holds in registers: K2 goes
+    # to "fma" by routing; K3 with AdaLog A streams its rows and stays "mma"
+    # (rows of 300 sum in another order than the plain version's: to
+    # tolerance, not bit for bit)
+    lg, ls, ld = (LONG_SHAPE[k] for k in "GSD")
+    cases, _ = matmul_cases(torch, fq_attn, lg, ls, ld, SEED + 30, device,
+                            torch.float32)
+    for name, took in (("K2 (softmax, AdaLog, @ v)", "fma"),
+                       ("K3 AdaLog A (probs @ v)", "mma")):
+        fn, plain, args, kw = cases[name]
+        _, d, _ = matmul_case(torch, fq_attn, fn, plain, args, kw,
+                              f"{name}, S > 256, float32", "auto", took,
+                              bitwise=False)
+        res[name[:2]]["max_abs_err"] = max(res[name[:2]]["max_abs_err"], d)
     for r in res.values():
-        bounds = r.pop("bound")
-        r["bound_ms"] = sum(b for b, _ in bounds)
-        r["bound_by"] = max(bounds)[1]
+        r["bound_by"] = max(r.pop("by"))[1]
     return res
 
 
@@ -884,8 +968,8 @@ def wrappers(fq_attn, fq_gemm):
 def zero_launches(fq_attn, fq_gemm):
     for w in wrappers(fq_attn, fq_gemm).values():
         w.launches = 0
-    fq_attn.fq_flash_attn.variant_launches.update(mma=0, fma=0)
-    fq_gemm.fq_gemm.variant_launches.update(mma=0, fma=0)
+    for w in wrappers(fq_attn, fq_gemm).values():
+        w.variant_launches.update(mma=0, fma=0)
 
 
 def read_launches(fq_attn, fq_gemm):
@@ -1039,12 +1123,14 @@ def matmul_block_check(torch, fq_attn, spec, model, qstate, x, dt):
     model forms for images x: one capture pass with the kernels off gives
     each block's q, kT, matmul1 output, probabilities, v and matmul2 output;
     the logits K2 takes are formed from the matmul1 output as the forward
-    forms them. Returns {"K2" | "K3": (largest max|diff| to the plain
+    forms them. Every launch must be variant "mma". Returns {"K2" | "K3": (largest max|diff| to the plain
     version, largest share past tolerance to it, largest share past
     tolerance to the forward's own output)}."""
     from adalog_tpu_torch.models.zoo import model_forward_fn
 
     worst = {"K2": (0.0, 0.0, 0.0), "K3": (0.0, 0.0, 0.0)}
+    fma_before = [w.variant_launches["fma"] for w in
+                  (fq_attn.fq_softmax_attn_matmul, fq_attn.fq_attn_matmul)]
 
     def hold(k, tag, fn, plain, args, kw, fwd_out):
         got = fn(*args, **kw)
@@ -1093,6 +1179,10 @@ def matmul_block_check(torch, fq_attn, spec, model, qstate, x, dt):
                  fq_attn.fq_softmax_attn_matmul_plain,
                  (logits.reshape(G, S, S), vf, m2a, m2b),
                  dict(a_bits=bits["m2a_bits"], b_bits=bits["m2b_bits"]), out)
+    check([w.variant_launches["fma"] for w in
+           (fq_attn.fq_softmax_attn_matmul, fq_attn.fq_attn_matmul)]
+          == fma_before,
+          f"{spec.name} {dt}: a block's K2 or K3 call took variant 'fma'")
     return worst
 
 
@@ -1104,8 +1194,8 @@ def fallback_phase(torch, fq_attn, fq_gemm, device, ckpt_dir, name):
         fused paths decline and matmul1 of every block takes K3;
       - a quant-mode forward with capture=True inside fq_attn.activate: both
         matmuls of every block take K3;
-      - the forward's modes with every matmul1 site 'raw': K2 once a block.
-    Before that, matmul_block_check on the served model's own tensors.
+      - the forward's modes with every matmul1 site 'raw': K2 once a block;
+    every one of these launches is variant "mma". Before that, matmul_block_check on the served model's own tensors.
     Returns ({"K2" | "K3": launches of these paths}, {"K2" | "K3": largest
     block-check max|diff|})."""
     from adalog_tpu_torch.models.zoo import model_forward_fn
@@ -1120,6 +1210,10 @@ def fallback_phase(torch, fq_attn, fq_gemm, device, ckpt_dir, name):
                                for p, *_ in attention_blocks(spec)}}
     worst = {"K2": 0.0, "K3": 0.0}
     total = {"K2": 0, "K3": 0}
+    # as make_predictor does: the verdict on the zero points and the sites'
+    # flattened parameters taken once, not by every call
+    exact = fq_attn.integers_exact(qstate)
+    site_params = fq_attn.prepare(qstate)
 
     def drove(path, want):
         got = read_launches(fq_attn, fq_gemm)
@@ -1127,6 +1221,11 @@ def fallback_phase(torch, fq_attn, fq_gemm, device, ckpt_dir, name):
               f"{want})")
         check(got == {"K1": 0, "K4": 0, **want},
               f"{name} '{path}' launches {got}")
+        for k in total:
+            by_variant = wrappers(fq_attn, fq_gemm)[k].variant_launches
+            check(by_variant == {"mma": want[k], "fma": 0},
+                  f"{name} '{path}': {k} launches by variant {by_variant}, "
+                  "want every one 'mma'")
         for k in total:
             total[k] += got[k]
 
@@ -1149,14 +1248,16 @@ def fallback_phase(torch, fq_attn, fq_gemm, device, ckpt_dir, name):
             worst[k] = max(worst[k], d)
 
         zero_launches(fq_attn, fq_gemm)
-        with torch.inference_mode(), fq_attn.activate(True):
+        with torch.inference_mode(), fq_attn.activate(True, exact,
+                                                      site_params):
             y, _ = fwd(spec.cfg, m, x, qstate, {"*": "quant"}, capture=True)
         torch.cuda.synchronize()
         check_logits(torch, y, spec, BATCH, f"{name} {dt} capture")
         drove(f"capture=True, {dt}", {"K2": 0, "K3": 2 * n_attn})
 
         zero_launches(fq_attn, fq_gemm)
-        with torch.inference_mode(), fq_attn.activate(True):
+        with torch.inference_mode(), fq_attn.activate(True, exact,
+                                                      site_params):
             y = fwd(spec.cfg, m, x, qstate, raw_m1)
         torch.cuda.synchronize()
         check_logits(torch, y, spec, BATCH, f"{name} {dt} matmul1 raw")
@@ -1200,6 +1301,29 @@ def flash_phase_profile(torch, fq_attn, device):
                   + ", ".join(f"{k} {100 * c / total:.1f}%"
                               for k, c in cycles.items())
                   + f" of {total / 1e6:.1f} M warp cycles")
+
+
+def matmul_phase_profile(torch, fq_attn, device):
+    """Where the cycles of K2 "mma" and of K3 "mma" go, by phase of the
+    kernels, at MATMUL_SHAPES, fp32 and bf16: one launch each of the
+    instrumented build (fq_attn.matmul_phase_cycles)."""
+    modes = {"K3 uniform A (q @ kT)": "uniform",
+             "K3 AdaLog A (probs @ v)": "adalog",
+             "K2 (softmax, AdaLog, @ v)": "softmax"}
+    for i, (model, G, S, D) in enumerate(MATMUL_SHAPES):
+        for dtype in (torch.float32, torch.bfloat16):
+            cases, _ = matmul_cases(torch, fq_attn, G, S, D, SEED + 20 + i,
+                                    device, dtype)
+            for name, (_, _, args, kw) in cases.items():
+                cycles = fq_attn.matmul_phase_cycles(
+                    modes[name], *args, a_bits=kw["a_bits"],
+                    b_bits=kw["b_bits"])
+                total = sum(cycles.values())
+                print(f"{name} 'mma' phases {model} G={G} S={S} D={D} "
+                      f"{str(dtype).split('.')[-1]}: "
+                      + ", ".join(f"{k} {100 * c / total:.1f}%"
+                                  for k, c in cycles.items() if c)
+                      + f" of {total / 1e6:.1f} M warp cycles")
 
 
 def gemm_phase_profile(torch, fq_gemm, device):
@@ -1348,6 +1472,7 @@ def main(argv):
                             "checkpoints")
     if profile:
         flash_phase_profile(torch, fq_attn, device)
+        matmul_phase_profile(torch, fq_attn, device)
         gemm_phase_profile(torch, fq_gemm, device)
         for name in MODELS:
             profile_phase(torch, device, ckpt_dir, name)
@@ -1398,14 +1523,20 @@ def main(argv):
               # what the served path launches, asserted; ms is one call a
               # timing, as every entry's, ms_back_to_back ten in a row
               variant="mma", ms_back_to_back=kq_ms),
+        # K2 and K3 as their paths launch them, asserted: "mma"; K3's times
+        # are the sums of its two calls of one attention
         entry("fq_softmax_attn_matmul", "fq_attn_matmul", "fq_attn.py:160",
               "K2", max(mm["K2"]["max_abs_err"], block_worst["K2"]),
               mm["K2"]["ms"], mm["K2"]["plain_ms"], mm["K2"]["bound_ms"],
-              mm["K2"]["bound_by"]),
+              mm["K2"]["bound_by"], variant="mma",
+              ms_back_to_back=mm["K2"]["ms_back_to_back"],
+              ms_graph=mm["K2"]["ms_graph"]),
         entry("fq_attn_matmul", "fq_attn_matmul", "fq_attn.py:146", "K3",
               max(mm["K3"]["max_abs_err"], block_worst["K3"]),
               mm["K3"]["ms"], mm["K3"]["plain_ms"], mm["K3"]["bound_ms"],
-              mm["K3"]["bound_by"]),
+              mm["K3"]["bound_by"], variant="mma",
+              ms_back_to_back=mm["K3"]["ms_back_to_back"],
+              ms_graph=mm["K3"]["ms_graph"]),
         entry("fq_gemm", "fq_gemm", "fq_gemm.py:100", "K4",
               max(g_worst, block_worst["K4"]), g_ms, gp_ms,
               sum(b for b, _ in k4_bounds), max(k4_bounds)[1],

@@ -13,6 +13,13 @@ magnitude where that is above 1: q @ kT at head dim 64 sums 64 products of
 magnitude up to about 10 (mean |out| about 17), and the order of that sum
 alone moves a cancelling result by more than 1e-5.
 
+The kernels' tensor-core variant ("mma") computes another formulation of
+the same function (bf16 operands, for fp32 inputs integer operands with the
+scales on the sums, AdaLog values from a per-slice code table);
+``fq_attn._attn_matmul_mma_plain`` is that formulation step for step in
+plain PyTorch, and is held here to the JAX kernels too, with the routing
+that decides which variant a call takes.
+
 The CUDA kernels are held against the plain versions in
 test_torch_attn_matmul_cuda.py, which imports no jax so that it runs on the
 GPU machine.
@@ -31,11 +38,14 @@ from adalog_tpu.calib.init_state import init_qstate as j_init_qstate
 from adalog_tpu.models.layers import MatMulSite as JMatMulSite
 from adalog_tpu.models.vit import vit_forward as j_vit_forward
 from adalog_tpu.models.vit import vit_init as j_vit_init
+from adalog_tpu.models import swin as j_swin
+from adalog_tpu.models.zoo import build_model as j_build_model
 from adalog_tpu.ops import fq_attn as jfa
 from adalog_tpu.quantizers.state import QuantizerState as JQS
 from adalog_tpu.utils.config import Config as JConfig
 from adalog_tpu_torch.models import zoo
 from adalog_tpu_torch.models.layers import MatMulSite
+from adalog_tpu_torch.models.swin import swin_forward
 from adalog_tpu_torch.models.vit import vit_forward
 from adalog_tpu_torch.ops import fq_attn
 from adalog_tpu_torch.quantizers.state import QuantizerState
@@ -386,3 +396,367 @@ def test_library_name_follows_shared_headers(tmp_path, monkeypatch):
     assert second != first
     (tmp_path / "k.cu").write_text('#include "q.cuh"\n// edited\n')
     assert cuda_build._lib_path("k") not in (first, second)
+
+
+# ---------------------------------------------------------------------------
+# Variant "mma": its formulation in plain PyTorch, and the routing
+# ---------------------------------------------------------------------------
+
+# share of outputs that may leave the tolerance (an AdaLog code flipped by a
+# last-bit difference of log2 between XLA and torch); measured 0 on these
+# seeded inputs
+MMA_SHARE = 1e-4
+BF16_ULP = 2.0 ** -8
+MMA_SHAPES = [(6, 197, 64), (12, 49, 32), (5, 33, 24)]    # the last ragged
+
+
+def _mma_plain(case, args, kw):
+    return fq_attn._attn_matmul_mma_plain(
+        *args, a_kind=kw.get("a_kind", "adalog"), a_bits=kw["a_bits"],
+        b_bits=kw["b_bits"], do_softmax=case.startswith("K2")).numpy()
+
+
+@pytest.mark.parametrize("G,S,D", MMA_SHAPES)
+@pytest.mark.parametrize("case", CASES)
+def test_mma_formulation_matches_jax_fp32(case, G, S, D):
+    """fp32 inputs: integer operands c - z and steps * 2^-shift in bf16, the
+    scales s_a * s_b or ts * s_b on the fp32 sum. Exact integer sums where
+    JAX rounds every fp32 product, so the two differ by a few ulp of the
+    sums: atol = rtol = 1e-5 (atol times the mean magnitude for q @ kT), at
+    most MMA_SHARE of the outputs past it."""
+    fn, kw, args = _case(case, G, S, D, seed=G * S + D)
+    got, want = _mma_plain(case, args, kw), _jax(case, args, kw)
+    assert got.dtype == np.float32 and got.shape == want.shape
+    tol = ATOL * max(1.0, float(np.abs(want).mean())) + RTOL * np.abs(want)
+    share = float((np.abs(got - want) > tol).mean())
+    assert share <= MMA_SHARE, f"share past tolerance {share}"
+    # and the port's own plain version, which the card compares with
+    plain = fn(*args, **kw).numpy()
+    assert float((np.abs(got - plain) > tol).mean()) <= MMA_SHARE
+
+
+@pytest.mark.parametrize("G,S,D", MMA_SHAPES)
+@pytest.mark.parametrize("case", CASES)
+def test_mma_formulation_matches_jax_bf16(case, G, S, D):
+    """bf16 inputs: the operands are the plain version's own bf16 values, so
+    only the order of the fp32 sums is left; held to one bf16 ulp of the
+    output."""
+    fn, kw, args = _case(case, G, S, D, seed=G + S + D, dtype=torch.bfloat16)
+    got, want = _mma_plain(case, args, kw), _jax(case, args, kw)
+    tol = ATOL + BF16_ULP * np.abs(want)
+    assert float((np.abs(got - want) > tol).mean()) <= MMA_SHARE
+    np.testing.assert_allclose(got, fn(*args, **kw).numpy(), rtol=RTOL,
+                               atol=ATOL * max(1.0,
+                                               float(np.abs(want).mean())))
+
+
+@pytest.mark.parametrize("G,S,D", MMA_SHAPES)
+def test_mma_bf16_operands_bit_for_bit(G, S, D):
+    """What "mma" stages for bf16 inputs is bit for bit what the plain
+    version rounds to bf16 before its product: uq(A), uq(B), and the AdaLog
+    values through the code table."""
+    q, kT, v, m1a, m1b, m2q, m2b, _ = chip_smoke.attention_inputs(
+        torch, G, S, D, 1, 21, "cpu")
+    q, kT, v = (t.to(torch.bfloat16) for t in (q, kT, v))
+
+    def per_g(a):
+        return a.reshape(-1, 1, 1)
+
+    ops = fq_attn._matmul_mma_operands(q, kT, m1a, m1b, a_kind="uniform",
+                                       a_bits=4, b_bits=4)
+    for got, x, prm in ((ops["A"], q, m1a), (ops["B"], kT, m1b)):
+        want = fq_attn._uq(x.float(), per_g(prm[:, 0]), per_g(prm[:, 1]), 4)
+        assert got.dtype == torch.bfloat16
+        assert torch.equal(got, want.to(torch.bfloat16))
+    assert bool((ops["out_scale"] == 1).all()) and ops["table"] is None
+
+    probs = torch.softmax(torch.matmul(q.float(), kT.float()) * D ** -0.5,
+                          -1).to(torch.bfloat16)
+    m2a = torch.stack([m2q, torch.zeros_like(m2q)], dim=1)
+    ops = fq_attn._matmul_mma_operands(probs, v, m2a, m2b, a_kind="adalog",
+                                       a_bits=4, b_bits=4)
+    got = fq_attn._adalog_lookup(probs.float(), ops["table"], per_g(m2q))
+    want = fq_attn._adalog_unit(probs.float(), per_g(m2q), 4)
+    assert torch.equal(got.to(torch.bfloat16), want.to(torch.bfloat16))
+    assert torch.equal(ops["B"], fq_attn._uq(
+        v.float(), per_g(m2b[:, 0]), per_g(m2b[:, 1]), 4).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("int_mode", [False, True])
+@pytest.mark.parametrize("bits", [3, 4, 6, 8])
+def test_code_table_equals_adalog_unit_on_every_code(bits, int_mode):
+    """The table "mma" reads holds, for every code 0..2N-1 and bases with
+    and without a fraction, the bits ``_adalog_unit`` returns for a
+    probability of that code; for fp32 inputs the entry times ts is that
+    value, and the entry (steps * 2^-shift, steps <= 4N - 2) is exact in
+    bf16 up to 7 bits."""
+    dtype = torch.float32 if int_mode else torch.bfloat16
+    base = torch.tensor([23.0, 29.5, 37.0, 41.25, 51.0])
+    n = 2 ** bits
+    A = torch.zeros(len(base), 1, 1, dtype=dtype)
+    ap = torch.stack([base, torch.zeros_like(base)], dim=1)
+    bp = torch.tensor([[0.1, 8.0]]).repeat(len(base), 1)
+    ops = fq_attn._matmul_mma_operands(A, A, ap, bp, a_kind="adalog",
+                                       a_bits=bits, b_bits=4)
+    table = ops["table"]
+    assert tuple(table.shape) == (len(base), n)
+    # a probability in the middle of each code's interval
+    code = torch.arange(n, dtype=torch.float64).reshape(1, -1)
+    x = torch.exp2(-code * base.double().reshape(-1, 1) / 37.0).float()
+    q = base.reshape(-1, 1, 1)
+    want = fq_attn._adalog_unit(x.reshape(len(base), 1, n), q, bits)
+    ts = 1.0 / (2 * n - 2)
+    entry = (table * ts if int_mode else table).reshape(want.shape)
+    # the quantizer clamps probabilities at 1e-15, so the highest codes of 6
+    # and 8 bits are reached by none: those entries are only finite
+    reached = (x > 2e-15).reshape(want.shape)
+    assert bool(reached[..., :min(n, 32)].all())
+    assert torch.equal(entry[reached], want[reached])
+    assert torch.equal(
+        fq_attn._adalog_lookup(x.reshape(len(base), 1, n), table, q)
+        * (ts if int_mode else 1.0), want)
+    if int_mode and bits <= 7:
+        assert torch.equal(table.to(torch.bfloat16).float(), table)
+        assert torch.equal(ops["out_scale"].reshape(-1),
+                           torch.tensor(ts) * bp[:, 0])
+
+
+def _routes(mode, S, K, C, dtype, a_bits=4, b_bits=4, exact=True, G=12):
+    return fq_attn.matmul_variant(mode, G, S, K, C, dtype, a_bits, b_bits,
+                                  exact)
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+# (mode, S, K, C, dtype, a_bits, b_bits, exact_ints) -> variant
+ROUTING = [
+    (("uniform", 197, 64, 197, F32, 4, 4, True), "mma"),
+    (("adalog", 197, 197, 64, F32, 4, 4, True), "mma"),
+    (("softmax", 197, 197, 64, F32, 4, 4, True), "mma"),
+    (("softmax", 49, 49, 32, BF16, 4, 4, True), "mma"),
+    (("softmax", 144, 144, 32, F32, 4, 4, True), "mma"),
+    # a row of logits past 256 columns: K2 only
+    (("softmax", 256, 256, 64, F32, 4, 4, True), "mma"),
+    (("softmax", 300, 300, 64, F32, 4, 4, True), "fma"),
+    (("softmax", 300, 300, 64, BF16, 4, 4, True), "fma"),
+    (("adalog", 300, 300, 64, F32, 4, 4, True), "mma"),
+    (("uniform", 300, 64, 300, F32, 4, 4, True), "mma"),
+    # output tiles and A operands in registers
+    (("adalog", 197, 197, 128, BF16, 4, 4, True), "mma"),
+    (("adalog", 197, 197, 129, BF16, 4, 4, True), "fma"),
+    (("softmax", 197, 197, 129, BF16, 4, 4, True), "fma"),
+    (("uniform", 197, 128, 197, BF16, 4, 4, True), "mma"),
+    (("uniform", 197, 129, 197, BF16, 4, 4, True), "fma"),
+    # the code table holds 256 values
+    (("adalog", 49, 49, 32, BF16, 8, 4, True), "mma"),
+    (("adalog", 49, 49, 32, BF16, 9, 4, True), "fma"),
+    (("softmax", 49, 49, 32, BF16, 9, 4, True), "fma"),
+    (("uniform", 49, 32, 49, BF16, 9, 9, True), "mma"),
+    # fp32: integers exact in bf16 only
+    (("uniform", 49, 32, 49, F32, 8, 8, True), "mma"),
+    (("uniform", 49, 32, 49, F32, 9, 4, True), "fma"),
+    (("uniform", 49, 32, 49, F32, 4, 9, True), "fma"),
+    (("adalog", 49, 49, 32, F32, 7, 8, True), "mma"),
+    (("adalog", 49, 49, 32, F32, 8, 4, True), "fma"),
+    (("softmax", 49, 49, 32, F32, 8, 4, True), "fma"),
+    (("adalog", 49, 49, 32, F32, 4, 9, True), "fma"),
+    (("uniform", 49, 32, 49, F32, 4, 4, False), "fma"),
+    (("adalog", 49, 49, 32, F32, 4, 4, False), "fma"),
+    (("softmax", 49, 49, 32, F32, 4, 4, False), "fma"),
+    (("softmax", 49, 49, 32, BF16, 4, 4, False), "mma"),
+    # the staging of uq(B) in one block's shared memory
+    (("adalog", 64, 800, 128, BF16, 4, 4, True), "mma"),
+    (("adalog", 64, 900, 128, BF16, 4, 4, True), None),     # nor "fma"
+]
+
+
+@pytest.mark.parametrize("call,want", ROUTING,
+                         ids=[f"{c[0]}-S{c[1]}-K{c[2]}-C{c[3]}-"
+                              f"{str(c[4])[6:]}-a{c[5]}b{c[6]}-"
+                              f"{'exact' if c[7] else 'inexact'}"
+                              for c, _ in ROUTING])
+def test_matmul_routing_truth_table(call, want):
+    """"mma" where it applies, else "fma"; "mma" forced where it does not
+    apply raises with the limit named, "fma" forced is always taken."""
+    mode, S, K, C, dtype, a_bits, b_bits, exact = call
+    why = fq_attn.matmul_mma_refusal(mode, 12, S, K, C, dtype, a_bits, b_bits,
+                                     exact)
+    if K * C * 4 > 232448:          # past the fp32 staging of "fma" as well
+        for variant in ("fma",) + (("auto",) if want is None else ()):
+            with pytest.raises(ValueError, match="shared memory"):
+                fq_attn.matmul_variant(mode, 12, S, K, C, dtype, a_bits,
+                                       b_bits, exact, variant)
+        assert (why is None) == (want == "mma")
+        if want == "mma":
+            assert _routes(*call) == "mma"
+        return
+    assert _routes(*call) == want
+    assert fq_attn.matmul_variant(mode, 12, S, K, C, dtype, a_bits, b_bits,
+                                  exact, "fma") == "fma"
+    if want == "mma":
+        assert why is None
+        assert fq_attn.matmul_variant(mode, 12, S, K, C, dtype, a_bits,
+                                      b_bits, exact, "mma") == "mma"
+    else:
+        assert why
+        with pytest.raises(ValueError, match="refused"):
+            fq_attn.matmul_variant(mode, 12, S, K, C, dtype, a_bits, b_bits,
+                                   exact, "mma")
+    with pytest.raises(ValueError):
+        fq_attn.matmul_variant(mode, 12, S, K, C, dtype, a_bits, b_bits,
+                               exact, "wgmma")
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_forced_variant_is_checked_on_the_cpu(case):
+    """A forced variant that does not take the call raises on a CPU tensor
+    too; one that does runs the plain version; the wrapper reads the zero
+    points itself when no verdict is given."""
+    fn, kw, (A, B, ap, bp) = _case(case, 6, 16, 8, seed=13)
+    want = fn(A, B, ap, bp, **kw)
+    for variant in ("mma", "fma"):
+        assert torch.equal(fn(A, B, ap, bp, variant=variant, **kw), want)
+    with pytest.raises(ValueError, match="zero point"):
+        fn(A, B, ap, bp, variant="mma", exact_ints=False, **kw)
+    far = bp.clone()
+    far[2, 1] = 300.0                       # |c - z| up to 300 > 256
+    with pytest.raises(ValueError, match="zero point"):
+        fn(A, B, ap, far, variant="mma", **kw)
+    assert fn(A, B, ap, far, variant="fma", **kw).shape == want.shape
+    with pytest.raises(ValueError, match="variant"):
+        fn(A, B, ap, bp, variant="tensor", **kw)
+    if case.startswith("K2"):
+        L = torch.zeros(2, 4, 300)
+        with pytest.raises(ValueError, match="K=300"):
+            fn(L, torch.zeros(2, 300, 8), ap[:2], bp[:2], variant="mma", **kw)
+
+
+def test_matmul_mma_shared_memory_bytes():
+    """The bytes a block of "mma" asks for, as the launch computes them: the
+    zoo's shapes leave room for three or more blocks an SM."""
+    smem = fq_attn._matmul_mma_smem_bytes
+    assert smem("softmax", 197, 64) == 208 * 72 * 2 + 1040
+    assert smem("softmax", 49, 32) == 64 * 40 * 2 + 1040
+    assert smem("adalog", 197, 64) == 208 * 72 * 2 + 1040
+    assert smem("adalog", 300, 64) == 304 * 72 * 2 + 1040
+    assert smem("uniform", 64, 197) == 64 * 216 * 2 + 4 * (16 * 72 * 2
+                                                           + 16 * 72 * 4)
+    assert smem("uniform", 32, 49) == 32 * 72 * 2 + 4 * (16 * 40 * 2
+                                                         + 16 * 72 * 4)
+    for mode, K, C in (("softmax", 197, 64), ("adalog", 197, 64),
+                       ("uniform", 64, 197), ("softmax", 144, 32),
+                       ("uniform", 32, 144)):
+        assert 3 * smem(mode, K, C) <= 232448 - 3 * 1024
+
+
+@pytest.mark.parametrize("verdict", [None, True, False])
+def test_run_carries_the_verdict_and_the_site_params(verdict, monkeypatch):
+    """run and run_softmax hand ``activate``'s verdict on the zero points on
+    as ``run_flash`` does, and take the site's (P, 2) parameter rows from
+    ``activate``'s table when it has them (unrepeated: the kernel reads row
+    g % P), else flatten them on the call."""
+    rng = np.random.default_rng(14)
+    N, H, S, D = 2, 3, 16, 8
+    _, site = _site_pair(rng, H, "adalog")
+    L = torch.from_numpy((rng.standard_normal((N, H, S, S)) * 3
+                          ).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((N, H, S, D)).astype(np.float32))
+    seen = []
+    real = fq_attn._attn_matmul
+
+    def spy(wrapper, mode, A, B, ap, bp, a_bits, b_bits, variant, exact):
+        seen.append((wrapper.__name__, mode, ap, bp, variant, exact))
+        return real(wrapper, mode, A, B, ap, bp, a_bits, b_bits, variant,
+                    exact)
+
+    monkeypatch.setattr(fq_attn, "_attn_matmul", spy)
+    table = fq_attn.prepare({"blocks.0.attn.matmul2": site, "other": object()})
+    assert set(table) == {id(site)}
+    want2 = fq_attn.run_softmax(site, L, v)
+    want3 = fq_attn.run(site, torch.softmax(L, -1), v)
+    seen.clear()
+    with fq_attn.activate(True, verdict, table):
+        got2 = fq_attn.run_softmax(site, L, v)
+        got3 = fq_attn.run(site, torch.softmax(L, -1), v)
+    assert torch.equal(got2, want2) and torch.equal(got3, want3)
+    assert [(s[0], s[1], s[4], s[5]) for s in seen] == [
+        ("fq_softmax_attn_matmul", "softmax", "auto", verdict),
+        ("fq_attn_matmul", "adalog", "auto", verdict)]
+    for _, _, ap, bp, _, _ in seen:
+        assert ap is table[id(site)][0] and bp is table[id(site)][1]
+        assert tuple(ap.shape) == (1, 2) and tuple(bp.shape) == (H, 2)
+    with pytest.raises(ValueError, match="tile"):
+        fq_attn.run(site, torch.softmax(L, -1)[:, :2], v[:, :2])
+
+
+def _swin_state(post):
+    """test_tiny_swin JAX params and init_qstate with matmul quantizers that
+    do real work (unit scales would clip q, k, v to a few codes)."""
+    _, params = j_build_model("test_tiny_swin", seed=0)
+    spec = zoo.model_spec("test_tiny_swin")
+    qstate = j_init_qstate(spec, JConfig(**W4A4, post_softmax_quantizer=post),
+                           params)
+    for nm, site in list(qstate.items()):
+        if hasattr(site, "Aq"):
+            def real(qs):
+                return qs.replace(scale=jnp.full_like(qs.scale, 0.02),
+                                  zero_point=jnp.full_like(qs.zero_point, 8.0))
+            Aq = real(site.Aq) if site.Aq.kind == "uniform" else site.Aq
+            qstate[nm] = site.replace(Aq=Aq, Bq=real(site.Bq))
+    return jax.tree_util.tree_map(np.asarray, (params, qstate))
+
+
+SWIN_M1 = ["layers.0.blocks.0.attn.matmul1", "layers.1.blocks.0.attn.matmul1",
+           "layers.1.blocks.1.attn.matmul1"]
+# model: (JAX forward, port forward, state, matmul1 sites, attentions)
+FORWARDS = {
+    "test_tiny": (j_vit_forward, vit_forward, _tiny_state,
+                  list(RAW_M1)[1:], 2),
+    "test_tiny_swin": (j_swin.swin_forward, swin_forward, _swin_state,
+                       SWIN_M1, 3),
+}
+
+
+@pytest.mark.parametrize("config", ["log2", "matmul1_raw", "capture"])
+@pytest.mark.parametrize("model_name", list(FORWARDS))
+def test_fallback_forward_in_mma_formulation_matches_jax(model_name, config,
+                                                         monkeypatch):
+    """The whole forward of both fixture models through each configuration
+    that reaches K2 / K3, with every such call computed in the "mma"
+    formulation (as the card computes it), against the JAX forward with its
+    kernels in interpret mode, at 1e-5; fp32, so integer operands."""
+    j_fwd, fwd, state, m1_sites, n_attn = FORWARDS[model_name]
+    spec = zoo.model_spec(model_name)
+    post = "log2" if config == "log2" else "adalog"
+    modes = {"*": "quant"}
+    if config == "matmul1_raw":
+        modes.update({m: "raw" for m in m1_sites})
+    capture = config == "capture"
+    params, qstate = state(post)
+    model, tq = from_jax(spec.cfg, params, qstate)
+    x = np.random.default_rng(7).standard_normal((2, 32, 32, 3)
+                                                 ).astype(np.float32)
+    monkeypatch.setattr(jfa, "enabled", lambda: True)
+    want = j_fwd(spec.cfg, params, jnp.asarray(x), qstate, modes,
+                 capture=capture)
+    want = np.asarray(want[0] if capture else want)
+
+    n_mma = [0]
+
+    def mma_plain(A, B, ap, bp, a_kind, a_bits, b_bits, do_softmax):
+        n_mma[0] += 1
+        mode = "softmax" if do_softmax else a_kind
+        assert fq_attn.matmul_mma_refusal(
+            mode, *A.shape, B.shape[2], A.dtype, a_bits, b_bits,
+            fq_attn.integers_exact(tq)) is None
+        return fq_attn._attn_matmul_mma_plain(
+            A, B, ap, bp, a_kind=a_kind, a_bits=a_bits, b_bits=b_bits,
+            do_softmax=do_softmax)
+
+    monkeypatch.setattr(fq_attn, "_attn_matmul_plain", mma_plain)
+    with torch.no_grad(), fq_attn.activate(True, fq_attn.integers_exact(tq),
+                                           fq_attn.prepare(tq)):
+        got = fwd(spec.cfg, model, torch.from_numpy(x), tq, modes,
+                  capture=capture)
+    got = (got[0] if capture else got).numpy()
+    assert n_mma[0] == n_attn * (2 if capture else 1)
+    np.testing.assert_allclose(got, want, rtol=LOGIT_TOL, atol=LOGIT_TOL)
