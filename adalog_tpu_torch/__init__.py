@@ -14,11 +14,13 @@ version for CPU tensors and the kernel for CUDA tensors.
   quantizers/  uniform, twin, log2, log-sqrt2, AdaLog, AdaRound (hard form)
   models/      layers with quant sites, the ViT and Swin forwards, zoo, timm
                loading
-  calib/       the quant-site layouts, the uncalibrated qstate, reparam
+  calib/       the quant-site layouts, the uncalibrated qstate, reparam,
+               candidate grids, the FPCS search families, the calibrator
   ops/         fused fake-quant attention (K1) and its fall-backs (K2, K3),
                fused activation-quant GEMM (K4), the kernels' build, weight
-               prep, kernel defaults
-  utils/       Config, v2 checkpoints, weight carrying from the JAX package
+               prep, kernel defaults, calibration's candidate scoring
+  utils/       Config, v2 checkpoints, the calibration resume log, weight
+               carrying from the JAX package
   serve.py     load_quantized / make_predictor on one device
 """
 

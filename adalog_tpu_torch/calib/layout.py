@@ -14,6 +14,7 @@ The same rules as ``adalog_tpu.calib.layout``:
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -139,3 +140,18 @@ def tree_get(obj, path):
     for p in path:
         obj = obj[p] if isinstance(p, int) else getattr(obj, p)
     return obj
+
+
+def tree_set(obj, path, value):
+    """A copy of the module ``obj`` with the submodule at ``path`` replaced
+    by ``value``; ``obj`` is left as it was. The modules along the path are
+    shallow copies with a child table of their own; every other submodule
+    is shared between the two trees, as a functional update of the JAX
+    package's pytree shares its unchanged leaves."""
+    if not path:
+        return value
+    key = str(path[0])        # a ModuleList keys its children '0', '1', ...
+    new = copy.copy(obj)
+    new._modules = type(obj._modules)(obj._modules)
+    new._modules[key] = tree_set(obj._modules[key], path[1:], value)
+    return new

@@ -30,9 +30,10 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 def pin_fp32_matmul():
     """Full-fp32 matrix products on the GPU for the rest of the process, as
     the JAX package's fp32 eval pins Precision.HIGHEST. Every fp32 CUDA
-    entry point calls it (serving here; capture and scoring when they are
-    ported). The patch-embed convolution pins its own precision, inside
-    ``models.layers.qconv2d``, and leaves the process's setting alone."""
+    entry point calls it (serving here; calibration's capture and scoring in
+    ``calib.calibrator.QuantCalibrator``). The patch-embed convolution pins
+    its own precision, inside ``models.layers.qconv2d``, and leaves the
+    process's setting alone."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
 

@@ -110,6 +110,30 @@ def save_checkpoint(path: str, params, qstate, meta: dict | None = None):
         f.write(buf.getvalue())
 
 
+def encode_bytes(obj) -> bytes:
+    """One tree (tensors, numpy arrays, dataclasses, Nodes, dicts, tuples)
+    as a self-contained npz blob, the JAX package's ``encode_bytes`` format:
+    one record of the framed calibration resume log (utils/resume.py)."""
+    arrays: list = []
+    schema = {"version": FORMAT_VERSION, "obj": _encode(obj, arrays)}
+    payload = {f"a{i}": a for i, a in enumerate(arrays)}
+    payload["__schema__"] = np.frombuffer(
+        json.dumps(schema).encode(), dtype=np.uint8)
+    buf = io.BytesIO()
+    np.savez(buf, **payload)
+    return buf.getvalue()
+
+
+def decode_bytes(data: bytes):
+    """Inverse of encode_bytes, loaded with allow_pickle=False: numpy
+    arrays, with every dataclass as a ``Node``."""
+    with np.load(io.BytesIO(data), allow_pickle=False) as z:
+        schema = json.loads(bytes(z["__schema__"]).decode())
+        n = sum(1 for k in z.files if k.startswith("a"))
+        arrays = [z[f"a{i}"] for i in range(n)]
+    return _decode(schema["obj"], arrays)
+
+
 def load_checkpoint(path: str, cfg):
     """Returns (model, qstate, meta) on the CPU; ``cfg`` is the model's
     ViTConfig or SwinConfig."""

@@ -1,7 +1,7 @@
 """Drive the PyTorch/CUDA port (adalog_tpu_torch) on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py              # every phase, each a hard check
-    python3 chip_smoke.py --profile    # phases 1-2, then the profile below
+    python3 chip_smoke.py --profile    # phases 1-2, then the profiles below
 
 Phases, each a hard check (any failure raises and exits non-zero):
   1. the card's name and power limit (nvidia-smi); no CUDA device -> exit 1;
@@ -16,7 +16,8 @@ Phases, each a hard check (any failure raises and exits non-zero):
      (variant "mma", asserted); variant "fma" forced at the same shape in
      fp32, and taken by the routing at S=300; "mma" at swin_tiny's two
      window shapes with their bias; max|diff|, share past tolerance,
-     median times;
+     median times of one call a timing, of ten in a row, and of ten
+     replayed from a CUDA graph (the device alone);
   4. K4 kernel phase: the fused activation-quant GEMM against its plain
      version at the five deit_small Linear shapes of batch 32 (T=6304:
      qkv 384->1152, proj 384->384, fc1 384->1536, fc2 1536->384 in both
@@ -69,9 +70,22 @@ Phases, each a hard check (any failure raises and exits non-zero):
      post_softmax_quantizer='log2' state served through load_quantized (K3
      12 times a batch), a quant-mode forward with capture=True (K3 24
      times), and the forward's modes with every matmul1 site 'raw' (K2 12
-     times); every one of these launches is variant "mma", asserted.
+     times); every one of these launches is variant "mma", asserted;
+  8. calibration phase: deit_small at full depth and width, random weights
+     from the numpy seed (no smoke state, no hand fold), calibrated on the
+     card through QuantCalibrator.calibrate and finish_calibration at the
+     shipped configs/4bit.py numbers from 32 images, twice (cold, then
+     warm): wall-clock, the capture and each search family apart, peak
+     device memory, the card's name and power limit; every layout site has
+     a state and every AdaLog base is a positive integer fq_gemm.prepare
+     takes; on 32 held-out images its logit MSE to the raw model must be
+     below the min/max smoke state's; then the state saved, block-checked
+     and served as in phase 6 (K1 12 and K4 49 launches a batch asserted;
+     each launch's variant printed, the reason for any "fma"); and
+     test_tiny calibrated at the same numbers on the card and on the CPU:
+     integer picks exact or adjacent, scales to a stated tolerance.
 The last two lines are a JSON summary of the kernels (launches summed over
-the main paths of phases 6 and 7; times of the fp32 kernel phases; the bound
+the main paths of phases 6 to 8; times of the fp32 kernel phases; the bound
 from those phases' shapes; every entry is the variant its paths launch,
 "mma") and the ok line.
 
@@ -81,7 +95,10 @@ model served in
 each dtype and setting, 5 batches of 32 after 3 warm-up, wall ms untraced,
 then one torch.profiler trace: device busy ms a batch, idle share of the
 traced span, device time split into K1, K4, cuBLAS/cuDNN GEMM and
-convolution, and the rest (the top kernels of the last two are printed).
+convolution, and the rest (the top kernels of the last two are printed);
+last, one deit_small calibration traced after a cold one: the share of the
+span in the scoring GEMMs, in elementwise and reduction kernels (the
+quantize / compare work), in sorts, and idle.
 """
 
 import json
@@ -298,8 +315,8 @@ def gemm_bound_ms(T, K, O, dtype, variant="mma"):
 def flash_case(torch, fq_attn, args, bias, kw, tag, variant, took):
     """One K1 call of ``variant`` against the plain version, checked and
     timed; ``took`` is the variant the wrapper must have launched. Returns
-    ((kernel ms of one call a timing, of 10 calls in a row a timing, plain
-    ms), max|diff|)."""
+    ((kernel ms of one call a timing, of 10 calls in a row a timing, of 10
+    calls replayed from a CUDA graph, plain ms), max|diff|)."""
     G, S, D = args[0].shape
     before = dict(fq_attn.fq_flash_attn.variant_launches)
     got = fq_attn.fq_flash_attn(*args, bias, variant=variant, **kw)
@@ -324,6 +341,7 @@ def flash_case(torch, fq_attn, args, bias, kw, tag, variant, took):
 
     k_ms = cuda_ms(torch, call)
     q_ms = cuda_ms(torch, call, calls=10)
+    g_ms = cuda_graph_ms(torch, call)
     p_ms = cuda_ms(torch, lambda: fq_attn.fq_flash_attn_plain(
         *args, bias, **kw))
     P = 0 if bias is None else bias.shape[0]
@@ -332,11 +350,11 @@ def flash_case(torch, fq_attn, args, bias, kw, tag, variant, took):
           f"D={D}: max|diff|={max_diff:.3e} share_past_tol={share:.3e} "
           f"(atol={ATOL} rtol={RTOL}; allowed share {FLIP_SHARE}, max "
           f"{cap:.3f}, the largest |uq(v)|) kernel_ms={k_ms:.4f} "
-          f"back_to_back_ms={q_ms:.4f} plain_ms={p_ms:.4f} "
-          f"bound_ms={b_ms:.4f} ({by})")
+          f"back_to_back_ms={q_ms:.4f} graph_ms={g_ms:.4f} "
+          f"plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} ({by})")
     check(share <= FLIP_SHARE, f"[{tag}] share past tolerance {share}")
     check(max_diff <= cap, f"[{tag}] max|diff| {max_diff} above {cap}")
-    return (k_ms, q_ms, p_ms), max_diff
+    return (k_ms, q_ms, g_ms, p_ms), max_diff
 
 
 def kernel_phase(torch, fq_attn, device):
@@ -885,7 +903,8 @@ def attention_bias(spec, model, path, stage, blk, dtype):
     return 1.0, swin.flash_bias(ap, mask), mask
 
 
-def block_check(torch, fq_attn, fq_gemm, spec, model, qstate, x, dt):
+def block_check(torch, fq_attn, fq_gemm, spec, model, qstate, x, dt,
+                require_mma=True):
     """Hold K1 against its plain version on the q/kT/v (and, for Swin, the
     rel-pos bias and shift mask) that every block of the quantized model
     gives it for images x (as the wrapper routes it: variant "mma",
@@ -894,7 +913,8 @@ def block_check(torch, fq_attn, fq_gemm, spec, model, qstate, x, dt):
     path calls it (``fq_gemm.run`` on the table entry, weight codes
     included for fp32; every launch variant "mma", asserted), from one
     capture pass with the served path's tables active; returns {kernel: (largest
-    max|diff|, largest share past tolerance)}."""
+    max|diff|, largest share past tolerance)}. With ``require_mma`` False a
+    call of variant "fma" is reported with the reason, not failed."""
     from adalog_tpu_torch.models.zoo import model_forward_fn
     from adalog_tpu_torch.ops import weight_prep
 
@@ -942,11 +962,45 @@ def block_check(torch, fq_attn, fq_gemm, spec, model, qstate, x, dt):
                                          kind=site.kind, bits=site.bits)
             check(bool(torch.isfinite(got).all()), f"{name}: K4 not finite")
             note("K4", *compare(got, want, GEMM_RTOL[dt]))
-    check(fq_attn.fq_flash_attn.variant_launches["fma"] == fma_before,
+    fma = (fq_attn.fq_flash_attn.variant_launches["fma"] - fma_before,
+           fq_gemm.fq_gemm.variant_launches["fma"] - gemm_fma_before)
+    if any(fma):
+        print(f"block check {spec.name} {dt}: variant 'fma' launches K1 "
+              f"{fma[0]}, K4 {fma[1]}; why: "
+              f"{fma_reasons(torch, fq_attn, fq_gemm, spec, model, qstate, dt)}")
+    check(not require_mma or fma[0] == 0,
           f"{spec.name} {dt}: a block's K1 call took variant 'fma'")
-    check(fq_gemm.fq_gemm.variant_launches["fma"] == gemm_fma_before,
+    check(not require_mma or fma[1] == 0,
           f"{spec.name} {dt}: a Linear site's K4 call took variant 'fma'")
     return worst
+
+
+def fma_reasons(torch, fq_attn, fq_gemm, spec, model, qstate, dt):
+    """{site: why variant "mma" refuses it} for every attention (K1) and
+    Linear (K4) site of a served model in dtype ``dt``."""
+    from adalog_tpu_torch.ops import weight_prep
+
+    dtype = getattr(torch, dt)
+    cfg = spec.cfg
+    S = cfg.num_patches + 1 if spec.family == "vit" else cfg.window ** 2
+    D = cfg.head_dim if spec.family == "vit" else cfg.embed_dim // cfg.heads[0]
+    exact = fq_attn.integers_exact(qstate)
+    why = {}
+    for p, *_ in attention_blocks(spec):
+        m1, m2 = qstate[f"{p}.matmul1"], qstate[f"{p}.matmul2"]
+        bits = (m1.Aq.bits, m1.Bq.bits, m2.Aq.bits, m2.Bq.bits)
+        reason = fq_attn.mma_refusal(S, D, dtype, bits, exact)
+        if reason is not None:
+            why[p] = reason
+    codes = weight_prep.weight_codes(spec, model, qstate, w4a4_config()) \
+        if dt == "float32" else None
+    for name, site in fq_gemm.prepare(qstate, codes).items():
+        reason = fq_gemm.mma_refusal(
+            dtype, site.kind, site.bits, site.codes,
+            fq_gemm.activation_ints_exact(site.params, site.kind, site.bits))
+        if reason is not None:
+            why[name] = reason
+    return why
 
 
 # serving settings: (name, use_pallas, use_pallas_gemm)
@@ -1038,11 +1092,25 @@ def check_logits(torch, y, spec, n, tag):
 
 def serving_phase(torch, fq_attn, fq_gemm, device, ckpt_dir,
                   name="deit_small"):
-    """Serve model ``name`` through load_quantized; returns ({kernel:
-    launches on the main path, attention + GEMM kernels}, {kernel: largest
-    block-check max|diff|})."""
+    """Serve model ``name`` with its smoke state through load_quantized;
+    returns serve_checked's pair."""
     spec, model, qstate, ckpt, batches = smoke_model(torch, device, ckpt_dir,
                                                      name)
+    return serve_checked(torch, fq_attn, fq_gemm, device, spec, model, qstate,
+                         ckpt, batches)
+
+
+def serve_checked(torch, fq_attn, fq_gemm, device, spec, model, qstate, ckpt,
+                  batches, tag=None, require_mma=True):
+    """Block checks on the model's own tensors in both dtypes, then the
+    state in ``ckpt`` served through load_quantized in every setting and
+    dtype, launch counts asserted (every launch a kernel); with
+    ``require_mma`` every launch also variant "mma", else the variants are
+    printed with the reason for any "fma". Deletes ``ckpt``. Returns
+    ({kernel: launches on the main path, attention + GEMM kernels},
+    {kernel: largest block-check max|diff|})."""
+    name = spec.name
+    tag = tag or name
     n_attn, n_linear = MODELS[name]["K1"], MODELS[name]["K4"]
     worst = {"K1": 0.0, "K4": 0.0}
     x0 = torch.from_numpy(batches[0]).to(device)
@@ -1050,19 +1118,21 @@ def serving_phase(torch, fq_attn, fq_gemm, device, ckpt_dir,
                       ("bfloat16", torch.bfloat16)):
         m = model.to(dtype)
         res = block_check(torch, fq_attn, fq_gemm, spec, m, qstate,
-                          x0.to(dtype), dt)
+                          x0.to(dtype), dt, require_mma)
         for k, what in (("K1", f"the q/kT/v of all {n_attn} blocks"),
                         ("K4", f"the inputs of all {n_linear} Linear sites")):
             d, share = res[k]
             cap = "each block's largest |uq(v)|" if k == "K1" else FLIP_MAX
-            print(f"block check {name} {dt}: {k} vs plain on {what}, batch "
+            print(f"block check {tag} {dt}: {k} vs plain on {what}, batch "
                   f"{BATCH}: max|diff|={d:.3e} share_past_tol={share:.3e} "
                   f"(allowed share {FLIP_SHARE}, max {cap})")
             check(share <= FLIP_SHARE,
-                  f"{name} {dt} {k} block check share {share}")
+                  f"{tag} {dt} {k} block check share {share}")
             check(k == "K1" or d <= FLIP_MAX,
-                  f"{name} {dt} {k} block check max|diff| {d}")
+                  f"{tag} {dt} {k} block check max|diff| {d}")
             worst[k] = max(worst[k], d)
+    reasons = {dt: fma_reasons(torch, fq_attn, fq_gemm, spec, model.to(
+        getattr(torch, dt)), qstate, dt) for dt in ("float32", "bfloat16")}
     del model, qstate, m
     torch.cuda.empty_cache()
 
@@ -1084,33 +1154,38 @@ def serving_phase(torch, fq_attn, fq_gemm, device, ckpt_dir,
         got = read_launches(fq_attn, fq_gemm)
         want = {"K1": per_batch[setting][0] * N_BATCHES * 2, "K2": 0, "K3": 0,
                 "K4": per_batch[setting][1] * N_BATCHES * 2}
-        print(f"serving path {name} '{setting}': launches {got} for 2 x "
+        print(f"serving path {tag} '{setting}': launches {got} for 2 x "
               f"{N_BATCHES} batches of {BATCH} (want K1 "
               f"{per_batch[setting][0]}, K4 {per_batch[setting][1]} per "
-              f"batch: {want})")
-        check(got == want, f"{name} '{setting}' launches {got} != {want}")
-        by_variant = fq_attn.fq_flash_attn.variant_launches
-        check(by_variant == {"mma": want["K1"], "fma": 0},
-              f"{name} '{setting}': K1 launches by variant {by_variant}, "
-              "want every one 'mma'")
-        by_variant = fq_gemm.fq_gemm.variant_launches
-        check(by_variant == {"mma": want["K4"], "fma": 0},
-              f"{name} '{setting}': K4 launches by variant {by_variant}, "
-              "want every one 'mma'")
+              f"batch: {want}); by variant K1 "
+              f"{fq_attn.fq_flash_attn.variant_launches}, K4 "
+              f"{fq_gemm.fq_gemm.variant_launches}")
+        check(got == want, f"{tag} '{setting}' launches {got} != {want}")
+        for k, wrapper in (("K1", fq_attn.fq_flash_attn),
+                           ("K4", fq_gemm.fq_gemm)):
+            by_variant = wrapper.variant_launches
+            check(sum(by_variant.values()) == want[k],
+                  f"{tag} '{setting}': {k} launches by variant {by_variant}")
+            if by_variant["fma"]:
+                print(f"serving path {tag} '{setting}': {k} took variant "
+                      f"'fma' {by_variant['fma']} times; why: {reasons}")
+            check(not require_mma or by_variant["fma"] == 0,
+                  f"{tag} '{setting}': {k} launches by variant {by_variant}, "
+                  "want every one 'mma'")
         launches[setting] = got
 
     for dt in ("float32", "bfloat16"):
         for setting, *_ in SETTINGS:
             y, ips = served[dt, setting]
             check_logits(torch, y, spec, BATCH * N_BATCHES,
-                         f"{name} {dt} {setting}")
-            print(f"serving {name} {dt}, {setting}: {ips:.1f} img/s")
+                         f"{tag} {dt} {setting}")
+            print(f"serving {tag} {dt}, {setting}: {ips:.1f} img/s")
         for a, b in ((1, 0), (1, 2), (0, 2)):
             (ya, _), (yb, _) = served[dt, SETTINGS[a][0]], \
                 served[dt, SETTINGS[b][0]]
             agree = (ya.argmax(-1) == yb.argmax(-1)).float().mean().item()
             rel = ((ya - yb).norm() / yb.norm()).item()
-            print(f"serving {name} {dt} logits, {SETTINGS[a][0]} vs "
+            print(f"serving {tag} {dt} logits, {SETTINGS[a][0]} vs "
                   f"{SETTINGS[b][0]}: top-1 agreement {agree:.4f}, max|diff| "
                   f"{(ya - yb).abs().max().item():.4e}, rel L2 {rel:.4e} "
                   f"(max|logit| {yb.abs().max().item():.4e})")
@@ -1279,6 +1354,258 @@ def fallback_phase(torch, fq_attn, fq_gemm, device, ckpt_dir, name):
     return total, worst
 
 
+# Calibration phase: the shipped configs/4bit.py numbers (w4a4_config's
+# defaults: calib_size 32, eq_n 128, steps 6, search_round 3, FPCS,
+# LayerNorm reparam, AdaLog post-softmax and post-GeLU, head-wise matmuls,
+# qconv_a_bit 8, qhead_a_bit 4) on CALIB_MODEL at full depth and width
+CALIB_MODEL, CALIB_SIZE = "deit_small", 32
+CHECK_MODEL = "test_tiny"        # calibrated on the card and on the CPU
+# card vs CPU: integer picks (zero points, AdaLog bases) exact or on the
+# adjacent candidate, at most ADJACENT_SHARE of them adjacent (log2 may
+# differ by an ulp between the devices); scales of the sites whose picks
+# all agree within CALIB_SCALE_RTOL, at most MOVED_SHARE of them past it.
+# FPCS refines each scale five times around its survivors; near the optimum
+# the score is flat, and the last refine steps (1e-5 to 1e-3 apart, relative)
+# differ by less than the fp32 sums resolve, so cuBLAS's order of the sums
+# and the CPU's pick neighbouring candidates there (measured on the card:
+# every integer pick equal, scales up to 4.1e-4 apart)
+CALIB_SCALE_RTOL = 1e-3
+ADJACENT_SHARE = 0.05
+MOVED_SHARE = 0.02
+
+
+def qstate_fields(site, prefix=""):
+    """(field path, value) of every leaf of a site's quantizer state."""
+    import dataclasses
+
+    for f in dataclasses.fields(site):
+        v = getattr(site, f.name)
+        if dataclasses.is_dataclass(v):
+            yield from qstate_fields(v, prefix + f.name + ".")
+        else:
+            yield prefix + f.name, v
+
+
+def compare_qstates(torch, got, want):
+    """Site by site: flags and kinds equal; integer picks (zero points,
+    AdaLog bases) exact or adjacent; the other tensors (scales) of each
+    site whose picks all agree, relative to ``want``. Returns dict(picks,
+    adjacent, scales, moved: scale entries past CALIB_SCALE_RTOL,
+    worst_rel)."""
+    check(set(got) == set(want), "the two states hold other sites")
+    n = dict(picks=0, adjacent=0, scales=0, moved=0, worst_rel=0.0)
+    for name in want:
+        a, b = dict(qstate_fields(got[name])), dict(qstate_fields(want[name]))
+        check(a.keys() == b.keys(), f"{name}: other fields")
+        agree, scales = True, []
+        for k, va in a.items():
+            vb = b[k]
+            if not isinstance(va, torch.Tensor):
+                check(va == vb, f"{name} {k}: {va} != {vb}")
+                continue
+            va, vb = va.cpu(), vb.cpu()
+            if va.dtype == torch.bool:
+                check(torch.equal(va, vb), f"{name} {k} differs")
+            elif k.split(".")[-1] in ("zero_point", "log_q"):
+                d = (va - vb).abs()
+                check(bool((d <= 1).all()),
+                      f"{name} {k}: picks past the adjacent candidate")
+                n["picks"] += d.numel()
+                n["adjacent"] += int((d != 0).sum())
+                agree = agree and not bool((d != 0).any())
+            else:
+                scales.append((va.float(), vb.float()))
+        if agree:
+            for va, vb in scales:
+                rel = (va - vb).abs() / vb.abs().clamp(min=1e-30)
+                n["scales"] += rel.numel()
+                n["moved"] += int((rel > CALIB_SCALE_RTOL).sum())
+                n["worst_rel"] = max(n["worst_rel"], rel.max().item())
+    return n
+
+
+def calibrate_on(torch, spec, model, images, device):
+    """One calibration through QuantCalibrator at w4a4_config on
+    ``device``: (model, qstate, calibrator, wall seconds, synchronized)."""
+    from adalog_tpu_torch.calib.calibrator import QuantCalibrator
+
+    t0 = time.perf_counter()
+    calib = QuantCalibrator(spec, model, w4a4_config(), device=device)
+    calib.calibrate([images])
+    params, qstate = calib.finish_calibration()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return params, qstate, calib, time.perf_counter() - t0
+
+
+def check_calibrated(torch, fq_gemm, calib, qstate):
+    """Every site of the layout has a state and every AdaLog base is a
+    positive integer that fq_gemm.prepare takes; returns the bases."""
+    check(set(qstate) == set(calib.layout),
+          f"calibrated sites {len(qstate)} != layout {len(calib.layout)}")
+    bases = []
+    for name, site in qstate.items():
+        for k, v in qstate_fields(site):
+            if k.endswith("log_q") and v is not None:
+                q = float(v)
+                check(q >= 1 and q == int(q), f"{name} {k}: base {q}")
+                bases.append(int(q))
+    fq_gemm.prepare(qstate)        # raises on a base the kernel cannot take
+    return bases
+
+
+def calibration_images(cfg, n, seed):
+    return np.random.default_rng(seed).standard_normal(
+        (n, cfg.img_size, cfg.img_size, cfg.in_chans)).astype(np.float32)
+
+
+def calibration_phase(torch, fq_attn, fq_gemm, device, ckpt_dir):
+    """Calibrate CALIB_MODEL (random weights from SEED, no smoke state) on
+    the card at the shipped W4A4 numbers, twice (cold, then warm), with the
+    capture and each search family timed; check the state; hold its
+    held-out logit MSE to the raw model below the min/max smoke state's;
+    save it, serve it through load_quantized (serve_checked: block checks,
+    launches asserted, variants printed); then calibrate CHECK_MODEL on the
+    card and on the CPU and compare the two states. Returns serve_checked's
+    pair."""
+    from collections import Counter
+
+    from adalog_tpu_torch.models.load import load_state_dict
+    from adalog_tpu_torch.models.zoo import (
+        build_model, model_forward_fn, model_spec,
+    )
+    from adalog_tpu_torch.utils.checkpoint import save_checkpoint
+
+    spec = model_spec(CALIB_MODEL)
+    cfg = spec.cfg
+    images = calibration_images(cfg, CALIB_SIZE, SEED + 7)
+    held_out = calibration_images(cfg, CALIB_SIZE, SEED + 8)
+    batches = [calibration_images(cfg, BATCH, SEED + 9 + i)
+               for i in range(N_BATCHES)]
+    model = load_state_dict(spec, timm_weights(cfg, SEED)).to(device)
+    line = card_line()
+    runs = []
+    for run in ("cold", "warm"):
+        torch.cuda.reset_peak_memory_stats(device)
+        params, qstate, calib, wall = calibrate_on(torch, spec, model, images,
+                                                   device)
+        peak = torch.cuda.max_memory_allocated(device)
+        runs.append(dict(wall_s=wall, peak_bytes=peak, seconds=calib.seconds))
+        print(f"calibration {CALIB_MODEL} W4A4 ({run}): wall {wall:.2f} s "
+              f"(capture {calib.seconds['capture']:.2f} s; searches "
+              + ", ".join(f"{k} {v:.2f} s" for k, v in calib.seconds.items()
+                          if k != "capture")
+              + f"); peak device memory {peak / 2**30:.2f} GiB; {line}")
+        if run == "cold":
+            first = qstate
+    n = compare_qstates(torch, qstate, first)
+    print(f"calibration {CALIB_MODEL}: warm run vs cold run: {n}")
+    bases = check_calibrated(torch, fq_gemm, calib, qstate)
+    print(f"calibration {CALIB_MODEL}: {len(qstate)} sites calibrated; "
+          f"AdaLog bases {sorted(Counter(bases).items())}")
+
+    fwd = model_forward_fn(spec)
+    x = torch.from_numpy(held_out).to(device)
+    smoke = smoke_qstate(torch, spec, model, torch.from_numpy(images), device)
+    with torch.no_grad():
+        y_raw = fwd(cfg, model, x)
+        mse_cal = torch.mean((fwd(cfg, params, x, qstate, {"*": "quant"})
+                              - y_raw) ** 2).item()
+        mse_mm = torch.mean((fwd(cfg, model, x, smoke, {"*": "quant"})
+                             - y_raw) ** 2).item()
+    print(f"calibration {CALIB_MODEL} quality on {CALIB_SIZE} held-out "
+          f"images: logit MSE to the raw model {mse_cal:.6e} calibrated, "
+          f"{mse_mm:.6e} min/max smoke state (must be lower)")
+    check(np.isfinite(mse_cal) and mse_cal < mse_mm,
+          f"calibrated logit MSE {mse_cal} not below min/max {mse_mm}")
+    print(json.dumps({"calibration": {
+        "model": CALIB_MODEL, "card": line, "runs": runs,
+        "sites": len(qstate), "mse_calibrated": mse_cal,
+        "mse_minmax": mse_mm}}))
+
+    os.makedirs(ckpt_dir, exist_ok=True)
+    ckpt = os.path.join(ckpt_dir, f"{CALIB_MODEL}_calibrated_w4a4.ckpt")
+    save_checkpoint(ckpt, params, qstate, {
+        "model": CALIB_MODEL, "state": "FPCS calibration, random weights"})
+    del model, smoke, first
+    torch.cuda.empty_cache()
+    served = serve_checked(torch, fq_attn, fq_gemm, device, spec, params,
+                           qstate, ckpt, batches,
+                           tag=f"{CALIB_MODEL} calibrated", require_mma=False)
+    del params, qstate, calib
+    torch.cuda.empty_cache()
+
+    spec_t = model_spec(CHECK_MODEL)
+    _, tiny = build_model(CHECK_MODEL, seed=SEED)
+    imgs = calibration_images(spec_t.cfg, CALIB_SIZE, SEED + 13)
+    _, q_gpu, _, t_gpu = calibrate_on(torch, spec_t, tiny, imgs, device)
+    _, q_cpu, _, t_cpu = calibrate_on(torch, spec_t, tiny, imgs,
+                                      torch.device("cpu"))
+    n = compare_qstates(torch, q_gpu, q_cpu)
+    print(f"calibration {CHECK_MODEL} card vs CPU (card {t_gpu:.2f} s, CPU "
+          f"{t_cpu:.2f} s): {n['picks']} integer picks, {n['adjacent']} "
+          f"adjacent (share {n['adjacent'] / max(1, n['picks']):.4f}, allowed "
+          f"{ADJACENT_SHARE}); {n['scales']} scales of agreeing sites, "
+          f"{n['moved']} past rtol {CALIB_SCALE_RTOL} (allowed share "
+          f"{MOVED_SHARE}), worst rel {n['worst_rel']:.3e}")
+    check(n["adjacent"] <= ADJACENT_SHARE * n["picks"],
+          f"card vs CPU: {n['adjacent']} adjacent picks")
+    check(n["moved"] <= MOVED_SHARE * n["scales"],
+          f"card vs CPU: {n['moved']} scales past tolerance")
+    return served
+
+
+def calibration_profile(torch, device):
+    """Where the device time of a calibration of CALIB_MODEL goes: one cold
+    run untraced, then one traced by torch.profiler: the share of the
+    traced span in cuBLAS GEMMs (the scoring products), in elementwise and
+    reduction kernels (the quantize / compare work), in sorts, the rest,
+    and idle."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from adalog_tpu_torch.models.load import load_state_dict
+    from adalog_tpu_torch.models.zoo import model_spec
+
+    spec = model_spec(CALIB_MODEL)
+    images = calibration_images(spec.cfg, CALIB_SIZE, SEED + 7)
+    model = load_state_dict(spec, timm_weights(spec.cfg, SEED)).to(device)
+    calibrate_on(torch, spec, model, images, device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, _, calib, wall = calibrate_on(torch, spec, model, images, device)
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    check(evs, "the profiler saw no device event in the calibration")
+    spans = [(e.time_range.start, e.time_range.end) for e in evs]
+    busy = busy_us(spans)
+    span = max(b for _, b in spans) - min(a for a, _ in spans)
+
+    def kind(name):
+        n = name.lower()
+        if kernel_class(name) == "GEMM":
+            return "GEMM"
+        if "sort" in n or "radix" in n:
+            return "sort"
+        if "elementwise" in n or "reduce" in n or "index" in n:
+            return "elementwise"
+        return "other"
+
+    us, top = {}, {}
+    for e in evs:
+        t = e.time_range.end - e.time_range.start
+        k = kind(e.name)
+        us[k] = us.get(k, 0.0) + t
+        top[k, e.name] = top.get((k, e.name), 0.0) + t
+    print(f"profile calibration {CALIB_MODEL}: wall {wall:.2f} s traced, "
+          f"{len(evs)} device events, device busy {busy / 1e6:.2f} s of a "
+          f"{span / 1e6:.2f} s span (idle {100 * (1 - busy / span):.1f}%); "
+          + ", ".join(f"{k} {100 * v / span:.1f}%" for k, v in
+                      sorted(us.items(), key=lambda kv: -kv[1]))
+          + " of the span; searches " + ", ".join(
+              f"{k} {v:.2f} s" for k, v in calib.seconds.items()))
+    for (k, name), t in sorted(top.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"    top {k}: {t / 1e6:.3f} s  {name[:110]}")
+
+
 def flash_phase_profile(torch, fq_attn, device):
     """Where the cycles of K1 "mma" go, by phase of the kernel, at the
     attention shapes of batch 32 and at KERNEL_SHAPE, fp32 and bf16: one
@@ -1445,6 +1772,7 @@ def main(argv):
         print("chip_smoke: torch finds no CUDA device; this script runs the "
               "port on an NVIDIA GPU", file=sys.stderr)
         sys.exit(1)
+    started = time.perf_counter()
     line = card_line()
     print(line)
     print(f"card: {line} (torch {torch.__version__}, CUDA "
@@ -1476,27 +1804,31 @@ def main(argv):
         gemm_phase_profile(torch, fq_gemm, device)
         for name in MODELS:
             profile_phase(torch, device, ckpt_dir, name)
+        calibration_profile(torch, device)
         return
 
-    (k_ms, kq_ms, p_ms), worst = kernel_phase(torch, fq_attn, device)
+    (k_ms, kq_ms, kg_ms, p_ms), worst = kernel_phase(torch, fq_attn, device)
     (g_ms, gq_ms, gg_ms, gp_ms), g_worst = gemm_kernel_phase(torch, fq_gemm,
                                                              device)
     mm = matmul_kernel_phase(torch, fq_attn, device)
     # the main paths, each driven with the counts at 0 just before and read
     # just after: serving each model with the attention and GEMM kernels
-    # (K1, K4), and the three configurations that reach K2 and K3
+    # (K1, K4), the three configurations that reach K2 and K3, and the
+    # calibrated deit_small served
     launches = {k: 0 for k in ("K1", "K2", "K3", "K4")}
     block_worst = dict(launches, K1=0.0, K2=0.0, K3=0.0, K4=0.0)
+
+    def add(got, errs):
+        for k, n in got.items():
+            launches[k] += n
+        for k, d in errs.items():
+            block_worst[k] = max(block_worst[k], d)
+
     for name in MODELS:
-        for got, errs in (
-                serving_phase(torch, fq_attn, fq_gemm, device, ckpt_dir,
-                              name),
-                fallback_phase(torch, fq_attn, fq_gemm, device, ckpt_dir,
-                               name)):
-            for k, n in got.items():
-                launches[k] += n
-            for k, d in errs.items():
-                block_worst[k] = max(block_worst[k], d)
+        add(*serving_phase(torch, fq_attn, fq_gemm, device, ckpt_dir, name))
+        add(*fallback_phase(torch, fq_attn, fq_gemm, device, ckpt_dir, name))
+    # the calibration half of the main path, then its model served
+    add(*calibration_phase(torch, fq_attn, fq_gemm, device, ckpt_dir))
     for k, n in launches.items():
         check(n > 0, f"{k} was launched no time on the main paths")
 
@@ -1517,12 +1849,15 @@ def main(argv):
                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                 "library_ms": None}
 
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": [
         entry("fq_flash_attn", "fq_flash_attn", "fq_attn.py:226", "K1",
               max(worst, block_worst["K1"]), k_ms, p_ms, k1_bound, k1_by,
               # what the served path launches, asserted; ms is one call a
-              # timing, as every entry's, ms_back_to_back ten in a row
-              variant="mma", ms_back_to_back=kq_ms),
+              # timing, as every entry's, ms_back_to_back ten in a row,
+              # ms_graph ten replayed from a CUDA graph (the device alone)
+              variant="mma", ms_back_to_back=kq_ms, ms_graph=kg_ms),
         # K2 and K3 as their paths launch them, asserted: "mma"; K3's times
         # are the sums of its two calls of one attention
         entry("fq_softmax_attn_matmul", "fq_attn_matmul", "fq_attn.py:160",
