@@ -11,16 +11,19 @@ Each TPU kernel of the JAX package becomes a hand-written CUDA kernel under
 ``csrc/`` with a plain PyTorch version beside it: the wrapper runs the plain
 version for CPU tensors and the kernel for CUDA tensors.
 
-  quantizers/  uniform, twin, log2, log-sqrt2, AdaLog, AdaRound (hard form)
-  models/      layers with quant sites, the ViT and Swin forwards, zoo, timm
-               loading
+  quantizers/  uniform, twin, log2, log-sqrt2, AdaLog, AdaRound (soft and
+               hard forms), straight-through rounding
+  models/      layers with quant sites, the ViT and Swin forwards (eval and
+               training forms), zoo, timm loading
   calib/       the quant-site layouts, the uncalibrated qstate, reparam,
                candidate grids, the FPCS search families, the calibrator
+  recon/       BRECQ block reconstruction: the block units (blocks.py) and
+               the reconstructor (brecq.py)
   ops/         fused fake-quant attention (K1) and its fall-backs (K2, K3),
                fused activation-quant GEMM (K4), the kernels' build, weight
                prep, kernel defaults, calibration's candidate scoring
-  utils/       Config, v2 checkpoints, the calibration resume log, weight
-               carrying from the JAX package
+  utils/       Config, v2 checkpoints, the calibration and reconstruction
+               resume log, weight carrying from the JAX package
   serve.py     load_quantized / make_predictor on one device
 """
 

@@ -156,12 +156,12 @@ def _flat2d(x):
     return x.reshape(-1, x.shape[-1])
 
 
-def _resolve_device(device):
+def _resolve_device(device, owner="QuantCalibrator", task="calibrate"):
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "QuantCalibrator: torch finds no CUDA device; pass device='cpu' "
-            "to calibrate on the CPU")
+            f"{owner}: torch finds no CUDA device; pass device='cpu' "
+            f"to {task} on the CPU")
     return dev
 
 
@@ -775,7 +775,12 @@ class QuantCalibrator:
         return self.params, self.qstate
 
     def finish_calibration(self):
-        """The post-GeLU bias fold for every shifted-log fc2 site."""
+        """The post-GeLU bias fold for every shifted-log fc2 site. Returns a
+        new model root and a new qstate dict: the (model, qstate) that
+        ``calibrate`` returned stay as they were, so a caller may
+        reconstruct from them first (``recon.brecq``) and set
+        ``params`` / ``qstate`` before folding."""
+        self.qstate = dict(self.qstate)
         with torch.no_grad():
             for name, ss in self.layout.items():
                 site = self.qstate.get(name)

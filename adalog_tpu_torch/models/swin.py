@@ -283,16 +283,18 @@ def window_reverse(x, ws: int, H: int, W: int):
 # ---------------------------------------------------------------------------
 
 def swin_window_attention(ap: WindowAttention, qstate, prefix: str, x, heads,
-                          mask, modes, taps):
+                          mask, modes, taps, *, training: bool = False,
+                          soft: bool = False):
     """x: (B_, N, C) windows; mask: None or (nW, N, N) constant in x's
     dtype. The same three tiers as ``vit_attention``: K1, then K3 for
-    matmul1 with K2 for the rest, then the plain ops."""
+    matmul1 with K2 for the rest, then the plain ops (always in
+    training)."""
     B_, N, C = x.shape
     hd = C // heads
 
     nm = f"{prefix}.qkv"
     qkv = qlinear(ap.qkv, site_of(qstate, nm), x, mode=mode_of(modes, nm),
-                  name=nm)
+                  training=training, soft=soft, name=nm)
     _tap(taps, nm, x, qkv)
     heads = qkv.shape[-1] // (3 * hd)
     qkv = qkv.reshape(B_, N, 3, heads, hd).permute(2, 0, 3, 1, 4)
@@ -306,18 +308,18 @@ def swin_window_attention(ap: WindowAttention, qstate, prefix: str, x, heads,
     m2_site, m2_mode = site_of(qstate, nm2), mode_of(modes, nm2)
 
     out = attn = None
-    if taps is None and fq_attn.supports_flash(m1_site, m2_site, m1_mode,
-                                               m2_mode):
+    fused = taps is None and not training
+    if fused and fq_attn.supports_flash(m1_site, m2_site, m1_mode, m2_mode):
         # the whole quantized window attention in one kernel; the rel-pos
         # bias (+ shifted-window mask) folds into a (P, N, N) additive logit
         # bias with period P over the flattened (B, nW, heads) slices
         out = fq_attn.run_flash(m1_site, m2_site, q, kT, v, logit_scale=1.0,
                                 bias=flash_bias(ap, mask))
     if out is None:
-        attn = qmatmul(m1_site, q, kT, mode=m1_mode)
+        attn = qmatmul(m1_site, q, kT, mode=m1_mode, training=training)
         _tap(taps, nm, q, kT, attn)
         attn = add_window_bias(ap, attn, mask)
-        if taps is None and m2_site is not None \
+        if fused and m2_site is not None \
                 and fq_attn.supports_softmax(m2_site, m2_mode):
             # partial fast path: softmax, AdaLog and the product with uq(v)
             # fused; the logits (carrying bias and mask) are still a
@@ -326,20 +328,21 @@ def swin_window_attention(ap: WindowAttention, qstate, prefix: str, x, heads,
             attn = None
     if attn is not None:
         attn = torch.softmax(attn, dim=-1)
-        out = qmatmul(m2_site, attn, v, mode=m2_mode)
+        out = qmatmul(m2_site, attn, v, mode=m2_mode, training=training)
         _tap(taps, nm2, attn, v, out)
     out = out.transpose(1, 2).reshape(B_, N, heads * hd)
 
     nm = f"{prefix}.proj"
     y = qlinear(ap.proj, site_of(qstate, nm), out, mode=mode_of(modes, nm),
-                name=nm)
+                training=training, soft=soft, name=nm)
     _tap(taps, nm, out, y)
     return y
 
 
 def swin_block(cfg: SwinConfig, bp: SwinBlock, qstate, prefix: str,
-               stage: int, blk: int, x, modes, taps):
-    """x: (B, H, W, C)."""
+               stage: int, blk: int, x, modes, taps, *,
+               training: bool = False, soft: bool = False):
+    """x: (B, H, W, C). Also a block-reconstruction unit."""
     B, H, W, C = x.shape
     ws, shift = cfg.stage_window_shift(stage, blk)
     heads = cfg.heads[stage]
@@ -352,7 +355,8 @@ def swin_block(cfg: SwinConfig, bp: SwinBlock, qstate, prefix: str,
     # the mask in the compute dtype, so a bf16 forward stays bf16
     mask = block_shift_mask(cfg, stage, blk, x.device, x.dtype)
     win = swin_window_attention(bp.attn, qstate, f"{prefix}.attn", win, heads,
-                                mask, modes, taps)
+                                mask, modes, taps, training=training,
+                                soft=soft)
     h = window_reverse(win, ws, H, W)
     if shift:
         h = torch.roll(h, (shift, shift), dims=(1, 2))
@@ -361,18 +365,19 @@ def swin_block(cfg: SwinConfig, bp: SwinBlock, qstate, prefix: str,
     h = layer_norm(bp.norm2, x)
     nm = f"{prefix}.mlp.fc1"
     m = qlinear(bp.mlp.fc1, site_of(qstate, nm), h, mode=mode_of(modes, nm),
-                name=nm)
+                training=training, soft=soft, name=nm)
     _tap(taps, nm, h, m)
     m = gelu(m)
     nm = f"{prefix}.mlp.fc2"
     m2 = qlinear(bp.mlp.fc2, site_of(qstate, nm), m, mode=mode_of(modes, nm),
-                 name=nm)
+                 training=training, soft=soft, name=nm)
     _tap(taps, nm, m, m2)
     return x + m2
 
 
-def patch_merging(pm: PatchMerging, qstate, prefix: str, x, modes, taps):
-    """(B, H, W, C) -> (B, H/2, W/2, 2C).
+def patch_merging(pm: PatchMerging, qstate, prefix: str, x, modes, taps, *,
+                  training: bool = False, soft: bool = False):
+    """(B, H, W, C) -> (B, H/2, W/2, 2C). Also a reconstruction unit.
 
     The 2x2 neighbour concat order is timm 0.9.2's: channel blocks
     [x(0,0), x(1,0), x(0,1), x(1,1)] by (row, col) offsets."""
@@ -383,34 +388,40 @@ def patch_merging(pm: PatchMerging, qstate, prefix: str, x, modes, taps):
     x = layer_norm(pm.norm, x)
     nm = f"{prefix}.reduction"
     y = qlinear(pm.reduction, site_of(qstate, nm), x, mode=mode_of(modes, nm),
-                name=nm)
+                training=training, soft=soft, name=nm)
     _tap(taps, nm, x, y)
     return y
 
 
 def swin_patch_embed(cfg: SwinConfig, params: SwinTransformer, qstate, x,
-                     modes, taps):
-    """Image (B, H, W, 3) -> (B, H/4, W/4, C)."""
+                     modes, taps, *, training: bool = False,
+                     soft: bool = False):
+    """Image (B, H, W, 3) -> (B, H/4, W/4, C). Reconstruction unit
+    'patch_embed'."""
     nm = "patch_embed.proj"
     y = qconv2d(params.patch_embed.proj, site_of(qstate, nm), x,
-                mode=mode_of(modes, nm))
+                mode=mode_of(modes, nm), training=training, soft=soft)
     _tap(taps, nm, x, y)
     return layer_norm(params.patch_embed.norm, y)
 
 
-def swin_head(params: SwinTransformer, qstate, x, modes, taps):
-    """Post-norm NHWC feature -> logits (average pool, then fc)."""
+def swin_head(params: SwinTransformer, qstate, x, modes, taps, *,
+              training: bool = False, soft: bool = False):
+    """Post-norm NHWC feature -> logits (average pool, then fc).
+    Reconstruction unit 'head'."""
     pooled = torch.mean(x, dim=(1, 2))
     nm = "head.fc"
     y = qlinear(params.head.fc, site_of(qstate, nm), pooled,
-                mode=mode_of(modes, nm), name=nm)
+                mode=mode_of(modes, nm), training=training, soft=soft,
+                name=nm)
     _tap(taps, nm, pooled, y)
     return y
 
 
 def swin_forward(cfg: SwinConfig, params: SwinTransformer, x, qstate=None,
                  modes=None, *, capture: bool = False,
-                 capture_blocks: bool = False):
+                 capture_blocks: bool = False, training: bool = False,
+                 soft: bool = False):
     """Full forward. x: (B, H, W, 3) NHWC.
 
     Returns logits, or (logits, taps) when capture/capture_blocks is set.
@@ -419,7 +430,8 @@ def swin_forward(cfg: SwinConfig, params: SwinTransformer, x, qstate=None,
     taps = {} if (capture or capture_blocks) else None
     site_taps = taps if capture else None
 
-    h = swin_patch_embed(cfg, params, qstate, x, modes, site_taps)
+    h = swin_patch_embed(cfg, params, qstate, x, modes, site_taps,
+                         training=training, soft=soft)
     if capture_blocks:
         taps["patch_embed"] = (x, h)
 
@@ -427,18 +439,20 @@ def swin_forward(cfg: SwinConfig, params: SwinTransformer, x, qstate=None,
         if sp.downsample is not None:
             h_in = h
             h = patch_merging(sp.downsample, qstate, f"layers.{i}.downsample",
-                              h, modes, site_taps)
+                              h, modes, site_taps, training=training,
+                              soft=soft)
             if capture_blocks:
                 taps[f"layers.{i}.downsample"] = (h_in, h)
         for j, bp in enumerate(sp.blocks):
             h_in = h
             h = swin_block(cfg, bp, qstate, f"layers.{i}.blocks.{j}", i, j, h,
-                           modes, site_taps)
+                           modes, site_taps, training=training, soft=soft)
             if capture_blocks:
                 taps[f"layers.{i}.blocks.{j}"] = (h_in, h)
 
     h = layer_norm(params.norm, h)
-    logits = swin_head(params, qstate, h, modes, site_taps)
+    logits = swin_head(params, qstate, h, modes, site_taps,
+                       training=training, soft=soft)
     if capture_blocks:
         taps["head"] = (h, logits)
     if taps is not None:

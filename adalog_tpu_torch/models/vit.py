@@ -114,13 +114,13 @@ def _tap(taps, name, *tensors):
 
 
 def vit_attention(cfg: ViTConfig, ap: Attention, qstate, prefix: str, x,
-                  modes, taps):
+                  modes, taps, *, training: bool = False, soft: bool = False):
     B, N, C = x.shape
     hd = cfg.head_dim
 
     nm = f"{prefix}.qkv"
     qkv = qlinear(ap.qkv, site_of(qstate, nm), x, mode=mode_of(modes, nm),
-                  name=nm)
+                  training=training, soft=soft, name=nm)
     _tap(taps, nm, x, qkv)
     H = qkv.shape[-1] // (3 * hd)
     qkv = qkv.reshape(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
@@ -135,18 +135,20 @@ def vit_attention(cfg: ViTConfig, ap: Attention, qstate, prefix: str, x,
     m2_site, m2_mode = site_of(qstate, nm2), mode_of(modes, nm2)
 
     out = attn = None
-    if taps is None and fq_attn.supports_flash(m1_site, m2_site, m1_mode,
-                                               m2_mode):
+    # no kernel in training (block reconstruction differentiates the plain
+    # ops)
+    fused = taps is None and not training
+    if fused and fq_attn.supports_flash(m1_site, m2_site, m1_mode, m2_mode):
         # the whole quantized attention, uq(q) @ uq(kT) -> scale -> softmax
         # -> AdaLog -> @ uq(v), in one kernel: the (B, H, N, N) logits never
         # reach device memory
         out = fq_attn.run_flash(m1_site, m2_site, q, kT, v,
                                 logit_scale=hd ** -0.5)
     if out is None:
-        attn = qmatmul(m1_site, q, kT, mode=m1_mode)
+        attn = qmatmul(m1_site, q, kT, mode=m1_mode, training=training)
         _tap(taps, nm, q, kT, attn)
         attn = attn * (hd ** -0.5)
-        if taps is None and m2_site is not None \
+        if fused and m2_site is not None \
                 and fq_attn.supports_softmax(m2_site, m2_mode):
             # partial fast path: softmax, AdaLog and the product with uq(v)
             # fused; the logits are still a device-memory operand
@@ -154,62 +156,69 @@ def vit_attention(cfg: ViTConfig, ap: Attention, qstate, prefix: str, x,
             attn = None
     if attn is not None:
         attn = torch.softmax(attn, dim=-1)
-        out = qmatmul(m2_site, attn, v, mode=m2_mode)
+        out = qmatmul(m2_site, attn, v, mode=m2_mode, training=training)
         _tap(taps, nm2, attn, v, out)
     out = out.transpose(1, 2).reshape(B, N, H * hd)
 
     nm = f"{prefix}.proj"
     y = qlinear(ap.proj, site_of(qstate, nm), out, mode=mode_of(modes, nm),
-                name=nm)
+                training=training, soft=soft, name=nm)
     _tap(taps, nm, out, y)
     return y
 
 
-def vit_mlp(mp: Mlp, qstate, prefix: str, x, modes, taps):
+def vit_mlp(mp: Mlp, qstate, prefix: str, x, modes, taps, *,
+            training: bool = False, soft: bool = False):
     nm = f"{prefix}.fc1"
     h = qlinear(mp.fc1, site_of(qstate, nm), x, mode=mode_of(modes, nm),
-                name=nm)
+                training=training, soft=soft, name=nm)
     _tap(taps, nm, x, h)
     h = gelu(h)
     nm = f"{prefix}.fc2"
     y = qlinear(mp.fc2, site_of(qstate, nm), h, mode=mode_of(modes, nm),
-                name=nm)
+                training=training, soft=soft, name=nm)
     _tap(taps, nm, h, y)
     return y
 
 
-def vit_block(cfg: ViTConfig, bp: Block, qstate, prefix: str, x, modes, taps):
-    """Pre-norm transformer block."""
+def vit_block(cfg: ViTConfig, bp: Block, qstate, prefix: str, x, modes, taps,
+              *, training: bool = False, soft: bool = False):
+    """Pre-norm transformer block; also a block-reconstruction unit."""
     x = x + vit_attention(cfg, bp.attn, qstate, f"{prefix}.attn",
-                          layer_norm(bp.norm1, x), modes, taps)
+                          layer_norm(bp.norm1, x), modes, taps,
+                          training=training, soft=soft)
     x = x + vit_mlp(bp.mlp, qstate, f"{prefix}.mlp",
-                    layer_norm(bp.norm2, x), modes, taps)
+                    layer_norm(bp.norm2, x), modes, taps,
+                    training=training, soft=soft)
     return x
 
 
 def vit_patch_embed(cfg: ViTConfig, params: VisionTransformer, qstate, x,
-                    modes, taps):
-    """Image (B, H, W, 3) -> tokens (B, N, D)."""
+                    modes, taps, *, training: bool = False,
+                    soft: bool = False):
+    """Image (B, H, W, 3) -> tokens (B, N, D). Reconstruction unit
+    'patch_embed'."""
     nm = "patch_embed.proj"
     y = qconv2d(params.patch_embed.proj, site_of(qstate, nm), x,
-                mode=mode_of(modes, nm))
+                mode=mode_of(modes, nm), training=training, soft=soft)
     _tap(taps, nm, x, y)
     return y.reshape(y.shape[0], cfg.num_patches, cfg.dim)
 
 
 def vit_head(cfg: ViTConfig, params: VisionTransformer, qstate, x, modes,
-             taps):
-    """Pooled feature -> logits."""
+             taps, *, training: bool = False, soft: bool = False):
+    """Pooled feature -> logits. Reconstruction unit 'head'."""
     nm = "head"
     y = qlinear(params.head, site_of(qstate, nm), x, mode=mode_of(modes, nm),
-                name=nm)
+                training=training, soft=soft, name=nm)
     _tap(taps, nm, x, y)
     return y
 
 
 def vit_forward(cfg: ViTConfig, params: VisionTransformer, x, qstate=None,
                 modes=None, *, capture: bool = False,
-                capture_blocks: bool = False):
+                capture_blocks: bool = False, training: bool = False,
+                soft: bool = False):
     """Full forward. x: (B, H, W, 3) NHWC.
 
     Returns logits, or (logits, taps) when capture/capture_blocks is set.
@@ -218,7 +227,8 @@ def vit_forward(cfg: ViTConfig, params: VisionTransformer, x, qstate=None,
     taps = {} if (capture or capture_blocks) else None
     site_taps = taps if capture else None
 
-    tok = vit_patch_embed(cfg, params, qstate, x, modes, site_taps)
+    tok = vit_patch_embed(cfg, params, qstate, x, modes, site_taps,
+                          training=training, soft=soft)
     if capture_blocks:
         taps["patch_embed"] = (x, tok)
     B = tok.shape[0]
@@ -227,13 +237,15 @@ def vit_forward(cfg: ViTConfig, params: VisionTransformer, x, qstate=None,
 
     for i, bp in enumerate(params.blocks):
         h_in = h
-        h = vit_block(cfg, bp, qstate, f"blocks.{i}", h, modes, site_taps)
+        h = vit_block(cfg, bp, qstate, f"blocks.{i}", h, modes, site_taps,
+                      training=training, soft=soft)
         if capture_blocks:
             taps[f"blocks.{i}"] = (h_in, h)
 
     h = layer_norm(params.norm, h)
     pooled = h[:, 0]
-    logits = vit_head(cfg, params, qstate, pooled, modes, site_taps)
+    logits = vit_head(cfg, params, qstate, pooled, modes, site_taps,
+                      training=training, soft=soft)
     if capture_blocks:
         taps["head"] = (pooled, logits)
     if taps is not None:

@@ -44,8 +44,10 @@ def apply_quantizer(qs: QuantizerState, x, *, training: bool = False):
 
 
 def apply_weight_quantizer(wq: WeightQuantizerState, w_viewed, *,
-                           training: bool = False):
-    """Fake-quantize a weight tensor already reshaped to the row-group view."""
+                           soft: bool = False, training: bool = False):
+    """Fake-quantize a weight tensor already reshaped to the row-group view.
+    With an AdaRound ``alpha``, ``soft`` takes the soft rounding target
+    (reconstruction training) instead of the hard decision."""
     if wq.bits == 32:
         return w_viewed
     in_dtype = w_viewed.dtype
@@ -53,7 +55,7 @@ def apply_weight_quantizer(wq: WeightQuantizerState, w_viewed, *,
         w_viewed = w_viewed.float()
     if wq.alpha is not None:
         out = adaround_quant(w_viewed, wq.scale, wq.zero_point, wq.alpha,
-                             bits=wq.bits, symmetric=wq.symmetric)
+                             bits=wq.bits, symmetric=wq.symmetric, soft=soft)
     else:
         out = uniform_quant(w_viewed, wq.scale, wq.zero_point, bits=wq.bits,
                             symmetric=wq.symmetric, training=training)

@@ -11,11 +11,14 @@ names only, so they take either those dataclasses (with numpy leaves) or the
 
 The JAX package keeps a Swin attention's relative-position bias gathered,
 (1, heads, N, N); the port's module holds timm's table. ``ungather`` /
-``gather`` carry one into the other exactly.
+``gather`` carry one into the other exactly. ``affine_node`` /
+``affine_from_node`` carry one Linear or Conv2d, the parameter payload of a
+reconstruction resume record, both ways.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -152,6 +155,36 @@ def _conv_node(conv):
     return Node("ConvP", {
         "w": _host(conv.weight), "b": _host(conv.bias),
         "stride": tuple(conv.stride), "padding": tuple(conv.padding)})
+
+
+def affine_node(module) -> Node:
+    """A ``nn.Linear`` or ``nn.Conv2d`` -> the JAX package's ``LinearP`` or
+    ``ConvP`` node with numpy leaves: the parameter payload of a
+    reconstruction resume record (``recon.brecq``)."""
+    if isinstance(module, torch.nn.Conv2d):
+        return _conv_node(module)
+    return _linear_node(module)
+
+
+def affine_from_node(module, node):
+    """A copy of the ``nn.Linear`` or ``nn.Conv2d`` ``module`` holding the
+    weight and bias of a ``LinearP`` / ``ConvP`` node (a decoded resume
+    record, or the JAX package's dataclass), on the module's device; a bias
+    of None leaves the copy without one. ``module`` is left as it was."""
+    f = node_fields(node)
+    old = module.weight
+    new = copy.deepcopy(module)
+
+    def param(a):
+        t = torch.from_numpy(np.array(a, dtype=np.float32)).to(old.device)
+        return torch.nn.Parameter(t, requires_grad=old.requires_grad)
+
+    new.weight = param(f["w"])
+    if tuple(new.weight.shape) != tuple(old.shape):
+        raise ValueError(f"weight of shape {tuple(new.weight.shape)} for a "
+                         f"module of shape {tuple(old.shape)}")
+    new.bias = None if f["b"] is None else param(f["b"])
+    return new
 
 
 def _swin_to_tree(model) -> Node:

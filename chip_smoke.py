@@ -83,9 +83,23 @@ Phases, each a hard check (any failure raises and exits non-zero):
      and served as in phase 6 (K1 12 and K4 49 launches a batch asserted;
      each launch's variant printed, the reason for any "fma"); and
      test_tiny calibrated at the same numbers on the card and on the CPU:
-     integer picks exact or adjacent, scales to a stated tolerance.
+     integer picks exact or adjacent, scales to a stated tolerance;
+  9. reconstruction phase: BRECQ (BlockReconstructor.reconstruct) on the
+     warm calibration's deit_small state before the post-GeLU fold, all 14
+     units on the card in exact fp32 with train_act, RECON_ITERS steps on
+     RECON_OPTIM_SIZE images of standard-normal pixels, the kernel launch
+     counts asserted 0 across it; per unit rec first / last, seconds, ms a
+     step and peak device memory, the total, and the shipped 20000-step run
+     extrapolated from the ms a step; every loss finite, the geometric mean
+     of rec last / first below 1, the frozen weights on their grid, every
+     post-softmax AdaLog scale exactly 1; then the fold, the held-out logit
+     MSE to the raw model of the reconstructed and the calibrated state
+     (reported), the state saved, block-checked and served as in phase 6
+     (K1 12 and K4 49 launches a batch, every launch "mma"); and test_tiny
+     reconstructed on the card and on the CPU from one CPU calibration:
+     flipped hard decisions, activation scales and recs to stated bounds.
 The last two lines are a JSON summary of the kernels (launches summed over
-the main paths of phases 6 to 8; times of the fp32 kernel phases; the bound
+the main paths of phases 6 to 9; times of the fp32 kernel phases; the bound
 from those phases' shapes; every entry is the variant its paths launch,
 "mma") and the ok line.
 
@@ -96,11 +110,14 @@ each dtype and setting, 5 batches of 32 after 3 warm-up, wall ms untraced,
 then one torch.profiler trace: device busy ms a batch, idle share of the
 traced span, device time split into K1, K4, cuBLAS/cuDNN GEMM and
 convolution, and the rest (the top kernels of the last two are printed);
-last, one deit_small calibration traced after a cold one: the share of the
+then one deit_small calibration traced after a cold one: the share of the
 span in the scoring GEMMs, in elementwise and reduction kernels (the
-quantize / compare work), in sorts, and idle.
+quantize / compare work), in sorts, and idle; last, a short deit_small
+reconstruction traced after an untraced one: ms a step, device events a
+step, the device's busy share, GEMMs against the rest.
 """
 
+import copy
 import json
 import os
 import statistics
@@ -1106,7 +1123,10 @@ def serve_checked(torch, fq_attn, fq_gemm, device, spec, model, qstate, ckpt,
     state in ``ckpt`` served through load_quantized in every setting and
     dtype, launch counts asserted (every launch a kernel); with
     ``require_mma`` every launch also variant "mma", else the variants are
-    printed with the reason for any "fma". Deletes ``ckpt``. Returns
+    printed with the reason for any "fma". Deletes ``ckpt``; leaves
+    ``model`` as it was (the checks run on copies in each dtype, since a
+    calibrated model shares its modules with the state it came from).
+    Returns
     ({kernel: launches on the main path, attention + GEMM kernels},
     {kernel: largest block-check max|diff|})."""
     name = spec.name
@@ -1116,7 +1136,7 @@ def serve_checked(torch, fq_attn, fq_gemm, device, spec, model, qstate, ckpt,
     x0 = torch.from_numpy(batches[0]).to(device)
     for dt, dtype in (("float32", torch.float32),
                       ("bfloat16", torch.bfloat16)):
-        m = model.to(dtype)
+        m = copy.deepcopy(model).to(dtype)
         res = block_check(torch, fq_attn, fq_gemm, spec, m, qstate,
                           x0.to(dtype), dt, require_mma)
         for k, what in (("K1", f"the q/kT/v of all {n_attn} blocks"),
@@ -1131,8 +1151,9 @@ def serve_checked(torch, fq_attn, fq_gemm, device, spec, model, qstate, ckpt,
             check(k == "K1" or d <= FLIP_MAX,
                   f"{tag} {dt} {k} block check max|diff| {d}")
             worst[k] = max(worst[k], d)
-    reasons = {dt: fma_reasons(torch, fq_attn, fq_gemm, spec, model.to(
-        getattr(torch, dt)), qstate, dt) for dt in ("float32", "bfloat16")}
+    reasons = {dt: fma_reasons(torch, fq_attn, fq_gemm, spec, copy.deepcopy(
+        model).to(getattr(torch, dt)), qstate, dt)
+        for dt in ("float32", "bfloat16")}
     del model, qstate, m
     torch.cuda.empty_cache()
 
@@ -1426,16 +1447,18 @@ def compare_qstates(torch, got, want):
 
 def calibrate_on(torch, spec, model, images, device):
     """One calibration through QuantCalibrator at w4a4_config on
-    ``device``: (model, qstate, calibrator, wall seconds, synchronized)."""
+    ``device``: (model, qstate, calibrator, wall seconds, synchronized,
+    (model, qstate) before the post-GeLU fold, as a reconstruction starts
+    from them)."""
     from adalog_tpu_torch.calib.calibrator import QuantCalibrator
 
     t0 = time.perf_counter()
     calib = QuantCalibrator(spec, model, w4a4_config(), device=device)
-    calib.calibrate([images])
+    unfolded = calib.calibrate([images])
     params, qstate = calib.finish_calibration()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    return params, qstate, calib, time.perf_counter() - t0
+    return params, qstate, calib, time.perf_counter() - t0, unfolded
 
 
 def check_calibrated(torch, fq_gemm, calib, qstate):
@@ -1467,7 +1490,9 @@ def calibration_phase(torch, fq_attn, fq_gemm, device, ckpt_dir):
     save it, serve it through load_quantized (serve_checked: block checks,
     launches asserted, variants printed); then calibrate CHECK_MODEL on the
     card and on the CPU and compare the two states. Returns serve_checked's
-    pair."""
+    pair and the warm run's start of a reconstruction: dict(spec, model
+    (the raw model), params and qstate before the post-GeLU fold, calib
+    (the warm calibrator), held_out images, mse_calibrated)."""
     from collections import Counter
 
     from adalog_tpu_torch.models.load import load_state_dict
@@ -1487,8 +1512,8 @@ def calibration_phase(torch, fq_attn, fq_gemm, device, ckpt_dir):
     runs = []
     for run in ("cold", "warm"):
         torch.cuda.reset_peak_memory_stats(device)
-        params, qstate, calib, wall = calibrate_on(torch, spec, model, images,
-                                                   device)
+        params, qstate, calib, wall, unfolded = calibrate_on(
+            torch, spec, model, images, device)
         peak = torch.cuda.max_memory_allocated(device)
         runs.append(dict(wall_s=wall, peak_bytes=peak, seconds=calib.seconds))
         print(f"calibration {CALIB_MODEL} W4A4 ({run}): wall {wall:.2f} s "
@@ -1527,20 +1552,23 @@ def calibration_phase(torch, fq_attn, fq_gemm, device, ckpt_dir):
     ckpt = os.path.join(ckpt_dir, f"{CALIB_MODEL}_calibrated_w4a4.ckpt")
     save_checkpoint(ckpt, params, qstate, {
         "model": CALIB_MODEL, "state": "FPCS calibration, random weights"})
-    del model, smoke, first
+    start = dict(spec=spec, model=model, params=unfolded[0],
+                 qstate=unfolded[1], calib=calib, held_out=held_out,
+                 mse_calibrated=mse_cal)
+    del smoke, first, unfolded
     torch.cuda.empty_cache()
     served = serve_checked(torch, fq_attn, fq_gemm, device, spec, params,
                            qstate, ckpt, batches,
                            tag=f"{CALIB_MODEL} calibrated", require_mma=False)
-    del params, qstate, calib
+    del params, qstate
     torch.cuda.empty_cache()
 
     spec_t = model_spec(CHECK_MODEL)
     _, tiny = build_model(CHECK_MODEL, seed=SEED)
     imgs = calibration_images(spec_t.cfg, CALIB_SIZE, SEED + 13)
-    _, q_gpu, _, t_gpu = calibrate_on(torch, spec_t, tiny, imgs, device)
-    _, q_cpu, _, t_cpu = calibrate_on(torch, spec_t, tiny, imgs,
-                                      torch.device("cpu"))
+    _, q_gpu, _, t_gpu, _ = calibrate_on(torch, spec_t, tiny, imgs, device)
+    _, q_cpu, _, t_cpu, _ = calibrate_on(torch, spec_t, tiny, imgs,
+                                         torch.device("cpu"))
     n = compare_qstates(torch, q_gpu, q_cpu)
     print(f"calibration {CHECK_MODEL} card vs CPU (card {t_gpu:.2f} s, CPU "
           f"{t_cpu:.2f} s): {n['picks']} integer picks, {n['adjacent']} "
@@ -1552,6 +1580,252 @@ def calibration_phase(torch, fq_attn, fq_gemm, device, ckpt_dir):
           f"card vs CPU: {n['adjacent']} adjacent picks")
     check(n["moved"] <= MOVED_SHARE * n["scales"],
           f"card vs CPU: {n['moved']} scales past tolerance")
+    return served, start
+
+
+# Reconstruction phase: BRECQ on the calibration phase's warm deit_small
+# state, every unit at full depth and width, exact fp32, train_act, with
+# RECON_ITERS steps (the shipped 20000 extrapolated from the measured ms a
+# step) on RECON_OPTIM_SIZE images of standard-normal pixels
+RECON_ITERS, RECON_OPTIM_SIZE = 200, 256
+SHIPPED_ITERS, SHIPPED_OPTIM_SIZE = 20000, 1024
+# card vs CPU on CHECK_MODEL from one CPU calibration, RECON_CHECK_ITERS
+# steps on RECON_CHECK_N images (fewer than a batch, so every step sees the
+# whole set on both devices): hard decisions flipped in at most
+# RECON_FLIP_SHARE of the weights; activation scales within
+# RECON_SCALE_SHARE of the most RECON_CHECK_ITERS Adam steps can move them
+# (about A_LR each); recs within RECON_REC_RTOL, the head's KL (a
+# difference of two sums of about log(classes) each) within RECON_KL_ATOL
+RECON_CHECK_ITERS, RECON_CHECK_N = 20, 8
+RECON_FLIP_SHARE = 1e-3
+RECON_SCALE_SHARE = 0.1
+RECON_REC_RTOL = 1e-3
+RECON_KL_ATOL = 1e-5
+
+
+def recon_config(**kw):
+    return w4a4_config(optim_batch_size=BATCH, train_act=True, **kw)
+
+
+def frozen_off_grid(torch, model, qstate, layout):
+    """Sites whose weight / scale lies more than 1e-3 from an integer: a
+    frozen AdaRound weight must lie on its quantizer's grid."""
+    from adalog_tpu_torch.calib.layout import tree_get
+    from adalog_tpu_torch.recon.brecq import _viewed_weight
+
+    bad = []
+    for name, site in qstate.items():
+        if getattr(site, "wq", None) is None:
+            continue
+        w = _viewed_weight(tree_get(model, layout[name].param_path), site)
+        ratio = (w / site.wq.scale).double()
+        if (ratio - ratio.round()).abs().max().item() > 1e-3:
+            bad.append(name)
+    return bad
+
+
+def probability_scales(qstate):
+    """{site: A scale} of every post-softmax AdaLog quantizer."""
+    return {name: site.Aq.scale for name, site in qstate.items()
+            if getattr(site, "Aq", None) is not None
+            and site.Aq.kind == "adalog" and not site.Aq.shifted}
+
+
+def reconstruct_on(torch, spec, params, model, qstate, layout, batches,
+                   device, iters):
+    """BlockReconstructor.reconstruct at recon_config on ``device``:
+    (model, qstate, reconstructor, wall seconds, synchronized)."""
+    from adalog_tpu_torch.recon.brecq import BlockReconstructor
+
+    t0 = time.perf_counter()
+    cfg = recon_config(recon_iters=iters,
+                       optim_size=sum(len(b) for b in batches))
+    recon = BlockReconstructor(spec, params, model, qstate, layout, cfg,
+                               device=device)
+    p, q = recon.reconstruct(batches, quant_act=True)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return p, q, recon, time.perf_counter() - t0
+
+
+def compare_recons(torch, got, want, layout):
+    """One reconstruction (model, qstate, reconstructor) against another:
+    (hard decisions flipped, weights, worst activation-scale gap over
+    RECON_CHECK_ITERS * A_LR, worst rec gap relative, but the head's, worst
+    head KL gap)."""
+    from adalog_tpu_torch.calib.layout import tree_get
+    from adalog_tpu_torch.recon.brecq import A_LR, _viewed_weight
+
+    (pg, qg, rg), (pc, qc, rc) = got, want
+    flips = total = 0
+    move = 0.0
+    for name, site in qc.items():
+        for k in ("aq", "Aq", "Bq"):
+            b = getattr(site, k, None)
+            if b is not None:
+                a = getattr(qg[name], k).scale.cpu()
+                move = max(move, (a - b.scale).abs().max().item()
+                           / (RECON_CHECK_ITERS * A_LR))
+        if getattr(site, "wq", None) is None:
+            continue
+        wc = _viewed_weight(tree_get(pc, layout[name].param_path), site)
+        wg = _viewed_weight(tree_get(pg, layout[name].param_path), site)
+        d = (wg.cpu() - wc).abs() > 1e-3 * site.wq.scale
+        flips += int(d.sum())
+        total += d.numel()
+    rec_rel = kl = 0.0
+    for name, st in rc.unit_stats.items():
+        sg = rg.unit_stats[name]
+        for k in ("rec_first", "rec_last"):
+            if name == "head":
+                kl = max(kl, abs(sg[k] - st[k]))
+            else:
+                rec_rel = max(rec_rel, abs(sg[k] - st[k]) / abs(st[k]))
+    return flips, total, move, rec_rel, kl
+
+
+def reconstruction_phase(torch, fq_attn, fq_gemm, device, ckpt_dir, start):
+    """Reconstruct every unit of the calibration phase's warm deit_small
+    state on the card through BlockReconstructor.reconstruct, the kernel
+    launch counts set to 0 before and asserted 0 after (training launches
+    no kernel); print per unit rec first / last, seconds, ms a step and
+    peak device memory, the total, and the shipped run extrapolated; check
+    the losses finite, the geometric mean of rec last / first below 1, the
+    frozen weights on their grid and every post-softmax AdaLog scale
+    exactly 1; fold the post-GeLU shift (finish_calibration), print the
+    held-out logit MSE to the raw model of the reconstructed and of the
+    calibrated state, save, load and serve (serve_checked: K1 12 and K4 49
+    launches a batch, every launch "mma"); then reconstruct CHECK_MODEL on
+    the card and on the CPU and compare. Returns serve_checked's pair."""
+    from adalog_tpu_torch.calib.calibrator import QuantCalibrator
+    from adalog_tpu_torch.calib.layout import quant_layout
+    from adalog_tpu_torch.models.zoo import (
+        build_model, model_forward_fn, model_spec,
+    )
+    from adalog_tpu_torch.recon.blocks import block_units
+    from adalog_tpu_torch.utils.checkpoint import save_checkpoint
+
+    spec, calib = start["spec"], start["calib"]
+    cfg = spec.cfg
+    line = card_line()
+    images = calibration_images(cfg, RECON_OPTIM_SIZE, SEED + 21)
+    batches = [images[i:i + BATCH] for i in range(0, RECON_OPTIM_SIZE, BATCH)]
+    print(f"reconstruction {CALIB_MODEL} W4A4: recon_iters={RECON_ITERS}, "
+          f"optim_size={RECON_OPTIM_SIZE}, optim_batch_size={BATCH}, "
+          f"train_act=True, exact fp32, from the warm calibration's state "
+          f"before the post-GeLU fold; {line}")
+    zero_launches(fq_attn, fq_gemm)
+    t0 = time.perf_counter()
+    params, qstate, recon, wall = reconstruct_on(
+        torch, spec, start["params"], start["model"], start["qstate"],
+        calib.layout, batches, device, RECON_ITERS)
+    got = read_launches(fq_attn, fq_gemm)
+    print(f"reconstruction {CALIB_MODEL}: kernel launches during training "
+          f"{got} (want every one 0)")
+    check(not any(got.values()), f"kernels launched in training: {got}")
+
+    stats = recon.unit_stats
+    units = [u.name for u in block_units(spec)]
+    check(set(stats) == set(units),
+          f"reconstructed units {sorted(stats)} != {units}")
+    ratios, step_ms = [], {}
+    for name in units:
+        st = stats[name]
+        step_ms[name] = 1e3 * st["seconds"] / st["iters"]
+        print(f"reconstruction unit {name}: rec {st['rec_first']:.6e} -> "
+              f"{st['rec_last']:.6e}, {st['seconds']:.2f} s, "
+              f"{step_ms[name]:.3f} ms a step, peak device memory "
+              f"{st['peak_bytes'] / 2**30:.2f} GiB")
+        check(np.isfinite(st["rec_first"]) and np.isfinite(st["rec_last"]),
+              f"{name}: loss not finite")
+        ratios.append(st["rec_last"] / st["rec_first"])
+    gmean = float(np.exp(np.mean(np.log(ratios))))
+    # the reconstructor resets the device's peak counter before each unit;
+    # the first unit trained (blocks.0) holds every unit's I/O, more than
+    # the capture before it
+    peak_all = max(stats[n]["peak_bytes"] for n in units)
+    trained_s = sum(stats[n]["seconds"] for n in units)
+    shipped_s = SHIPPED_ITERS * sum(step_ms.values()) / 1e3 + (
+        wall - trained_s) * SHIPPED_OPTIM_SIZE / RECON_OPTIM_SIZE
+    print(f"reconstruction {CALIB_MODEL}: {len(units)} units in {wall:.2f} s "
+          f"wall ({trained_s:.2f} s training, {wall - trained_s:.2f} s "
+          f"capture, copies and freezing); peak device memory "
+          f"{peak_all / 2**30:.2f} GiB (the largest unit's); geometric mean of rec last / first "
+          f"{gmean:.4f} (must be below 1); {line}")
+    print(f"reconstruction {CALIB_MODEL}: the shipped run ({SHIPPED_ITERS} "
+          f"steps a unit, optim_size {SHIPPED_OPTIM_SIZE}) extrapolated from "
+          f"the measured ms a step, the rest scaled by the images: "
+          f"{shipped_s:.0f} s ({shipped_s / 60:.1f} min), not measured")
+    check(gmean < 1.0, f"geometric mean of rec last / first {gmean}")
+    bad = frozen_off_grid(torch, params, qstate, calib.layout)
+    check(not bad, f"frozen weights off their grid at {bad}")
+    probs = probability_scales(qstate)
+    check(probs and all(bool((s == 1.0).all()) for s in probs.values()),
+          "a post-softmax AdaLog scale moved from 1.0")
+    print(f"reconstruction {CALIB_MODEL}: frozen weights on their grid at "
+          f"every weight site; {len(probs)} post-softmax AdaLog scales, "
+          "every one exactly 1.0")
+
+    calib.params, calib.qstate = params, dict(qstate)
+    params, qstate = calib.finish_calibration()
+    fwd = model_forward_fn(spec)
+    x = torch.from_numpy(start["held_out"]).to(device)
+    with torch.no_grad():
+        y_raw = fwd(cfg, start["model"], x)
+        mse_rec = torch.mean((fwd(cfg, params, x, qstate, {"*": "quant"})
+                              - y_raw) ** 2).item()
+    print(f"reconstruction {CALIB_MODEL} quality on {CALIB_SIZE} held-out "
+          f"images: logit MSE to the raw model {mse_rec:.6e} reconstructed, "
+          f"{start['mse_calibrated']:.6e} calibrated (reported, no gate)")
+    check(np.isfinite(mse_rec), f"reconstructed logit MSE {mse_rec}")
+    print(json.dumps({"reconstruction": {
+        "model": CALIB_MODEL, "card": line, "recon_iters": RECON_ITERS,
+        "optim_size": RECON_OPTIM_SIZE, "wall_s": wall,
+        "peak_bytes": peak_all,
+        "units": {n: dict(stats[n], ms_per_step=step_ms[n]) for n in units},
+        "gmean_rec_ratio": gmean, "shipped_extrapolated_s": shipped_s,
+        "mse_reconstructed": mse_rec,
+        "mse_calibrated": start["mse_calibrated"],
+        "phase_s": time.perf_counter() - t0}}))
+
+    os.makedirs(ckpt_dir, exist_ok=True)
+    ckpt = os.path.join(ckpt_dir, f"{CALIB_MODEL}_reconstructed_w4a4.ckpt")
+    save_checkpoint(ckpt, params, qstate, {
+        "model": CALIB_MODEL,
+        "state": "FPCS calibration + BRECQ, random weights"})
+    serve_batches = [calibration_images(cfg, BATCH, SEED + 9 + i)
+                     for i in range(N_BATCHES)]
+    del recon, calib, start, y_raw, x
+    torch.cuda.empty_cache()
+    served = serve_checked(torch, fq_attn, fq_gemm, device, spec, params,
+                           qstate, ckpt, serve_batches,
+                           tag=f"{CALIB_MODEL} reconstructed")
+    del params, qstate
+    torch.cuda.empty_cache()
+
+    spec_t = model_spec(CHECK_MODEL)
+    _, tiny = build_model(CHECK_MODEL, seed=SEED)
+    imgs = calibration_images(spec_t.cfg, RECON_CHECK_N, SEED + 23)
+    cpu = torch.device("cpu")
+    p0, q0 = QuantCalibrator(spec_t, tiny, w4a4_config(),
+                             device=cpu).calibrate([imgs])
+    layout = quant_layout(spec_t, w4a4_config())
+    runs = [reconstruct_on(torch, spec_t, p0, tiny, q0, layout, [imgs], dev,
+                           RECON_CHECK_ITERS) for dev in (device, cpu)]
+    flips, total, move, rec_rel, kl = compare_recons(
+        torch, runs[0][:3], runs[1][:3], layout)
+    print(f"reconstruction {CHECK_MODEL} card vs CPU ({RECON_CHECK_ITERS} "
+          f"steps on {RECON_CHECK_N} images, every step the whole set; card "
+          f"{runs[0][3]:.2f} s, CPU {runs[1][3]:.2f} s): {flips} of {total} "
+          f"hard decisions flipped (allowed share {RECON_FLIP_SHARE}); "
+          f"activation scales apart by {move:.3e} of {RECON_CHECK_ITERS} * "
+          f"A_LR (allowed {RECON_SCALE_SHARE}); recs worst rel "
+          f"{rec_rel:.3e} (allowed {RECON_REC_RTOL}), head KL worst abs "
+          f"{kl:.3e} (allowed {RECON_KL_ATOL})")
+    check(flips <= RECON_FLIP_SHARE * total, f"card vs CPU: {flips} flips")
+    check(move <= RECON_SCALE_SHARE, f"card vs CPU: scales apart {move}")
+    check(rec_rel <= RECON_REC_RTOL and kl <= RECON_KL_ATOL,
+          f"card vs CPU: recs apart {rec_rel}, {kl}")
     return served
 
 
@@ -1572,7 +1846,8 @@ def calibration_profile(torch, device):
     model = load_state_dict(spec, timm_weights(spec.cfg, SEED)).to(device)
     calibrate_on(torch, spec, model, images, device)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _, _, calib, wall = calibrate_on(torch, spec, model, images, device)
+        _, _, calib, wall, _ = calibrate_on(torch, spec, model, images,
+                                            device)
     evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     check(evs, "the profiler saw no device event in the calibration")
     spans = [(e.time_range.start, e.time_range.end) for e in evs]
@@ -1604,6 +1879,60 @@ def calibration_profile(torch, device):
               f"{k} {v:.2f} s" for k, v in calib.seconds.items()))
     for (k, name), t in sorted(top.items(), key=lambda kv: -kv[1])[:12]:
         print(f"    top {k}: {t / 1e6:.3f} s  {name[:110]}")
+
+
+RECON_PROFILE_ITERS = 10
+
+
+def reconstruction_profile(torch, device, ckpt_dir):
+    """Where the time of a reconstruction step goes: deit_small with its
+    smoke state (a step's work does not depend on the state's values), all
+    units at RECON_PROFILE_ITERS steps on two batches, once untraced (ms a
+    step), then traced by torch.profiler: device busy share of the traced
+    span, device time in GEMMs (cuBLAS / cuDNN) and in the rest, device
+    events a step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from adalog_tpu_torch.calib.layout import quant_layout
+
+    spec, model, qstate, ckpt, batches = smoke_model(torch, device, ckpt_dir)
+    os.remove(ckpt)
+    layout = quant_layout(spec, w4a4_config())
+
+    def run():
+        return reconstruct_on(torch, spec, model, model, qstate, layout,
+                              batches[:2], device, RECON_PROFILE_ITERS)
+
+    *_, recon, wall = run()
+    stats = recon.unit_stats
+    steps = sum(st["iters"] for st in stats.values())
+    step_ms = {n: 1e3 * st["seconds"] / st["iters"] for n, st in stats.items()}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        *_, wall_traced = run()
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    check(evs, "the profiler saw no device event in the reconstruction")
+    spans = [(e.time_range.start, e.time_range.end) for e in evs]
+    busy = busy_us(spans)
+    span = max(b for _, b in spans) - min(a for a, _ in spans)
+    us, top = {}, {}
+    for e in evs:
+        t = e.time_range.end - e.time_range.start
+        k = "GEMM" if kernel_class(e.name) == "GEMM" else "other"
+        us[k] = us.get(k, 0.0) + t
+        top[k, e.name] = top.get((k, e.name), 0.0) + t
+    print(f"profile reconstruction {CALIB_MODEL} ({RECON_PROFILE_ITERS} "
+          f"steps a unit, smoke state): untraced {wall:.2f} s, ms a step "
+          f"blocks.0 {step_ms['blocks.0']:.2f}, patch_embed "
+          f"{step_ms['patch_embed']:.2f}, head {step_ms['head']:.2f}; traced "
+          f"{wall_traced:.2f} s, {len(evs) / steps:.0f} device events a step, "
+          f"device busy {busy / 1e6:.3f} s of a {span / 1e6:.3f} s span "
+          f"(idle {100 * (1 - busy / span):.1f}%); "
+          + ", ".join(f"{k} {100 * v / span:.1f}%" for k, v in
+                      sorted(us.items(), key=lambda kv: -kv[1]))
+          + " of the span")
+    for (k, name), t in sorted(top.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"    top {k}: {t / 1e3 / steps:.3f} ms a step  {name[:110]}")
 
 
 def flash_phase_profile(torch, fq_attn, device):
@@ -1805,6 +2134,7 @@ def main(argv):
         for name in MODELS:
             profile_phase(torch, device, ckpt_dir, name)
         calibration_profile(torch, device)
+        reconstruction_profile(torch, device, ckpt_dir)
         return
 
     (k_ms, kq_ms, kg_ms, p_ms), worst = kernel_phase(torch, fq_attn, device)
@@ -1827,8 +2157,13 @@ def main(argv):
     for name in MODELS:
         add(*serving_phase(torch, fq_attn, fq_gemm, device, ckpt_dir, name))
         add(*fallback_phase(torch, fq_attn, fq_gemm, device, ckpt_dir, name))
-    # the calibration half of the main path, then its model served
-    add(*calibration_phase(torch, fq_attn, fq_gemm, device, ckpt_dir))
+    # the calibration half of the main path, then its model served; then
+    # the calibrated state reconstructed, folded and served
+    served, start = calibration_phase(torch, fq_attn, fq_gemm, device,
+                                      ckpt_dir)
+    add(*served)
+    add(*reconstruction_phase(torch, fq_attn, fq_gemm, device, ckpt_dir,
+                              start))
     for k, n in launches.items():
         check(n > 0, f"{k} was launched no time on the main paths")
 

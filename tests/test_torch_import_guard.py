@@ -32,7 +32,8 @@ print("imported", sys.argv[1])
     "adalog_tpu_torch.calib.candidates", "adalog_tpu_torch.ops.scoring",
     "adalog_tpu_torch.utils.resume", "adalog_tpu_torch.serve",
     "adalog_tpu_torch.models.swin", "adalog_tpu_torch.ops.fq_gemm",
-    "adalog_tpu_torch.calib.reparam", "chip_smoke"])
+    "adalog_tpu_torch.calib.reparam", "adalog_tpu_torch.recon.blocks",
+    "adalog_tpu_torch.recon.brecq", "chip_smoke"])
 def test_module_imports_no_jax(module):
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", GUARD, module], cwd=ROOT,
