@@ -22,11 +22,39 @@ version for CPU tensors and the kernel for CUDA tensors.
   ops/         fused fake-quant attention (K1) and its fall-backs (K2, K3),
                fused activation-quant GEMM (K4), the kernels' build, weight
                prep, kernel defaults, calibration's candidate scoring
-  utils/       Config, v2 checkpoints, the calibration and reconstruction
-               resume log, weight carrying from the JAX package
+  data/        ImageFolder scanning, the timm eval and train transforms,
+               the threaded loader and its native C++ decoder, synthetic data
+  utils/       Config, checkpoints (v2, the JAX package's round-1 pickles,
+               the reference's state dicts), the calibration and
+               reconstruction resume log, metrics, profiling, weight
+               carrying from the JAX package
   serve.py     load_quantized / make_predictor on one device
+  cli.py       the reference-compatible CLI (python -m adalog_tpu_torch.cli)
 """
 
 __version__ = "0.1.0"
 
 from adalog_tpu_torch.utils.config import Config, load_config  # noqa: F401
+
+
+def __getattr__(name):
+    # lazy convenience API (keeps `import adalog_tpu_torch` light)
+    if name == "QuantCalibrator":
+        from adalog_tpu_torch.calib.calibrator import QuantCalibrator
+        return QuantCalibrator
+    if name == "BlockReconstructor":
+        from adalog_tpu_torch.recon.brecq import BlockReconstructor
+        return BlockReconstructor
+    if name == "build_model":
+        from adalog_tpu_torch.models.zoo import build_model
+        return build_model
+    if name == "model_forward_fn":
+        from adalog_tpu_torch.models.zoo import model_forward_fn
+        return model_forward_fn
+    if name == "load_quantized":
+        from adalog_tpu_torch.serve import load_quantized
+        return load_quantized
+    if name == "make_predictor":
+        from adalog_tpu_torch.serve import make_predictor
+        return make_predictor
+    raise AttributeError(name)

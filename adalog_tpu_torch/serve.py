@@ -1,7 +1,8 @@
 """Serving API: a quantized model as one batch predictor on one device.
 
 ``load_quantized`` reads a v2 .ckpt (written by this package or by
-``adalog_tpu``) and returns ``predict(images) -> logits``: NHWC float32
+``adalog_tpu``), a round-1 pickle of ``adalog_tpu``, or a reference-format
+state dict (.pth/.pt/.bin, utils/ref_checkpoint.py) and returns ``predict(images) -> logits``: NHWC float32
 images in, float32 logits out. Fake-quantized Linear weights are prepared
 once at load time (ops/weight_prep.py); on a CUDA device the attention of
 every block (ViT/DeiT) or window (Swin) runs in the hand-written fused
@@ -43,7 +44,8 @@ def make_predictor(spec, params, qstate, *, eval_dtype: str = "float32",
                    use_gemm_kernels: bool = False, device=None):
     """Build ``predict(images) -> logits`` for a (model, qstate) pair.
 
-    The model is copied to ``device`` (default: the model's) in
+    The model is copied to ``device`` (default: the first CUDA device,
+    which raises where torch finds none; the tests pass 'cpu') in
     ``eval_dtype`` ('float32' or 'bfloat16'; quantizer math stays fp32);
     the caller's module is left as it was. ``use_kernels`` routes the
     attention through the fused kernels (the whole attention in one where
@@ -53,6 +55,7 @@ def make_predictor(spec, params, qstate, *, eval_dtype: str = "float32",
     activation-quant GEMM, and the attention through its kernels too; which
     sites take it is decided here, once.
     """
+    from adalog_tpu_torch.calib.calibrator import _resolve_device
     from adalog_tpu_torch.models.zoo import model_forward_fn
     from adalog_tpu_torch.ops import fq_attn, fq_gemm, weight_prep
     from adalog_tpu_torch.quantizers.state import map_tensors
@@ -62,8 +65,7 @@ def make_predictor(spec, params, qstate, *, eval_dtype: str = "float32",
         raise ValueError(f"eval_dtype {eval_dtype!r}: want float32 or bfloat16")
     dtype = _DTYPES[eval_dtype]
     fwd = model_forward_fn(spec)
-    device = torch.device(device) if device is not None \
-        else next(params.parameters()).device
+    device = _resolve_device(device, "make_predictor", "serve")
     if device.type == "cuda" and dtype == torch.float32:
         pin_fp32_matmul()
 
@@ -100,7 +102,9 @@ def load_quantized(model: str, checkpoint: str, *, config=None,
                    eval_dtype: Optional[str] = None, device="cuda",
                    mesh_devices: int = 0, mesh_tp: int = 1,
                    use_pallas: Optional[bool] = None):
-    """One-call deployment: model name + v2 .ckpt -> predictor on ``device``.
+    """One-call deployment: model name + checkpoint -> predictor on
+    ``device``. The checkpoint is a v2 .ckpt, a round-1 pickle, or a
+    reference-format state dict (.pth/.pt/.bin).
 
     ``config``: a Config, a path to a config .py, or None for the shipped
     4-bit values. ``use_pallas`` (the config field's name) turns the fused
@@ -129,11 +133,6 @@ def load_quantized(model: str, checkpoint: str, *, config=None,
     if mesh_devices not in (0, 1) or mesh_tp != 1:
         raise NotImplementedError(
             "multi-device serving is not ported to PyTorch yet")
-    if checkpoint.endswith((".pth", ".pt", ".bin")):
-        raise NotImplementedError(
-            "reference-format (.pth) checkpoints are not ported to PyTorch "
-            "yet; load a v2 .ckpt")
-
     spec = model_spec(model)
     resolve_kernel_config(cfg, spec)
     if cfg.eval_int8:
@@ -142,7 +141,12 @@ def load_quantized(model: str, checkpoint: str, *, config=None,
     enable = cfg.use_pallas if use_pallas is None else use_pallas
     gemm = bool(cfg.use_pallas_gemm)
 
-    params, qstate, _ = load_checkpoint(checkpoint, spec.cfg)
+    if checkpoint.endswith((".pth", ".pt", ".bin")):
+        from adalog_tpu_torch.utils.ref_checkpoint import \
+            load_reference_checkpoint
+        params, qstate = load_reference_checkpoint(spec, cfg, checkpoint)
+    else:
+        params, qstate, _ = load_checkpoint(checkpoint, spec.cfg)
     log.info("loaded %s (%s) on %s, fused attention kernel %s, fused GEMM "
              "kernel %s", spec.name, eval_dtype, device,
              "on" if enable or gemm else "off", "on" if gemm else "off")

@@ -5,7 +5,14 @@ describes the params and qstate trees. Dataclass nodes are encoded by class
 NAME against a whitelist, so loading runs no pickled code. The port writes
 its ``VisionTransformer`` or ``SwinTransformer`` as the JAX package's
 ``ViTParams`` or ``SwinParams`` tree and its qstate dataclasses under their shared names, so a file written by either
-package loads in the other. The round-1 pickle format is not read here.
+package loads in the other. File naming mirrors the reference:
+  {model}_w{w}_a{a}_s{s}_{calibsize|optimsize}_{n}.ckpt  (test_quant.py:97-102)
+
+Round-1 checkpoints of the JAX package were raw pickles of its pytrees;
+``load_checkpoint`` reads them through a restricted unpickler that resolves
+only numpy's array reconstruction, the ``builtins`` containers and the JAX
+package's dataclass names, each mapped BY STRING onto the port's classes, so
+loading one imports nothing of ``adalog_tpu``; any other global raises.
 """
 
 from __future__ import annotations
@@ -14,6 +21,7 @@ import dataclasses
 import io
 import json
 import os
+import pickle
 import zipfile
 
 import numpy as np
@@ -33,6 +41,13 @@ PARAM_CLASSES = frozenset({
     "WindowAttentionP",
 })
 REGISTRY = PARAM_CLASSES | frozenset(QSTATE_CLASSES)
+
+
+def checkpoint_name(model: str, cfg, mode: str) -> str:
+    assert mode in ("calibrate", "optimize")
+    size = cfg.calib_size if mode == "calibrate" else cfg.optim_size
+    tag = "calibsize" if mode == "calibrate" else "optimsize"
+    return f"{model}_w{cfg.w_bit}_a{cfg.a_bit}_s{cfg.s_bit}_{tag}_{size}.ckpt"
 
 
 def _encode(obj, arrays: list):
@@ -134,12 +149,87 @@ def decode_bytes(data: bytes):
     return _decode(schema["obj"], arrays)
 
 
+# ---------------------------------------------------------------------------
+# round-1 pickle reader, restricted
+# ---------------------------------------------------------------------------
+
+# (module, name) of each dataclass the JAX package's round-1 pickles name
+_JAX_CLASSES = {
+    "adalog_tpu.models.layers": ("LinearP", "ConvP", "LayerNormP",
+                                 "LinearSite", "ConvSite", "MatMulSite"),
+    "adalog_tpu.quantizers.state": ("QuantizerState", "WeightQuantizerState"),
+    "adalog_tpu.models.vit": ("ViTParams", "BlockP", "AttentionP", "MlpP"),
+    "adalog_tpu.models.swin": ("SwinParams", "SwinStageP", "SwinBlockP",
+                               "PatchMergingP", "WindowAttentionP"),
+}
+
+
+def _pickled_node(dc: str):
+    """A ``Node`` class for the parameter dataclass ``dc``: pickle's NEWOBJ
+    creates it empty and BUILD hands it the dataclass's field dict."""
+
+    class PickledNode(Node):
+        def __new__(cls, *args, **kwargs):
+            obj = object.__new__(cls)
+            obj.dc, obj.fields = dc, {}
+            return obj
+
+        def __init__(self, *args, **kwargs):
+            pass
+
+        def __setstate__(self, state):
+            self.fields = dict(state)
+
+    PickledNode.__name__ = PickledNode.__qualname__ = dc
+    return PickledNode
+
+
+class _RestrictedUnpickler(pickle.Unpickler):
+    """Resolves only numpy reconstruction helpers, the builtins containers
+    and the JAX package's whitelisted dataclasses, by exact (module, name)
+    pair and without importing that package: a parameter class becomes a
+    ``Node``, a qstate class the port's dataclass of the same name. Any
+    other global (the arbitrary-code-execution vector in stock pickle,
+    including the JAX package's own callables) raises."""
+
+    _NUMPY_OK = {
+        ("numpy.core.multiarray", "_reconstruct"),
+        ("numpy.core.multiarray", "scalar"),
+        ("numpy._core.multiarray", "_reconstruct"),
+        ("numpy._core.multiarray", "scalar"),
+        ("numpy", "ndarray"),
+        ("numpy", "dtype"),
+        ("numpy.core.numeric", "_frombuffer"),
+        ("numpy._core.numeric", "_frombuffer"),
+    }
+    _BUILTINS_OK = ("dict", "list", "tuple", "set", "frozenset")
+
+    def find_class(self, module, name):
+        if (module, name) in self._NUMPY_OK or \
+                module.startswith("numpy.dtypes"):
+            return super().find_class(module, name)
+        if name in _JAX_CLASSES.get(module, ()):
+            if name in QSTATE_CLASSES:
+                return QSTATE_CLASSES[name]
+            return _pickled_node(name)
+        if module == "builtins" and name in self._BUILTINS_OK:
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(
+            f"checkpoint pickle references forbidden global "
+            f"{module}.{name}; refusing to load")
+
+
 def load_checkpoint(path: str, cfg):
     """Returns (model, qstate, meta) on the CPU; ``cfg`` is the model's
-    ViTConfig or SwinConfig."""
+    ViTConfig or SwinConfig.
+
+    Dispatches on content: a v2 .npz (zip magic) or a round-1 pickle of the
+    JAX package (read through the restricted unpickler)."""
     if not zipfile.is_zipfile(path):
-        raise ValueError(f"{path}: not a v2 (npz) checkpoint; round-1 pickle "
-                         f"checkpoints are read only by adalog_tpu")
+        with open(path, "rb") as f:
+            payload = _RestrictedUnpickler(f).load()
+        return (model_from_tree(cfg, payload["params"]),
+                qstate_from_tree(payload["qstate"]), payload.get("meta", {}))
     with np.load(path, allow_pickle=False) as z:
         schema = json.loads(bytes(z["__schema__"]).decode())
         n = sum(1 for k in z.files if k.startswith("a"))

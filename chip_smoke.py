@@ -97,9 +97,26 @@ Phases, each a hard check (any failure raises and exits non-zero):
      (reported), the state saved, block-checked and served as in phase 6
      (K1 12 and K4 49 launches a batch, every launch "mma"); and test_tiny
      reconstructed on the card and on the CPU from one CPU calibration:
-     flipped hard decisions, activation scales and recs to stated bounds.
+     flipped hard decisions, activation scales and recs to stated bounds;
+ 10. CLI phase: the reference-compatible CLI (adalog_tpu_torch.cli.main,
+     what `python -m adalog_tpu_torch.cli` runs) on deit_small at full
+     depth and width with its own random weights from a seed, on a train/
+     and val/ ImageFolder of 4 classes x 16 JPEGs each at odd sizes written
+     from seeded noise (the decoder used, native or PIL, printed):
+     --calibrate at configs/4bit.py, its checkpoint held to a direct
+     QuantCalibrator run on the same calib_batches (every integer pick
+     equal, scales within the calibration phase's tolerance) and its logged
+     Prec@1 / Prec@5 to make_predictor's own on the same val batches
+     (hits equal); the checkpoint loaded with use_pallas_gemm on and
+     validated, then exported to a reference .pth and loaded the same way
+     (hits equal, logits within CLI_PTH_ATOL); --load-calibrate-checkpoint
+     --optimize at CLI_RECON_ITERS steps on CLI_OPTIM_SIZE images (an
+     optimize checkpoint saved, the calibration set and val validated).
+     Launches per validation batch asserted: K1 12 every run, K4 49 with
+     the GEMM switch, else 0. Each run's seconds and each validation's
+     img/s and the loader's share of its wall time are printed.
 The last two lines are a JSON summary of the kernels (launches summed over
-the main paths of phases 6 to 9; times of the fp32 kernel phases; the bound
+the main paths of phases 6 to 10; times of the fp32 kernel phases; the bound
 from those phases' shapes; every entry is the variant its paths launch,
 "mma") and the ok line.
 
@@ -1829,6 +1846,294 @@ def reconstruction_phase(torch, fq_attn, fq_gemm, device, ckpt_dir, start):
     return served
 
 
+# CLI phase: the reference-compatible CLI (adalog_tpu_torch/cli.py, what
+# `python -m adalog_tpu_torch.cli` runs) driven on an on-disk ImageFolder of
+# CLI_CLASSES classes x CLI_PER_CLASS JPEGs a split, at odd sizes, written
+# from seeded numpy noise; CLI_MODEL at full depth and width with the CLI's
+# own random weights from CLI_SEED; validation batches of BATCH images
+CLI_MODEL, CLI_SEED = "deit_small", 5
+CLI_CLASSES, CLI_PER_CLASS = 4, 16
+CLI_SIZES = ((500, 375), (375, 500), (333, 501), (640, 427))
+# the --optimize branch at full width, cut from the shipped 20000 steps and
+# 1024 images (the reconstruction phase measures BRECQ at depth)
+CLI_RECON_ITERS, CLI_OPTIM_SIZE = 20, 64
+# logits of a reference-format (.pth) round trip against the .ckpt's
+CLI_PTH_ATOL = 1e-5
+
+
+def write_image_folder(root, seed):
+    """train/ and val/ ImageFolders of smooth noise JPEGs (PIL)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    for split in ("train", "val"):
+        for c in range(CLI_CLASSES):
+            d = os.path.join(root, split, f"class{c}")
+            os.makedirs(d)
+            for i in range(CLI_PER_CLASS):
+                w, h = CLI_SIZES[(c + i) % len(CLI_SIZES)]
+                px = np.cumsum(rng.standard_normal((h, w, 3)), axis=0) * 8
+                Image.fromarray(np.clip(px + 128, 0, 255).astype(np.uint8)
+                                ).save(os.path.join(d, f"{i:03d}.jpg"),
+                                       quality=90)
+
+
+def write_config(path, **fields):
+    """A config file: configs/4bit.py's Config with ``fields`` set."""
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "configs", "4bit.py")
+    lines = ["import importlib.util",
+             f"_spec = importlib.util.spec_from_file_location('_base', "
+             f"{base!r})",
+             "_base = importlib.util.module_from_spec(_spec)",
+             "_spec.loader.exec_module(_base)", "",
+             "class Config(_base.Config):",
+             "    def __init__(self):",
+             "        super().__init__()"]
+    lines += [f"        self.{k} = {v!r}" for k, v in fields.items()]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+class CliRecords:
+    """Collects the CLI's log records of one run: each validation's
+    (top1, top5, loss, wall) and (images, wall, img/s, waited, share), and
+    the calibration and reconstruction seconds."""
+
+    def __init__(self):
+        import logging
+
+        self.records = []
+        self.handler = logging.Handler()
+        self.handler.emit = self.records.append
+        self.logger = logging.getLogger("adalog_tpu_torch")
+
+    def __enter__(self):
+        self.records.clear()
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+
+    def _args(self, prefix):
+        return [r.args for r in self.records if r.msg.startswith(prefix)]
+
+    def validations(self):
+        return [dict(top1=a[0], top5=a[1], loss=a[2], images=b[0],
+                     wall_s=b[1], img_per_s=b[2], loader_wait_s=b[3],
+                     loader_share=b[4] / 100.0)
+                for a, b in zip(self._args(" * Prec@1"),
+                                self._args(" * %d images in"))]
+
+    def seconds(self, stage):
+        return [a[1] for a in self._args(f"%s - {stage} finished in")]
+
+
+def run_cli(torch, fq_attn, fq_gemm, flags, tag):
+    """``cli.main`` on ``flags`` with the launch counts set to 0 just before
+    and read just after; prints the stage's seconds and each validation.
+    Returns (params, qstate, launches, validations, wall seconds)."""
+    import argparse
+
+    from adalog_tpu_torch import cli
+
+    args = argparse.ArgumentParser(parents=[cli.get_args_parser()]
+                                   ).parse_args(flags)
+    with CliRecords() as rec:
+        zero_launches(fq_attn, fq_gemm)
+        t0 = time.perf_counter()
+        params, qstate = cli.main(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_launches(fq_attn, fq_gemm)
+        vals = rec.validations()
+        inner = {s: rec.seconds(s) for s in ("calibration",
+                                             "block reconstruction")}
+    print(f"cli {tag}: {wall:.2f} s wall"
+          + "".join(f", {s} {v[0]:.1f} s" for s, v in inner.items() if v)
+          + f"; launches {got}")
+    for v in vals:
+        print(f"cli {tag}: validate {v['images']} images, Prec@1 "
+              f"{v['top1']:.3f} Prec@5 {v['top5']:.3f} loss {v['loss']:.4f}, "
+              f"{v['img_per_s']:.1f} img/s, data loader {v['loader_wait_s']:.3f}"
+              f" s of {v['wall_s']:.3f} s ({100 * v['loader_share']:.1f}%)")
+    return params, qstate, got, vals, wall
+
+
+def only_file(pattern):
+    import glob
+
+    found = glob.glob(pattern)
+    check(len(found) == 1, f"{pattern}: {found}")
+    return found[0]
+
+
+def direct_counts(torch, predict, loader):
+    """(images, top-1 hits, top-5 hits) of ``predict`` over the loader's
+    val split, by torch.topk."""
+    n = c1 = c5 = 0
+    for x, y in loader.val_loader():
+        top = torch.topk(predict(x), 5, dim=-1).indices.cpu()
+        y = torch.as_tensor(y, dtype=torch.long)[:, None]
+        c1 += int((top[:, :1] == y).sum())
+        c5 += int((top == y).any(-1).sum())
+        n += len(y)
+    return n, c1, c5
+
+
+def hits(v):
+    """Top-1 and top-5 hits of a logged validation."""
+    return (round(v["top1"] * v["images"] / 100.0),
+            round(v["top5"] * v["images"] / 100.0))
+
+
+def cli_phase(torch, fq_attn, fq_gemm, device, ckpt_dir):
+    """Drive the CLI on CLI_MODEL: (b) --calibrate at configs/4bit.py from
+    an ImageFolder on disk, its checkpoint held to a direct QuantCalibrator
+    run on the same calib_batches and its logged Prec@1 / Prec@5 to
+    make_predictor's own; (c) that checkpoint loaded and validated with the
+    GEMM kernel on, then exported to a reference .pth and loaded the same
+    way; (d) --load-calibrate-checkpoint --optimize. Launches asserted per
+    validation batch: K1 12 each run, K4 0 (b, d) or 49 (c). Returns
+    ({kernel: launches of the runs}, {kernel: 0.0})."""
+    import logging
+    import shutil
+
+    from adalog_tpu_torch.calib.calibrator import QuantCalibrator
+    from adalog_tpu_torch.data import native_loader
+    from adalog_tpu_torch.data.imagenet import ImageNetLoader
+    from adalog_tpu_torch.models.zoo import build_model, model_spec
+    from adalog_tpu_torch.serve import make_predictor
+    from adalog_tpu_torch.utils.checkpoint import load_checkpoint
+    from adalog_tpu_torch.utils.config import load_config
+    from adalog_tpu_torch.utils.ref_checkpoint import \
+        export_reference_state_dict
+
+    line = card_line()
+    root = os.path.join(ckpt_dir, "cli")
+    shutil.rmtree(root, ignore_errors=True)
+    data = os.path.join(root, "imagenet")
+    t0 = time.perf_counter()
+    write_image_folder(data, SEED + 31)
+    print(f"cli: ImageFolder of {CLI_CLASSES} classes x {CLI_PER_CLASS} "
+          f"JPEGs a split at sizes {CLI_SIZES} written in "
+          f"{time.perf_counter() - t0:.2f} s")
+    cfg4 = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "configs", "4bit.py")
+    cfg_gemm = write_config(os.path.join(root, "gemm_cfg.py"),
+                            use_pallas_gemm=True)
+    cfg_opt = write_config(os.path.join(root, "opt_cfg.py"),
+                           recon_iters=CLI_RECON_ITERS,
+                           optim_size=CLI_OPTIM_SIZE)
+    common = ["--model", CLI_MODEL, "--dataset", data, "--seed",
+              str(CLI_SEED), "--val-batch-size", str(BATCH)]
+    val_batches = -(-CLI_CLASSES * CLI_PER_CLASS // BATCH)
+    n_attn, n_linear = MODELS[CLI_MODEL]["K1"], MODELS[CLI_MODEL]["K4"]
+    stages, launches = {}, {k: 0 for k in ("K1", "K2", "K3", "K4")}
+
+    def expect(got, batches, gemm, tag):
+        want = {"K1": n_attn * batches, "K2": 0, "K3": 0,
+                "K4": n_linear * batches if gemm else 0}
+        check(got == want, f"cli {tag}: launches {got} != {want}")
+        for k, n in got.items():
+            launches[k] += n
+
+    # (b) calibrate at the shipped numbers
+    out_b = os.path.join(root, "calibrate")
+    params, qstate, got, vals, stages["calibrate"] = run_cli(
+        torch, fq_attn, fq_gemm, common + [
+            "--config", cfg4, "--calibrate", "--output-dir", out_b],
+        "--calibrate")
+    expect(got, val_batches, False, "--calibrate")
+    print(f"cli: the loader decoded with "
+          f"{'the native library' if native_loader.available() else 'PIL'}")
+    ckpt = only_file(os.path.join(out_b, "*", f"{CLI_MODEL}_w4_a4_s4_"
+                                  f"calibsize_32.ckpt"))
+    spec = model_spec(CLI_MODEL)
+    loader = ImageNetLoader(data, spec, BATCH, 8)
+    batches = loader.calib_batches(32, 32, CLI_SEED, augment=True)
+    _, model = build_model(CLI_MODEL, seed=CLI_SEED, device=device)
+    calib = QuantCalibrator(spec, model, load_config(cfg4), device=device)
+    calib.calibrate(batches)
+    p_direct, q_direct = calib.finish_calibration()
+    p_ckpt, q_ckpt, _ = load_checkpoint(ckpt, spec.cfg)
+    n = compare_qstates(torch, q_ckpt, q_direct)
+    print(f"cli --calibrate checkpoint vs a direct QuantCalibrator run on "
+          f"the same calib_batches: {n['picks']} integer picks, "
+          f"{n['adjacent']} apart (want 0); {n['scales']} scales, "
+          f"{n['moved']} past rtol {CALIB_SCALE_RTOL} (allowed share "
+          f"{MOVED_SHARE}), worst rel {n['worst_rel']:.3e}")
+    check(n["adjacent"] == 0, "cli checkpoint picks differ from the direct")
+    check(n["moved"] <= MOVED_SHARE * n["scales"],
+          f"cli checkpoint: {n['moved']} scales past tolerance")
+    del calib, p_direct, q_direct, model
+    predict = make_predictor(spec, p_ckpt, q_ckpt, cfg=load_config(cfg4),
+                             device=device)
+    n_img, c1, c5 = direct_counts(torch, predict, loader)
+    v = vals[0]
+    print(f"cli --calibrate logged hits (top-1, top-5) {hits(v)} of "
+          f"{v['images']}; make_predictor's own {(c1, c5)} of {n_img}")
+    check(v["images"] == n_img and hits(v) == (c1, c5),
+          "cli --calibrate Prec@1/Prec@5 differ from make_predictor's")
+    del predict, p_ckpt, q_ckpt, params, qstate
+    torch.cuda.empty_cache()
+
+    # (c) the load paths with the GEMM kernel on: the .ckpt, then .pth
+    pth = os.path.join(root, "ref.pth")
+    runs = {}
+    for fmt, path in (("ckpt", ckpt), ("pth", pth)):
+        p, q, got, vals, stages[f"load .{fmt}"] = run_cli(
+            torch, fq_attn, fq_gemm, common + [
+                "--load-calibrate-checkpoint", path,
+                "--test-calibrate-checkpoint", "--config", cfg_gemm,
+                "--output-dir", os.path.join(root, f"load_{fmt}")],
+            f"--load-calibrate-checkpoint .{fmt}")
+        expect(got, val_batches, True, f"load .{fmt}")
+        runs[fmt] = (p, q, vals[0])
+        if fmt == "ckpt":        # the loaded state, exported for the next
+            sd = export_reference_state_dict(spec, load_config(cfg_gemm), p,
+                                             q)
+            torch.save({k: torch.from_numpy(np.asarray(a))
+                        for k, a in sd.items()}, pth)
+    x = next(iter(loader.val_loader()))[0]
+    y = {fmt: make_predictor(spec, p, q, cfg=load_config(cfg_gemm),
+                             use_gemm_kernels=True, device=device)(x)
+         for fmt, (p, q, _) in runs.items()}
+    diff = (y["pth"] - y["ckpt"]).abs().max().item()
+    print(f"cli .pth vs .ckpt: hits {hits(runs['pth'][2])} vs "
+          f"{hits(runs['ckpt'][2])}; logits max|diff| {diff:.3e} (allowed "
+          f"{CLI_PTH_ATOL})")
+    check(hits(runs["pth"][2]) == hits(runs["ckpt"][2]),
+          "cli .pth Prec@1/Prec@5 differ from the .ckpt's")
+    check(diff <= CLI_PTH_ATOL, f"cli .pth logits apart by {diff}")
+    del runs, y
+    torch.cuda.empty_cache()
+
+    # (d) reconstruct the loaded checkpoint (--optimize), cut in depth
+    out_d = os.path.join(root, "optimize")
+    _, _, got, vals, stages["optimize"] = run_cli(
+        torch, fq_attn, fq_gemm, common + [
+            "--config", cfg_opt, "--load-calibrate-checkpoint", ckpt,
+            "--optimize", "--output-dir", out_d], "--optimize")
+    expect(got, -(-CLI_OPTIM_SIZE // BATCH) + val_batches, False,
+           "--optimize")
+    only_file(os.path.join(out_d, "*", f"{CLI_MODEL}_w4_a4_s4_optimsize_"
+                           f"{CLI_OPTIM_SIZE}.ckpt"))
+    check(len(vals) == 2 and vals[0]["images"] == CLI_OPTIM_SIZE,
+          f"cli --optimize validations {vals}")
+    for h in logging.root.handlers[:]:     # the CLI's output.log
+        logging.root.removeHandler(h)
+        h.close()
+    shutil.rmtree(root)
+    print(json.dumps({"cli": {"model": CLI_MODEL, "card": line,
+                              "stages_s": stages,
+                              "decoder": "native" if native_loader.available()
+                              else "PIL"}}))
+    return launches, {"K1": 0.0, "K4": 0.0}
+
+
 def calibration_profile(torch, device):
     """Where the device time of a calibration of CALIB_MODEL goes: one cold
     run untraced, then one traced by torch.profiler: the share of the
@@ -2164,6 +2469,9 @@ def main(argv):
     add(*served)
     add(*reconstruction_phase(torch, fq_attn, fq_gemm, device, ckpt_dir,
                               start))
+    # the reference-compatible CLI: calibrate, load (.ckpt and .pth) and
+    # optimize, each run's validations through the kernels
+    add(*cli_phase(torch, fq_attn, fq_gemm, device, ckpt_dir))
     for k, n in launches.items():
         check(n > 0, f"{k} was launched no time on the main paths")
 

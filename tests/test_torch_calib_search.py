@@ -106,6 +106,38 @@ def test_weight_candidates(bits, eq_n):
                  JC.weight_candidates(jnp.asarray(w), bits, eq_n))
 
 
+@pytest.mark.parametrize("kind", ["weight", "act", "act_cw", "matmul"])
+def test_candidates_within_two_ulps_of_jitted_jax(kind):
+    """The JAX package's searches run jitted, where XLA forms the grid with
+    a fused multiply-add and a multiply by the reciprocal of 2N - 1; the
+    port's grids equal the eager arithmetic, so they stay within two float32
+    ulps of the jitted ones (one a rounding), zero points equal. Prints the
+    share of scales apart (FPCS can turn such an ulp into another pick at a
+    near-tie: ROADMAP.md C.6)."""
+    rng = _rng(8)
+    if kind == "weight":
+        a = (0.05 * rng.standard_normal((3, 40, 64))).astype(np.float32)
+        got = TC.weight_candidates(_t(a), 4, 128)
+        want = jax.jit(lambda v: JC.weight_candidates(v, 4, 128))(
+            jnp.asarray(a))
+    elif kind == "matmul":
+        a = rng.standard_normal((2, 4, 50, 16)).astype(np.float32)
+        got = TC.matmul_candidates(_t(a), 4, 128, head_channel_wise=True)
+        want = jax.jit(lambda v: JC.matmul_candidates(
+            v, 4, 128, head_channel_wise=True))(jnp.asarray(a))
+    else:
+        a = rng.standard_normal((300, 64)).astype(np.float32)
+        got = TC.act_candidates(_t(a), 4, 128, channel_wise=kind == "act_cw")
+        want = jax.jit(lambda v: JC.act_candidates(
+            v, 4, 128, channel_wise=kind == "act_cw"))(jnp.asarray(a))
+    np.testing.assert_array_equal(got[1].numpy(), _np(want[1]))
+    ulps = np.abs(got[0].numpy().view(np.int32).astype(np.int64)
+                  - _np(want[0]).view(np.int32).astype(np.int64))
+    print(f"{kind}: {np.mean(ulps != 0):.3f} of {ulps.size} scales 1-2 ulps "
+          "from the jitted grid")
+    assert ulps.max() <= 2
+
+
 @pytest.mark.parametrize("channel_wise", [False, True])
 @pytest.mark.parametrize("bits", [4, 8])
 def test_act_candidates(channel_wise, bits):

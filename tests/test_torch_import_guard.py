@@ -33,7 +33,11 @@ print("imported", sys.argv[1])
     "adalog_tpu_torch.utils.resume", "adalog_tpu_torch.serve",
     "adalog_tpu_torch.models.swin", "adalog_tpu_torch.ops.fq_gemm",
     "adalog_tpu_torch.calib.reparam", "adalog_tpu_torch.recon.blocks",
-    "adalog_tpu_torch.recon.brecq", "chip_smoke"])
+    "adalog_tpu_torch.recon.brecq", "adalog_tpu_torch.cli",
+    "adalog_tpu_torch.data.imagenet", "adalog_tpu_torch.data.native_loader",
+    "adalog_tpu_torch.utils.metrics", "adalog_tpu_torch.utils.ref_checkpoint",
+    "adalog_tpu_torch.utils.profiling", "adalog_tpu_torch.utils.checkpoint",
+    "chip_smoke"])
 def test_module_imports_no_jax(module):
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", GUARD, module], cwd=ROOT,
@@ -48,3 +52,45 @@ def test_guard_catches_jax():
                           "adalog_tpu.calib.search"], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0 and "the port imported" in out.stderr
+
+
+LOAD_ROUND1 = """
+import sys
+from adalog_tpu_torch.models.zoo import model_spec
+from adalog_tpu_torch.utils.checkpoint import load_checkpoint
+model, qstate, meta = load_checkpoint(sys.argv[2], model_spec("test_tiny").cfg)
+assert not [m for m in sys.modules if m.split(".")[0] == "adalog_tpu"]
+print("loaded", type(model).__name__, len(qstate))
+"""
+
+
+def test_round1_pickle_loads_without_the_jax_package(tmp_path):
+    """A round-1 pickle names the JAX package's classes
+    (adalog_tpu.models.vit.ViTParams, ...); the port maps the names and
+    imports nothing of that package to load it."""
+    import pickle
+
+    import jax
+    import numpy as np
+
+    from adalog_tpu.calib.init_state import init_qstate
+    from adalog_tpu.models.zoo import build_model
+    from adalog_tpu.utils.config import Config
+
+    spec, params = build_model("test_tiny", seed=0)
+    qstate = init_qstate(spec, Config(w_bit=4, a_bit=4, s_bit=4,
+                                      qhead_a_bit=4), params)
+    path = str(tmp_path / "round1.ckpt")
+    with open(path, "wb") as f:
+        pickle.dump(jax.tree_util.tree_map(np.asarray, {
+            "version": 1, "params": params, "qstate": qstate, "meta": {}}), f)
+    with open(path, "rb") as f:
+        assert b"adalog_tpu.models.vit" in f.read()
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    script = GUARD.replace("importlib.import_module(sys.argv[1])\n"
+                           "print(\"imported\", sys.argv[1])\n", "") \
+        + LOAD_ROUND1
+    out = subprocess.run([sys.executable, "-c", script, "-", path], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert f"loaded VisionTransformer {len(qstate)}" in out.stdout

@@ -18,7 +18,9 @@ reduced configuration on the CPU:
     pristine I/O within 0.5-2x of the reference's and their geometric mean
     within 0.75-1.33; q_err within 1.4x; the optimize / calibrate
     degradation factor within +-0.05 of the reference's; FP-prediction
-    preservation within 4/n.
+    preservation within 4/n;
+  - the port against the JAX package itself at seed set 1 (calibrate):
+    integer picks site by site and the validation logits.
 
 Each takes minutes on the CPU (marked slow).
 """
@@ -174,3 +176,62 @@ def test_midscale_brecq_vs_reference():
           f"{q_err_ref:.4f}); factor {factor_ours:.4f} (ref "
           f"{factor_ref:.4f}); FP agreement {agree_ours:.4f} (ref "
           f"{agree_ref:.4f})")
+
+
+def _site_leaves(site, prefix=""):
+    import dataclasses
+    for f in dataclasses.fields(site):
+        v = getattr(site, f.name)
+        if dataclasses.is_dataclass(v):
+            yield from _site_leaves(v, prefix + f.name + ".")
+        else:
+            yield prefix + f.name, v
+
+
+@pytest.mark.slow
+def test_midscale_port_vs_jax_direct_diff():
+    """The port against the JAX package itself (not the reference) on the
+    calibrate-only fixture configuration of seed set 1: site by site, the
+    integer picks (zero points, AdaLog bases) and scales, and the
+    validation logits. The two differ where FPCS meets a near-tie: the
+    JAX package's searches run jitted, and XLA evaluates the same formulas
+    with fused multiply-adds and multiplies by reciprocals (candidate
+    scales an ulp apart) and sums in other orders. Gates: at least
+    PICKS_EQUAL of the picks equal, and the port's FP-prediction agreement
+    within 4/n of the JAX package's. Prints the first differing site and
+    both agreements."""
+    import jax
+    PICKS_EQUAL = 0.999
+    fx = np.load(md.FIXTURES[1], allow_pickle=False)
+    val_n = json.loads(str(fx["meta"]))["val_n"]
+    rj = md._our_pipeline(1, optimize=False, val_n=val_n)
+    rp = _port_pipeline(1, False, val_n, md.EQ_N)
+    qj = jax.tree_util.tree_map(np.asarray, rj["qstate"])
+    qp = rp["qstate"]
+    assert sorted(qj) == sorted(qp)
+    picks = differ = 0
+    first = None
+    for name in qp:                          # the port's: layout order
+        got = dict(_site_leaves(qp[name]))
+        for path, want in _site_leaves(qj[name]):
+            if path.split(".")[-1] not in ("zero_point", "log_q") or \
+                    want is None:
+                continue
+            d = int((got[path].numpy() != want).sum())
+            picks += want.size
+            differ += d
+            if d and first is None:
+                first = (name, path, d, want.size)
+    fp = rp["fp_ours"].argmax(-1)
+    n = fp.shape[0]
+    agree_port = float((rp["logits"].argmax(-1) == fp).mean())
+    agree_jax = float((rj["logits"].argmax(-1) == fp).mean())
+    agree_ref = float((fx["ref_logits"].argmax(-1) == fp).mean())
+    print(f"midscale seed set 1, port vs JAX: {differ} of {picks} integer "
+          f"picks differ, first at {first}; logits max|diff| "
+          f"{np.abs(rp['logits'] - rj['logits']).max():.4f}; FP agreement "
+          f"port {agree_port:.4f}, JAX {agree_jax:.4f}, reference "
+          f"{agree_ref:.4f}")
+    assert np.abs(rp["fp_ours"] - rj["fp_ours"]).max() < 5e-4
+    assert differ <= (1 - PICKS_EQUAL) * picks, (differ, picks, first)
+    assert agree_port >= agree_jax - 4.0 / n, (agree_port, agree_jax)

@@ -461,13 +461,14 @@ def test_predictor_matches_forward_and_keeps_module(jax_calibrated):
     model, tq = from_jax(SPEC.cfg, params, qstate)
     before = {k: v.clone() for k, v in model.state_dict().items()}
     x = _images(10)
-    y = make_predictor(SPEC, model, tq, cfg=Config(**W4A4))(x)
+    y = make_predictor(SPEC, model, tq, cfg=Config(**W4A4),
+                       device="cpu")(x)
     np.testing.assert_array_equal(y.numpy(),
                                   _port_logits(model, x, tq, {"*": "quant"},
                                                kernels=True))
     for kernels in (True, False):
         y16 = make_predictor(SPEC, model, tq, eval_dtype="bfloat16",
-                             use_kernels=kernels)(x)
+                             use_kernels=kernels, device="cpu")(x)
         assert y16.dtype == torch.float32 and y16.shape == (4, 10)
         assert torch.isfinite(y16).all()
     for k, v in model.state_dict().items():

@@ -231,11 +231,13 @@ def test_predictor_matches_forward_and_keeps_module(jax_calibrated):
     model, tq = from_jax(SPEC.cfg, params, qstate)
     before = {k: v.clone() for k, v in model.state_dict().items()}
     x = _images(9)
-    y = make_predictor(SPEC, model, tq, cfg=Config(**W4A4))(x)
+    y = make_predictor(SPEC, model, tq, cfg=Config(**W4A4),
+                       device="cpu")(x)
     np.testing.assert_array_equal(y.numpy(),
                                   _port_logits(model, x, tq, {"*": "quant"},
                                                kernels=True))
-    y16 = make_predictor(SPEC, model, tq, eval_dtype="bfloat16")(x)
+    y16 = make_predictor(SPEC, model, tq, eval_dtype="bfloat16",
+                         device="cpu")(x)
     assert y16.dtype == torch.float32 and y16.shape == (8, 10)
     assert torch.isfinite(y16).all()
     for k, v in model.state_dict().items():
@@ -278,7 +280,9 @@ def test_unported_paths_raise(jax_calibrated, tmp_path):
     with pytest.raises(NotImplementedError):
         load_quantized("test_tiny", path, device="cpu",
                        config=Config(**W4A4, eval_int8=True))
-    with pytest.raises(NotImplementedError):
+    # reference-format files are read now (utils/ref_checkpoint.py): a
+    # missing one is a missing file, no longer an unported path
+    with pytest.raises(FileNotFoundError):
         load_quantized("test_tiny", str(tmp_path / "ref.pth"), device="cpu")
 
 
