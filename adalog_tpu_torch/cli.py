@@ -16,8 +16,11 @@ weights), --eval-dtype, --no-augment-calib, --crop-pct, --resume, --profile
 (a torch.profiler trace of calibration). ``--device`` defaults to the first
 CUDA device, as the reference's did; model, calibrator, reconstructor and
 predictor all run there, and with no card the run raises unless
-``--device cpu`` is given. One device only: ``--mesh-devices`` above one and
-``--mesh-tp`` above one raise NotImplementedError, as does ``eval_int8``.
+``--device cpu`` is given. A config's ``eval_int8`` serves every validation
+through the int8 GEMM (ops/int8_linear.py); unlike the JAX package's
+process-global switch it reaches the predictors only, never calibration or
+reconstruction. One device only: ``--mesh-devices`` above one and
+``--mesh-tp`` above one raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -209,15 +212,13 @@ def main(args):
     resolve_kernel_config(cfg, spec)   # None = auto -> measured per-model
     log.info("eval kernels: use_pallas=%s use_pallas_gemm=%s eval_int8=%s",
              cfg.use_pallas, cfg.use_pallas_gemm, cfg.eval_int8)
-    if cfg.eval_int8:
-        raise NotImplementedError(
-            "eval_int8: the int8 GEMM path is not ported to PyTorch yet")
 
     def eval_forward(p, qs):
         return make_predictor(
             spec, p, qs, eval_dtype=cfg.eval_dtype, cfg=cfg,
             use_kernels=bool(cfg.use_pallas),
-            use_gemm_kernels=bool(cfg.use_pallas_gemm), device=device)
+            use_gemm_kernels=bool(cfg.use_pallas_gemm),
+            use_int8=bool(cfg.eval_int8), device=device)
 
     def load_any_checkpoint(path):
         """Route by format: the reference's torch.save(state_dict)

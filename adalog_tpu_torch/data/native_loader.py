@@ -4,9 +4,10 @@ The port's copy of ``adalog_tpu.data.native_loader``, with its own build:
 ``build`` compiles the repository's ``native/adalog_data.cpp`` with g++ and
 libjpeg into ``csrc/build/libadalog_data_<hash>.so`` (keyed by the hash of
 the source), at first use. Where g++ or libjpeg is missing the build fails
-once, quietly, and the pipeline (data/imagenet.py) decodes with PIL; which
-decoder is in use is logged once. This is host-side decoding, not a device
-path.
+once, and the pipeline (data/imagenet.py) decodes with PIL; which decoder
+is in use is logged once, with the tail of the compiler's error when the
+build failed (``unavailable_reason``). This is host-side decoding, not a
+device path.
 """
 
 from __future__ import annotations
@@ -31,6 +32,9 @@ BUILD_DIR = os.path.join(_ROOT, "adalog_tpu_torch", "csrc", "build")
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
+_reason: Optional[str] = None
+# lines of the compiler's error kept in the log: its last ones say why
+ERROR_TAIL_LINES = 20
 
 
 def lib_path() -> str:
@@ -84,7 +88,7 @@ def _bind(path: str) -> ctypes.CDLL:
 def _load() -> Optional[ctypes.CDLL]:
     """The library, built at the first call; None (and PIL decoding) when
     it cannot be built. Built or refused once a process."""
-    global _lib, _tried
+    global _lib, _tried, _reason
     with _lock:
         if not _tried:
             _tried = True
@@ -93,13 +97,22 @@ def _load() -> Optional[ctypes.CDLL]:
                 log.info("data: decoding JPEGs with the native library %s",
                          os.path.relpath(lib_path(), _ROOT))
             except (RuntimeError, OSError) as e:
-                log.info("data: native decoder unavailable (%s); decoding "
-                         "with PIL", str(e).splitlines()[0])
+                lines = str(e).strip().splitlines()
+                _reason = "\n".join(lines[:1] + lines[1:][-ERROR_TAIL_LINES:])
+                log.info("data: native decoder unavailable; decoding with "
+                         "PIL. Why:\n%s", _reason)
         return _lib
 
 
 def available() -> bool:
     return _load() is not None
+
+
+def unavailable_reason() -> Optional[str]:
+    """Why the native decoder could not be built or loaded (the first line
+    of the error and the last ERROR_TAIL_LINES of the compiler's output), or
+    None when it was loaded or not tried yet."""
+    return _reason
 
 
 def _fp(arr: np.ndarray):

@@ -14,7 +14,8 @@ the forward, so one raw pass captures every site's inputs and output.
 
 ``training=True`` (block reconstruction) rounds with straight-through
 estimators so gradients reach the quantizers' scales, and dispatches no
-kernel: no weight-prep table, no fused GEMM, no fused attention matmul.
+kernel: no int8 GEMM, no weight-prep table, no fused GEMM, no fused
+attention matmul.
 ``soft=True`` takes the soft AdaRound target of a weight quantizer that
 carries an ``alpha``, and reads no weight-prep table either.
 """
@@ -29,7 +30,9 @@ import torch.nn.functional as F
 
 from adalog_tpu_torch.quantizers.state import QuantizerState, WeightQuantizerState
 from adalog_tpu_torch.quantizers.apply import apply_quantizer, apply_weight_quantizer
-from adalog_tpu_torch.ops import fq_attn, fq_gemm, weight_prep
+from adalog_tpu_torch.ops import (
+    fq_attn, fq_gemm, int8_linear, weight_prep,
+)
 
 
 # ---------------------------------------------------------------------------
@@ -80,12 +83,18 @@ def qlinear(p: torch.nn.Linear, site, x, *, mode: str = "raw",
             training: bool = False, soft: bool = False, name=None):
     """y = x @ W^T + b with optional fake quantization of W and/or x.
 
-    In quant/w_only mode the weight comes from the load-time table of
+    In quant mode, outside training, while an ``ops.int8_linear`` table is
+    active, a site that ``int8_linear.supports`` runs as an integer product,
+    before anything else is looked up (as in the JAX package). In
+    quant/w_only mode the weight comes from the load-time table of
     ``ops.weight_prep`` when one is active (never in training or soft
     mode), else it is quantized here. In quant mode, outside training, a
     site of the active ``ops.fq_gemm`` table runs through the fused kernel:
     the activation quantizer inside the GEMM, the bias added after the
     product in the compute dtype."""
+    if site is not None and mode == "quant" and not training \
+            and int8_linear.enabled() and int8_linear.supports(site, mode):
+        return int8_linear.int8_qlinear(p, site, x, name=name)
     w = p.weight
     if site is not None and mode in ("quant", "w_only"):
         w = None

@@ -491,9 +491,10 @@ class GemmSite:
         return "mma" if dtype == torch.bfloat16 or self.mma_fp32 else "fma"
 
 
-def prepare(qstate, weight_codes=None) -> dict:
+def prepare(qstate, weight_codes=None, skip=()) -> dict:
     """{site name: GemmSite} for every Linear site of ``qstate`` that takes
-    the kernel, params on the qstate's device. ``weight_codes`` is
+    the kernel but those in ``skip`` (the int8 sites, dispatched before this
+    table is read), params on the qstate's device. ``weight_codes`` is
     ``weight_prep.weight_codes``'s table, without which fp32 inputs stay on
     variant "fma". Reads each AdaLog site's base and each uniform site's
     zero point on the host, once, and raises if the kernel cannot take a
@@ -503,7 +504,8 @@ def prepare(qstate, weight_codes=None) -> dict:
     table = {}
     with torch.no_grad():
         for name, site in qstate.items():
-            if not (isinstance(site, LinearSite) and supports(site, "quant")):
+            if not (isinstance(site, LinearSite) and supports(site, "quant")) \
+                    or name in skip:
                 continue
             kind, bits = kernel_kind(site), site.aq.bits
             if kind == "adalog_shift":

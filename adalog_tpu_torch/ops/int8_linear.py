@@ -1,0 +1,297 @@
+"""True-integer execution of quantized Linear sites (kernel K5).
+
+The counterpart of ``adalog_tpu.ops.int8_linear``. For a site whose
+activation quantizer is uniform, asymmetric and per-tensor and whose weight
+quantizer is uniform, both at most 7 bits, the quantized forward is an
+integer product:
+
+    y = (x_int @ w_intᵀ) * (s_a * s_w[o]) (+ b)
+    x_int = clamp(round(x / s_a) + round(z_a), 0, 2^bits - 1) - round(z_a)
+    w_int = clamp(round(w / s_w) + round(z_w), 0, 2^bits - 1) - round(z_w)
+
+Both operands fit int8 and the int32 sum is exact, so the result is the
+fake-quant forward up to the rounding of its fp32 products.
+
+``int8_gemm`` is the wrapper of the kernel: for CPU tensors it runs
+``int8_gemm_plain`` (an exact int32 product in plain PyTorch); for CUDA
+tensors it launches ``csrc/int8_gemm.cu`` (built at first use,
+ops/cuda_build.py) or raises. ``int8_gemm.launches`` counts kernel
+launches, ``int8_gemm.calls`` every call on either device.
+``int8_qlinear`` is the call of one site.
+
+Which sites run here is decided once per loaded model: ``prepare`` builds
+{site: Int8Weights} from the module the predictor runs (already cast to the
+eval dtype, so bf16 serving derives its codes from bf16 weights), a
+predictor enters ``activate(table)`` around its forward, and ``qlinear``
+sends every supported site to ``int8_qlinear`` while a table is active.
+There is no process-global switch: JAX's ``set_enabled`` turns int8 on for
+every later forward of the process, here only the predictor's own calls
+take it.
+"""
+
+from __future__ import annotations
+
+import contextvars
+import ctypes
+import functools
+from contextlib import contextmanager
+from typing import NamedTuple
+
+import torch
+
+from adalog_tpu_torch.ops import cuda_build
+
+MAX_BITS = 7        # codes of at most 7 bits and their zero points fit int8
+_INT8_MAX = 127
+
+
+class Int8Weights(NamedTuple):
+    """What the kernel needs of a site: ``w_int`` (O, K) int8 holds
+    c_w - round(z_w); ``scale_row`` (O,) float32 is s_a * s_w[o], the one
+    fp32 product JAX forms per call; ``a_params`` (2,) float32 is the
+    activation quantizer's [scale, zero point]."""
+    w_int: torch.Tensor
+    scale_row: torch.Tensor
+    a_params: torch.Tensor
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version
+# ---------------------------------------------------------------------------
+
+def activation_codes(x, a_params, *, bits: int):
+    """c - round(z) of x's uniform quantizer, as float32 integers. The
+    division is by a tensor (PyTorch's CUDA kernels divide by a Python
+    number as a multiply by its reciprocal)."""
+    s, z = a_params[0], torch.round(a_params[1])
+    return torch.clamp(torch.round(x.float() / s) + z, 0.0,
+                       2.0 ** bits - 1) - z
+
+
+def int8_gemm_plain(x, w_int, a_params, scale_row, bias=None, *, bits: int):
+    """The kernel's function in plain PyTorch; same arguments as
+    ``int8_gemm``. The integer sum is exact: an int32 product on the CPU;
+    CUDA has none, so there the codes multiply in float64, whose sums are
+    exact while |sum| <= 127^2 K < 2^53. Then, as JAX: the sum to float32,
+    times scale_row, plus the bias in float32, one rounding to x's dtype."""
+    a = activation_codes(x, a_params, bits=bits)
+    if x.device.type == "cpu":
+        acc = torch.mm(a.to(torch.int32), w_int.to(torch.int32).t())
+    else:
+        acc = torch.mm(a.double(), w_int.double().t()).to(torch.int32)
+    y = acc.float() * scale_row
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel: load, launch
+# ---------------------------------------------------------------------------
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    lib = cuda_build.library("int8_gemm")
+    fn = lib.int8_gemm_launch
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(x, w_int, a_params, scale_row, bias, bits):
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"int8_gemm takes float32 or bfloat16 x, not "
+                        f"{x.dtype}")
+    if bias is not None and bias.dtype != x.dtype:
+        raise TypeError("bias must be in x's dtype")
+    if w_int.dtype != torch.int8 or scale_row.dtype != torch.float32 \
+            or a_params.dtype != torch.float32:
+        raise TypeError("w_int must be int8, scale_row and a_params float32")
+    if x.dim() != 2 or w_int.dim() != 2 or w_int.shape[1] != x.shape[1] \
+            or x.shape[1] == 0:
+        raise ValueError(f"x must be (T, K) and w_int (O, K), got "
+                         f"{tuple(x.shape)} and {tuple(w_int.shape)}")
+    O = w_int.shape[0]
+    if tuple(scale_row.shape) != (O,) or tuple(a_params.shape) != (2,) \
+            or (bias is not None and tuple(bias.shape) != (O,)):
+        raise ValueError(f"scale_row and bias must be ({O},), a_params (2,)")
+    if not 1 <= bits <= MAX_BITS:
+        raise ValueError(f"activation bits {bits} outside 1..{MAX_BITS}")
+
+
+def _launch(x, w_int, a_params, scale_row, bias, bits):
+    """One launch on the current stream; every tensor but x contiguous and
+    on x's device (the caller sees to it)."""
+    T, K = x.shape
+    O = w_int.shape[0]
+    if x.stride(1) != 1 or (T > 1 and x.stride(0) < K):
+        x = x.contiguous()
+    out = torch.empty((T, O), dtype=x.dtype, device=x.device)
+    if T == 0 or O == 0:
+        return out
+    err = _library().int8_gemm_launch(
+        _DTYPE_CODE[x.dtype], x.data_ptr(), w_int.data_ptr(),
+        a_params.data_ptr(), scale_row.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(),
+        T, K, O, x.stride(0) if T > 1 else K, bits, x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"int8_gemm kernel launch failed: CUDA error {err}")
+    int8_gemm.launches += 1
+    return out
+
+
+def int8_gemm(x, w_int, a_params, scale_row, bias=None, *, bits: int):
+    """y = (codes(x) @ w_intᵀ) * scale_row (+ bias), the activation
+    quantizer fused.
+
+    x: (T, K) float32 or bfloat16 (rows may be strided); w_int: (O, K) int8
+    weight codes; a_params: (2,) float32 [scale, zero point] of the
+    activation quantizer at ``bits`` <= 7, its rounded zero point within
+    [2^bits - 128, 127] so every code fits int8; scale_row: (O,) float32;
+    bias: None or (O,) in x's dtype. Returns (T, O) in x's dtype.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel; any
+    other device raises."""
+    _check(x, w_int, a_params, scale_row, bias, bits)
+    int8_gemm.calls += 1
+    if x.device.type == "cpu":
+        return int8_gemm_plain(x, w_int, a_params, scale_row, bias,
+                               bits=bits)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"int8_gemm has no path for {x.device}")
+    for t in (w_int, a_params, scale_row) + (() if bias is None else (bias,)):
+        if t.device != x.device:
+            raise ValueError(f"all int8_gemm inputs must be on {x.device}")
+    return _launch(x, w_int.contiguous(), a_params.contiguous(),
+                   scale_row.contiguous(),
+                   None if bias is None else bias.contiguous(), bits)
+
+
+int8_gemm.launches = 0
+int8_gemm.calls = 0
+
+
+# ---------------------------------------------------------------------------
+# Sites, and the load-time table
+# ---------------------------------------------------------------------------
+
+def supports(site, mode: str) -> bool:
+    """Can this Linear site's eval forward run as an integer product?
+    Uniform asymmetric per-tensor activations and uniform weights without
+    an AdaRound alpha, both at most 7 bits, as in JAX's ``supports``; the
+    weights asymmetric too (JAX's codes read their zero point). Whether int8
+    is on is whether a table is active (``enabled``)."""
+    if mode != "quant":
+        return False
+    aq, wq = site.aq, site.wq
+    return (aq.kind == "uniform" and not aq.symmetric
+            and aq.scale.numel() == 1 and aq.bits <= MAX_BITS
+            and wq.bits <= MAX_BITS and wq.alpha is None
+            and not wq.symmetric)
+
+
+def weight_codes(weight, site):
+    """(w_int (O, K) int8, s_row (O,) float32) of a supported site: the
+    arithmetic of JAX's ``weight_codes`` on the weight as given (a bf16
+    module gives codes of its bf16 values, as JAX's ``cast_dtype``)."""
+    from adalog_tpu_torch.ops.weight_prep import site_weight_codes
+
+    codes, s_row = site_weight_codes(weight, site)
+    return codes.to(torch.int8), s_row
+
+
+def site_weights(weight, site) -> Int8Weights:
+    """The ``Int8Weights`` of a supported site, computed on the weight's
+    device with no host read."""
+    aq = site.aq
+    w_int, s_row = weight_codes(weight, site)
+    a_params = torch.stack([aq.scale.reshape(()),
+                            aq.zero_point.reshape(())]).float()
+    return Int8Weights(w_int.contiguous(), (a_params[0] * s_row).contiguous(),
+                       a_params.to(weight.device).contiguous())
+
+
+def _check_fits_int8(name, site):
+    """Raise unless every code of the site fits int8: c - round(z) for every
+    code c in 0..2^bits - 1 of the activation and of each weight row, which
+    holds when every rounded zero point lies in [2^bits - 1 - 127, 127].
+    Reads the zero points on the host, once, where a table is built."""
+    for what, q in (("activation", site.aq), ("weight", site.wq)):
+        z = torch.round(q.zero_point.float())
+        if not bool(((z >= 2 ** q.bits - 1 - _INT8_MAX)
+                     & (z <= _INT8_MAX)).all()):
+            raise ValueError(f"{name}: a {what} zero point outside "
+                             f"[{2 ** q.bits - 1 - _INT8_MAX}, {_INT8_MAX}] "
+                             "gives codes past int8; the int8 kernel cannot "
+                             "take this site")
+
+
+def prepare(spec, params, qstate, cfg) -> dict:
+    """{site_name: Int8Weights} for every supported Linear site of a loaded
+    model, from the module the predictor runs (cast, on its device); the
+    caller keeps the table and enters ``activate(table)`` around its
+    forward. Raises if a site's codes do not fit int8."""
+    from adalog_tpu_torch.calib.layout import quant_layout, tree_get
+    from adalog_tpu_torch.models.layers import LinearSite
+
+    table = {}
+    with torch.no_grad():
+        for nm, ss in quant_layout(spec, cfg).items():
+            site = qstate.get(nm)
+            if not isinstance(site, LinearSite) or not supports(site,
+                                                                "quant"):
+                continue
+            _check_fits_int8(nm, site)
+            table[nm] = site_weights(tree_get(params, ss.param_path).weight,
+                                     site)
+    return table
+
+
+_ACTIVE: contextvars.ContextVar = contextvars.ContextVar(
+    "adalog_int8_table", default=None)
+
+
+@contextmanager
+def activate(table):
+    """Run every supported Linear site as an integer product inside the
+    block, with the weights of ``table`` (a ``prepare`` result); None leaves
+    every site on the fake-quant path."""
+    tok = _ACTIVE.set(table)
+    try:
+        yield
+    finally:
+        _ACTIVE.reset(tok)
+
+
+def enabled() -> bool:
+    return _ACTIVE.get() is not None
+
+
+def lookup(name, shape):
+    """The ``Int8Weights`` of site ``name`` in the active table when its
+    codes have ``shape``, else None."""
+    table = _ACTIVE.get()
+    if name is None or table is None:
+        return None
+    hit = table.get(name)
+    if hit is not None and hit.w_int.shape == shape:
+        return hit
+    return None
+
+
+def int8_qlinear(p: torch.nn.Linear, site, x, name=None):
+    """The integer forward of a supported Linear site: x (..., K) ->
+    (..., O) in x's dtype. The weights come from the active table when it
+    holds ``name`` at the weight's shape, else they are computed here, per
+    call (JAX's fallback on a shape mismatch)."""
+    hit = lookup(name, p.weight.shape)
+    if hit is None:
+        hit = site_weights(p.weight, site)
+    y = int8_gemm(x.reshape(-1, x.shape[-1]), hit.w_int, hit.a_params,
+                  hit.scale_row, p.bias, bits=site.aq.bits)
+    return y.reshape(*x.shape[:-1], y.shape[-1])

@@ -4,8 +4,10 @@
 keeps the JAX package's name so config files load) and ``Config.eval_int8``
 default to None = auto, which ``resolve_kernel_config`` fills from this
 module. No model has been measured end to end on an H100 yet, so the table
-is empty: the attention kernel is on for every model, and int8 is off until
-the int8 GEMM kernel is ported. An explicit True/False always wins.
+is empty: the attention kernel is on for every model and int8 (the int8 GEMM
+kernel, ops/int8_linear.py) is off unless a config sets it. The JAX
+package's int8 verdicts were measured on another device and are not copied.
+An explicit True/False always wins.
 """
 
 from __future__ import annotations

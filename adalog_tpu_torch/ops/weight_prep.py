@@ -41,8 +41,9 @@ def lookup(name, shape):
     return None
 
 
-def prepare(spec, params, qstate, cfg) -> dict:
-    """{site_name: w_fakequant} for every quantized Linear site, computed
+def prepare(spec, params, qstate, cfg, skip=()) -> dict:
+    """{site_name: w_fakequant} for every quantized Linear site but those in
+    ``skip`` (the int8 sites, which read no fake-quantized weight), computed
     from the same (already cast) module the predictor runs, so it equals
     what the per-call path would produce."""
     from adalog_tpu_torch.calib.layout import quant_layout, tree_get
@@ -52,7 +53,8 @@ def prepare(spec, params, qstate, cfg) -> dict:
     with torch.no_grad():
         for nm, ss in quant_layout(spec, cfg).items():
             site = qstate.get(nm)
-            if not isinstance(site, LinearSite) or site.wq.bits == 32:
+            if not isinstance(site, LinearSite) or site.wq.bits == 32 \
+                    or nm in skip:
                 continue
             table[nm] = quant_linear_weight(tree_get(params, ss.param_path),
                                             site)

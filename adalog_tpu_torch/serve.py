@@ -9,10 +9,12 @@ every block (ViT/DeiT) or window (Swin) runs in the hand-written fused
 kernels (ops/fq_attn.py) unless the caller turns them off, and, when the
 caller turns it on (``Config``'s ``use_pallas_gemm``, off by default as in
 the JAX package), every supported Linear site runs in the fused
-activation-quant GEMM kernel (ops/fq_gemm.py).
+activation-quant GEMM kernel (ops/fq_gemm.py). With ``Config``'s
+``eval_int8`` every uniform Linear site of at most 7 bits runs as an
+integer product in the int8 GEMM kernel (ops/int8_linear.py), ahead of
+both.
 
-Multi-device meshes and the int8 GEMM path of the JAX package are not
-ported yet and raise ``NotImplementedError``.
+Multi-device meshes are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -41,7 +43,8 @@ def pin_fp32_matmul():
 
 def make_predictor(spec, params, qstate, *, eval_dtype: str = "float32",
                    cfg=None, use_kernels: bool = True,
-                   use_gemm_kernels: bool = False, device=None):
+                   use_gemm_kernels: bool = False, use_int8: bool = False,
+                   device=None):
     """Build ``predict(images) -> logits`` for a (model, qstate) pair.
 
     The model is copied to ``device`` (default: the first CUDA device,
@@ -53,11 +56,17 @@ def make_predictor(spec, params, qstate, *, eval_dtype: str = "float32",
     PyTorch ops of the unfused path. ``use_gemm_kernels`` routes every
     Linear site that ``ops.fq_gemm.supports`` through the fused
     activation-quant GEMM, and the attention through its kernels too; which
-    sites take it is decided here, once.
+    sites take it is decided here, once. ``use_int8`` runs every Linear site
+    that ``ops.int8_linear.supports`` as an integer product (the int8 GEMM
+    kernel on a CUDA device), with weight codes computed here from the cast
+    module; those sites then take neither the weight-prep table nor the
+    fused GEMM. The table belongs to this predictor alone.
     """
     from adalog_tpu_torch.calib.calibrator import _resolve_device
     from adalog_tpu_torch.models.zoo import model_forward_fn
-    from adalog_tpu_torch.ops import fq_attn, fq_gemm, weight_prep
+    from adalog_tpu_torch.ops import (
+        fq_attn, fq_gemm, int8_linear, weight_prep,
+    )
     from adalog_tpu_torch.quantizers.state import map_tensors
     from adalog_tpu_torch.utils.config import Config
 
@@ -72,14 +81,21 @@ def make_predictor(spec, params, qstate, *, eval_dtype: str = "float32",
     model = copy.deepcopy(params).to(device=device, dtype=dtype)
     model.requires_grad_(False)
     qs = map_tensors(lambda t: t.to(device), qstate)
-    wprep = weight_prep.prepare(spec, model, qs, cfg or Config())
+    cfg = cfg or Config()
+    int8_table = None
+    if use_int8:
+        int8_table = int8_linear.prepare(spec, model, qs, cfg)
+        log.info("int8 eval: weight codes materialized for %d sites",
+                 len(int8_table))
+    skip = set(int8_table or ())
+    wprep = weight_prep.prepare(spec, model, qs, cfg, skip=skip)
     gemm_table = None
     if use_gemm_kernels:
         # the weights as integers let fp32 inputs take the tensor-core
         # variant of the GEMM kernel; bf16 inputs take it as they are
-        codes = weight_prep.weight_codes(spec, model, qs, cfg or Config()) \
+        codes = weight_prep.weight_codes(spec, model, qs, cfg) \
             if dtype == torch.float32 else None
-        gemm_table = fq_gemm.prepare(qs, codes)
+        gemm_table = fq_gemm.prepare(qs, codes, skip=skip)
     # read once here, so that no served call waits for the device to learn
     # which variant of the attention kernel its zero points allow
     exact_ints = fq_attn.integers_exact(qs) \
@@ -92,7 +108,8 @@ def make_predictor(spec, params, qstate, *, eval_dtype: str = "float32",
         x = torch.as_tensor(x).to(device=device, dtype=dtype)
         with torch.inference_mode(), weight_prep.activate(wprep), \
                 fq_attn.activate(use_kernels, exact_ints, attn_params), \
-                fq_gemm.activate(gemm_table):
+                fq_gemm.activate(gemm_table), \
+                int8_linear.activate(int8_table):
             return fwd(spec.cfg, model, x, qs, {"*": "quant"}).float()
 
     return predict
@@ -111,7 +128,10 @@ def load_quantized(model: str, checkpoint: str, *, config=None,
     attention kernel on or off; None takes ``config.use_pallas``, resolved
     by ops/kernel_defaults.py. ``config.use_pallas_gemm`` (default False)
     turns the fused activation-quant GEMM kernel on, and with it the
-    attention kernel. Returns (predict, spec, model, qstate).
+    attention kernel. ``config.eval_int8`` (None = auto, resolved the same
+    way) serves the uniform Linear sites as integer products
+    (``make_predictor``'s ``use_int8``). Returns (predict, spec, model,
+    qstate).
     """
     from adalog_tpu_torch.models.zoo import model_spec
     from adalog_tpu_torch.ops.kernel_defaults import resolve_kernel_config
@@ -135,9 +155,6 @@ def load_quantized(model: str, checkpoint: str, *, config=None,
             "multi-device serving is not ported to PyTorch yet")
     spec = model_spec(model)
     resolve_kernel_config(cfg, spec)
-    if cfg.eval_int8:
-        raise NotImplementedError(
-            "eval_int8: the int8 GEMM path is not ported to PyTorch yet")
     enable = cfg.use_pallas if use_pallas is None else use_pallas
     gemm = bool(cfg.use_pallas_gemm)
 
@@ -148,9 +165,11 @@ def load_quantized(model: str, checkpoint: str, *, config=None,
     else:
         params, qstate, _ = load_checkpoint(checkpoint, spec.cfg)
     log.info("loaded %s (%s) on %s, fused attention kernel %s, fused GEMM "
-             "kernel %s", spec.name, eval_dtype, device,
-             "on" if enable or gemm else "off", "on" if gemm else "off")
+             "kernel %s, int8 %s", spec.name, eval_dtype, device,
+             "on" if enable or gemm else "off", "on" if gemm else "off",
+             "on" if cfg.eval_int8 else "off")
     predict = make_predictor(spec, params, qstate, eval_dtype=eval_dtype,
                              cfg=cfg, use_kernels=bool(enable),
-                             use_gemm_kernels=gemm, device=device)
+                             use_gemm_kernels=gemm,
+                             use_int8=bool(cfg.eval_int8), device=device)
     return predict, spec, params, qstate

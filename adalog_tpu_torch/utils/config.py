@@ -60,8 +60,9 @@ class Config:
     # ops/kernel_defaults.py; an explicit True/False wins.
     use_pallas: Optional[bool] = None
     use_pallas_gemm: bool = False
-    # true-int8 GEMMs for uniform Linear sites; not ported yet, so the
-    # serving API raises on True. None = auto (False in the port).
+    # true-int8 GEMMs for uniform Linear sites (ops/int8_linear.py, the
+    # int8 GEMM kernel on a GPU). None = auto through ops/kernel_defaults.py
+    # (False for every model until one is measured); True/False wins.
     eval_int8: Optional[bool] = None
 
     @classmethod

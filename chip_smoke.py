@@ -5,10 +5,11 @@
 
 Phases, each a hard check (any failure raises and exits non-zero):
   1. the card's name and power limit (nvidia-smi); no CUDA device -> exit 1;
-  2. build the three kernel sources with nvcc, one process each, started
+  2. build the four kernel sources with nvcc, one process each, started
      together: K1 (csrc/fq_flash_attn.cu), K2 and K3
-     (csrc/fq_attn_matmul.cu) and K4 (csrc/fq_gemm.cu); each kernel's
-     registers are printed, and none may spill;
+     (csrc/fq_attn_matmul.cu), K4 (csrc/fq_gemm.cu) and K5
+     (csrc/int8_gemm.cu); each kernel's registers are printed, and none may
+     spill;
   3. K1 kernel phase: the fused attention kernel against its plain PyTorch
      version at the deit_small attention shapes (batch 64: G=384, S=197,
      D=64), fp32 and bf16, with and without a (6, S, S) bias, per-slice
@@ -84,7 +85,21 @@ Phases, each a hard check (any failure raises and exits non-zero):
      each launch's variant printed, the reason for any "fma"); and
      test_tiny calibrated at the same numbers on the card and on the CPU:
      integer picks exact or adjacent, scales to a stated tolerance;
-  9. reconstruction phase: BRECQ (BlockReconstructor.reconstruct) on the
+  9. int8 phase: K5, the int8 GEMM of eval_int8, against its plain version
+     bit for bit at deit_small's int8 sites at batch 32 (qkv, proj, fc1,
+     the head), deit_base's three block sites and two ragged shapes, fp32
+     and bf16, timed as K4 (one call, ten in a row, ten from a CUDA graph)
+     beside torch._int_mm on the activation codes (the product alone); then
+     the calibrated deit_small of phase 8 and the smoke swin_tiny: every
+     int8 site through K5 against the fake-quant path on the same inputs
+     (block check, fp32), then served through load_quantized with
+     eval_int8, with the attention kernel and with the attention and GEMM
+     kernels, fp32 and bf16: per batch K5 37 (deit_small) or 40 (swin_tiny)
+     times, K1 12, K4 12 (the AdaLog fc2 sites) with the GEMM switch, else
+     0; img/s; then site_error_report on the calibrated deit_small (its top
+     rows and seconds) and its export round trip (export_quantized, then
+     load_exported on the card, logits against the plain predictor);
+ 10. reconstruction phase: BRECQ (BlockReconstructor.reconstruct) on the
      warm calibration's deit_small state before the post-GeLU fold, all 14
      units on the card in exact fp32 with train_act, RECON_ITERS steps on
      RECON_OPTIM_SIZE images of standard-normal pixels, the kernel launch
@@ -98,7 +113,7 @@ Phases, each a hard check (any failure raises and exits non-zero):
      (K1 12 and K4 49 launches a batch, every launch "mma"); and test_tiny
      reconstructed on the card and on the CPU from one CPU calibration:
      flipped hard decisions, activation scales and recs to stated bounds;
- 10. CLI phase: the reference-compatible CLI (adalog_tpu_torch.cli.main,
+ 11. CLI phase: the reference-compatible CLI (adalog_tpu_torch.cli.main,
      what `python -m adalog_tpu_torch.cli` runs) on deit_small at full
      depth and width with its own random weights from a seed, on a train/
      and val/ ImageFolder of 4 classes x 16 JPEGs each at odd sizes written
@@ -109,16 +124,18 @@ Phases, each a hard check (any failure raises and exits non-zero):
      Prec@1 / Prec@5 to make_predictor's own on the same val batches
      (hits equal); the checkpoint loaded with use_pallas_gemm on and
      validated, then exported to a reference .pth and loaded the same way
-     (hits equal, logits within CLI_PTH_ATOL); --load-calibrate-checkpoint
-     --optimize at CLI_RECON_ITERS steps on CLI_OPTIM_SIZE images (an
-     optimize checkpoint saved, the calibration set and val validated).
-     Launches per validation batch asserted: K1 12 every run, K4 49 with
-     the GEMM switch, else 0. Each run's seconds and each validation's
+     (hits equal, logits within CLI_PTH_ATOL); loaded and validated with a
+     config that sets eval_int8; --load-calibrate-checkpoint --optimize at
+     CLI_RECON_ITERS steps on CLI_OPTIM_SIZE images (an optimize checkpoint
+     saved, the calibration set and val validated). Launches per
+     validation batch asserted: K1 12 every run, K4 49 with the GEMM
+     switch, else 0, K5 37 with eval_int8, else 0. The decoder used (and
+     the compiler's error if the native one did not build) is printed. Each run's seconds and each validation's
      img/s and the loader's share of its wall time are printed.
 The last two lines are a JSON summary of the kernels (launches summed over
-the main paths of phases 6 to 10; times of the fp32 kernel phases; the bound
-from those phases' shapes; every entry is the variant its paths launch,
-"mma") and the ok line.
+the main paths of phases 6 to 11; times of the fp32 kernel phases; the bound
+from those phases' shapes; K1-K4's entries are the variant their paths
+launch, "mma"; K5's library_ms is torch._int_mm's) and the ok line.
 
 With --profile, after the build: the share of K1's, K2's, K3's and K4's
 cycles in each phase of the kernel (second, instrumented builds), then each smoke
@@ -146,7 +163,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 SEED = 0
-KERNELS = ("fq_flash_attn", "fq_attn_matmul", "fq_gemm")   # csrc/<name>.cu
+KERNELS = ("fq_flash_attn", "fq_attn_matmul", "fq_gemm",    # csrc/<name>.cu
+           "int8_gemm")
 KERNEL_SHAPE = dict(G=384, S=197, D=64, P=6)     # deit_small, batch 64
 BATCH, N_BATCHES = 32, 4
 # K2 and K3 at the attention shapes of batch 32: (model, G, S, D)
@@ -165,6 +183,19 @@ GEMM_SHAPES = (("qkv", 6304, 384, 1152, "uniform"),
 GEMM_SWIN_SHAPES = (("swin_tiny stage 0 qkv", 100352, 96, 288, "uniform"),
                     ("swin_tiny stage 3 fc2", 1568, 3072, 768,
                      "adalog_shift"))
+# K5 at deit_small's int8 sites at batch 32 (qkv, proj and fc1 of a block
+# and the head; fc2 is an AdaLog site), deit_base's three block sites and two
+# ragged shapes (K neither a multiple of 16 nor of a stage, odd O): (site, T,
+# K, O)
+INT8_SHAPES = (("deit_small qkv", 6304, 384, 1152),
+               ("deit_small proj", 6304, 384, 384),
+               ("deit_small fc1", 6304, 384, 1536),
+               ("deit_small head", 32, 384, 1000),
+               ("deit_base qkv", 6304, 768, 2304),
+               ("deit_base proj", 6304, 768, 768),
+               ("deit_base fc1", 6304, 768, 3072),
+               ("ragged", 777, 100, 130),
+               ("ragged", 6304, 40, 1001))
 SMOKE_LOG_Q = 29.0          # AdaLog base of the smoke state, not 37
 # qkv weight std: q.k logits of LayerNormed tokens then have a std of about
 # (QKV_STD**2 * dim) * head_dim**0.5 / 8 ~ 2
@@ -268,7 +299,7 @@ def ptxas_report(log_path):
     for m in re.finditer(
             r"Compiling entry function '(\S+)'.*?(\d+) bytes spill stores, "
             r"(\d+) bytes spill loads.*?Used (\d+) registers", txt, re.S):
-        name = re.sub(r"^_ZN\d+_GLOBAL__N_\w+?(?=\d+fq_)", "", m.group(1))
+        name = re.sub(r"^_ZN\d+_GLOBAL__N_\w+?(?=\d+(?:fq_|int8_))", "", m.group(1))
         name = re.sub(r"Ev(PK|P).*$", "", name)      # the argument list
         rows.append((name, int(m.group(4)),
                      int(m.group(2)) + int(m.group(3))))
@@ -277,9 +308,9 @@ def ptxas_report(log_path):
 
 # NVIDIA's published H100 SXM peaks, for the kernels' bounds: device memory
 # rate, fp32 outside the tensor cores (fp32 inputs: the reference's exact
-# fp32 products rule TF32 out) and dense bf16 on the tensor cores
+# fp32 products rule TF32 out), dense bf16 and dense int8 on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 
 
 def bound_ms(nbytes, flops, dtype):
@@ -796,6 +827,119 @@ def gemm_kernel_phase(torch, fq_gemm, device):
     return tuple(sums), worst
 
 
+def int8_inputs(torch, T, K, O, seed, device, bits=4):
+    """[x (T, K) float32, w_int (O, K) int8, a_params (2,), scale_row (O,),
+    bias (O,) float32] from a numpy seed: normal x with min/max uniform
+    activation params, a normal weight (std 0.02) quantized per row by
+    min/max at ``bits`` as a served site's codes, bias std 0.02."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((T, K)).astype(np.float32)
+    lo, hi = min(float(x.min()), 0.0), max(float(x.max()), 0.0)
+    scale = np.float32((hi - lo) / (2 ** bits - 1))
+    a_params = torch.tensor([scale, round(-lo / float(scale))],
+                            dtype=torch.float32)
+    w = torch.from_numpy(0.02 * rng.standard_normal((O, K))).float()
+    lo_w = torch.clamp(w.amin(dim=1, keepdim=True), max=0.0)
+    hi_w = torch.clamp(w.amax(dim=1, keepdim=True), min=0.0)
+    s_w = torch.clamp((hi_w - lo_w) / (2 ** bits - 1), min=1e-8)
+    z_w = torch.round(-lo_w / s_w)
+    w_int = (torch.clamp(torch.round(w / s_w) + z_w, 0.0, 2.0 ** bits - 1)
+             - z_w).to(torch.int8)
+    bias = torch.from_numpy(0.02 * rng.standard_normal(O)).float()
+    return [torch.from_numpy(x).to(device), w_int.to(device),
+            a_params.to(device), (a_params[0] * s_w.reshape(-1)).to(device),
+            bias.to(device)]
+
+
+def int8_bound_ms(T, K, O, dtype):
+    """K5's bound: x read once, the int8 codes, row scales and bias read
+    once, the output written once; 2 T K O integer operations at the int8
+    peak."""
+    item = 4 if dtype == "float32" else 2
+    nbytes = T * K * item + O * K + O * 4 + O * item + 8 + T * O * item
+    return bound_ms(nbytes, 2.0 * T * K * O, "int8")
+
+
+def int8_case(torch, x, w_int, a_params, scale_row, b, tag):
+    """One K5 call against its plain version, bit for bit, with and
+    without the bias, and timed: {"ms": one call a timing, "ms_back_to_back":
+    ten in a row, "ms_graph": ten replayed from a CUDA graph (the device
+    alone), "plain_ms", "library_ms": torch._int_mm on the activation codes,
+    the integer product alone, where it takes the shape (T > 16, K and O
+    multiples of 8), else None, "bound_ms", "bound_by"}."""
+    from adalog_tpu_torch.ops import int8_linear
+
+    (T, K), O, dt = x.shape, w_int.shape[0], str(x.dtype).split(".")[-1]
+    args = (x, w_int, a_params, scale_row)
+    before = int8_linear.int8_gemm.launches
+    got = int8_linear.int8_gemm(*args, b, bits=4)
+    got_nb = int8_linear.int8_gemm(*args, bits=4)
+    want = int8_linear.int8_gemm_plain(*args, b, bits=4)
+    want_nb = int8_linear.int8_gemm_plain(*args, bits=4)
+    torch.cuda.synchronize()
+    check(int8_linear.int8_gemm.launches == before + 2,
+          f"[{tag}] the wrapper did not launch K5")
+    check(tuple(got.shape) == (T, O) and got.dtype == x.dtype,
+          f"[{tag}] kernel output shape/dtype")
+    check(bool(torch.isfinite(got).all()), f"[{tag}] not finite")
+    max_diff = max((got.float() - want.float()).abs().max().item(),
+                   (got_nb.float() - want_nb.float()).abs().max().item())
+    n_diff = int((got != want).sum()) + int((got_nb != want_nb).sum())
+
+    def call():
+        return int8_linear.int8_gemm(*args, b, bits=4)
+
+    r = {"ms": cuda_ms(torch, call),
+         "ms_back_to_back": cuda_ms(torch, call, calls=10),
+         "ms_graph": cuda_graph_ms(torch, call),
+         "plain_ms": cuda_ms(torch, lambda: int8_linear.int8_gemm_plain(
+             *args, b, bits=4)),
+         "library_ms": None}
+    if T > 16 and K % 8 == 0 and O % 8 == 0:
+        codes = int8_linear.activation_codes(x, a_params, bits=4).to(
+            torch.int8)
+        wt = w_int.t()
+        r["library_ms"] = cuda_ms(torch, lambda: torch._int_mm(codes, wt))
+    r["bound_ms"], r["bound_by"] = int8_bound_ms(T, K, O, dt)
+    lib = "n/a (shape)" if r["library_ms"] is None \
+        else f"{r['library_ms']:.4f}"
+    print(f"kernel K5 int8_gemm [{tag}] T={T} K={K} O={O}: outputs differing "
+          f"from the plain version {n_diff} (want 0), max|diff|="
+          f"{max_diff:.3e} kernel_ms={r['ms']:.4f} back_to_back_ms="
+          f"{r['ms_back_to_back']:.4f} graph_ms={r['ms_graph']:.4f} "
+          f"plain_ms={r['plain_ms']:.4f} int_mm_ms(product alone)={lib} "
+          f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})")
+    check(n_diff == 0, f"[{tag}] K5 differs from its plain version in "
+          f"{n_diff} outputs")
+    return r, max_diff
+
+
+def int8_kernel_phase(torch, device):
+    """K5 against its plain version, bit for bit, at INT8_SHAPES in fp32 and
+    bf16. Returns ({key: the fp32 numbers summed over deit_small's four
+    shapes, one block's three int8 sites and the head}, the largest
+    max|diff|)."""
+    worst, sums, bounds = 0.0, {}, []
+    for dt in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt)
+        for i, (site, T, K, O) in enumerate(INT8_SHAPES):
+            x, w_int, prm, srow, b = int8_inputs(torch, T, K, O,
+                                                 SEED + 40 + i, device)
+            r, d = int8_case(torch, x.to(dtype), w_int, prm, srow,
+                             b.to(dtype), f"{dt}, {site}")
+            worst = max(worst, d)
+            if dt == "float32" and site.startswith("deit_small"):
+                bounds.append((r.pop("bound_ms"), r.pop("bound_by")))
+                for k, v in r.items():      # None where one is None
+                    prev = sums.get(k, 0.0)
+                    sums[k] = None if v is None or prev is None else prev + v
+            del x, w_int, b
+            torch.cuda.empty_cache()
+    sums["bound_ms"] = sum(b for b, _ in bounds)
+    sums["bound_by"] = max(bounds)[1]
+    return sums, worst
+
+
 def fold_fc2(torch, model, qstate):
     """Fold the GeLU shift through each fc2's quantized weight into its
     bias (calib/reparam.py), as calibration finishes, and set the flag: fc2
@@ -1046,18 +1190,29 @@ SETTINGS = (("attention kernel", True, False),
 # and the head; swin_tiny 4 a block, 3 reductions and head.fc)
 MODELS = {"deit_small": {"K1": 12, "K4": 49},
           "swin_tiny": {"K1": 12, "K4": 52}}
+# K5 launches a batch with eval_int8: every uniform Linear site (deit_small
+# qkv, proj and fc1 of each block and the head; swin_tiny the same, its 3
+# reductions and head.fc); the AdaLog fc2 sites stay on K4 (12 a batch)
+# with the GEMM switch, else on the plain path
+INT8_MODELS = {"deit_small": 37, "swin_tiny": 40}
+# int8 serving settings: (name, use_pallas, use_pallas_gemm)
+INT8_SETTINGS = (("int8 + attention kernel", True, False),
+                 ("int8 + attention + GEMM kernels", True, True))
 
 
 def wrappers(fq_attn, fq_gemm):
+    from adalog_tpu_torch.ops import int8_linear
+
     return {"K1": fq_attn.fq_flash_attn, "K2": fq_attn.fq_softmax_attn_matmul,
-            "K3": fq_attn.fq_attn_matmul, "K4": fq_gemm.fq_gemm}
+            "K3": fq_attn.fq_attn_matmul, "K4": fq_gemm.fq_gemm,
+            "K5": int8_linear.int8_gemm}
 
 
 def zero_launches(fq_attn, fq_gemm):
     for w in wrappers(fq_attn, fq_gemm).values():
         w.launches = 0
-    for w in wrappers(fq_attn, fq_gemm).values():
-        w.variant_launches.update(mma=0, fma=0)
+        if hasattr(w, "variant_launches"):      # K5 has one variant
+            w.variant_launches.update(mma=0, fma=0)
 
 
 def read_launches(fq_attn, fq_gemm):
@@ -1191,7 +1346,7 @@ def serve_checked(torch, fq_attn, fq_gemm, device, spec, model, qstate, ckpt,
             served[dt, setting] = serve(torch, preds[dt, setting], batches)
         got = read_launches(fq_attn, fq_gemm)
         want = {"K1": per_batch[setting][0] * N_BATCHES * 2, "K2": 0, "K3": 0,
-                "K4": per_batch[setting][1] * N_BATCHES * 2}
+                "K4": per_batch[setting][1] * N_BATCHES * 2, "K5": 0}
         print(f"serving path {tag} '{setting}': launches {got} for 2 x "
               f"{N_BATCHES} batches of {BATCH} (want K1 "
               f"{per_batch[setting][0]}, K4 {per_batch[setting][1]} per "
@@ -1332,7 +1487,7 @@ def fallback_phase(torch, fq_attn, fq_gemm, device, ckpt_dir, name):
         got = read_launches(fq_attn, fq_gemm)
         print(f"fall-back path {name} '{path}': launches {got} (want "
               f"{want})")
-        check(got == {"K1": 0, "K4": 0, **want},
+        check(got == {"K1": 0, "K4": 0, "K5": 0, **want},
               f"{name} '{path}' launches {got}")
         for k in total:
             by_variant = wrappers(fq_attn, fq_gemm)[k].variant_launches
@@ -1509,7 +1664,8 @@ def calibration_phase(torch, fq_attn, fq_gemm, device, ckpt_dir):
     card and on the CPU and compare the two states. Returns serve_checked's
     pair and the warm run's start of a reconstruction: dict(spec, model
     (the raw model), params and qstate before the post-GeLU fold, calib
-    (the warm calibrator), held_out images, mse_calibrated)."""
+    (the warm calibrator), held_out images, mse_calibrated, served: the
+    folded (params, qstate) that was served)."""
     from collections import Counter
 
     from adalog_tpu_torch.models.load import load_state_dict
@@ -1577,6 +1733,7 @@ def calibration_phase(torch, fq_attn, fq_gemm, device, ckpt_dir):
     served = serve_checked(torch, fq_attn, fq_gemm, device, spec, params,
                            qstate, ckpt, batches,
                            tag=f"{CALIB_MODEL} calibrated", require_mma=False)
+    start["served"] = (params, qstate)      # the folded state, for int8
     del params, qstate
     torch.cuda.empty_cache()
 
@@ -1598,6 +1755,172 @@ def calibration_phase(torch, fq_attn, fq_gemm, device, ckpt_dir):
     check(n["moved"] <= MOVED_SHARE * n["scales"],
           f"card vs CPU: {n['moved']} scales past tolerance")
     return served, start
+
+
+# int8 phase: K5 at its shapes, then the calibrated deit_small and the smoke
+# swin_tiny served with eval_int8, each int8 site held to the fake-quant
+# path, one per-site error report and one export round trip. The int8 sites'
+# block check in fp32: the integer sum is exact where the fake-quant GEMM
+# rounds its fp32 products and sums, so the two differ by that rounding
+# (ATOL + INT8_BLOCK_RTOL * |ref|, at most FLIP_SHARE of the outputs past
+# it and none by more than INT8_BLOCK_MAX); the exported program against
+# the plain predictor on the card within EXPORT_ATOL (the same ops; a last
+# bit apart anywhere would move W4A4 codes and whole logits)
+INT8_BLOCK_RTOL = 2e-5
+INT8_BLOCK_MAX = 1e-3
+EXPORT_ATOL = 1e-5
+DIAG_TOP = 5
+
+
+def int8_block_check(torch, spec, model, qstate, x):
+    """Each int8 site of ``model`` (fp32) through K5, as the served path
+    calls it (the table entry), against the fake-quant qlinear on the same
+    inputs: every Linear site's input captured from the raw model on images
+    x. Returns (sites, largest max|diff|, largest share past tolerance)."""
+    from adalog_tpu_torch.calib.calibrator import capture_all_sites
+    from adalog_tpu_torch.calib.layout import quant_layout, tree_get
+    from adalog_tpu_torch.models.layers import qlinear
+    from adalog_tpu_torch.ops import int8_linear
+
+    cfg = w4a4_config()
+    layout = quant_layout(spec, cfg)
+    table = int8_linear.prepare(spec, model, qstate, cfg)
+    check(len(table) == INT8_MODELS[spec.name],
+          f"{spec.name}: {len(table)} int8 sites, want "
+          f"{INT8_MODELS[spec.name]}")
+    taps = capture_all_sites(spec, model, [x], names=list(table))
+    worst = share_max = 0.0
+    with torch.no_grad():
+        for nm, hit in table.items():
+            xin = taps.pop(nm)[0]
+            p = tree_get(model, layout[nm].param_path)
+            xin2 = xin.reshape(-1, xin.shape[-1])
+            got = int8_linear.int8_gemm(xin2, hit.w_int, hit.a_params,
+                                        hit.scale_row, p.bias,
+                                        bits=qstate[nm].aq.bits)
+            want = qlinear(p, qstate[nm], xin2, mode="quant")
+            d, share = compare(got, want, INT8_BLOCK_RTOL)
+            worst, share_max = max(worst, d), max(share_max, share)
+    return len(table), worst, share_max
+
+
+def serve_int8(torch, fq_attn, fq_gemm, device, spec, ckpt, batches, tag):
+    """The state in ``ckpt`` served through load_quantized with eval_int8
+    in INT8_SETTINGS, fp32 and bf16, launch counts asserted (K1 and K5 every
+    batch, K4 on the AdaLog fc2 sites with the GEMM switch); logits checked,
+    img/s printed. Deletes ``ckpt``. Returns the launches of the last
+    setting, the main path."""
+    name = spec.name
+    preds = predictors(ckpt, device, batches[0], name, INT8_SETTINGS,
+                       eval_int8=True)
+    os.remove(ckpt)
+    torch.cuda.synchronize()
+    n_attn, n_int8 = MODELS[name]["K1"], INT8_MODELS[name]
+    n_fc2 = MODELS[name]["K4"] - n_int8
+    launches = None
+    for setting, _, gemm in INT8_SETTINGS:
+        zero_launches(fq_attn, fq_gemm)
+        served = {dt: serve(torch, preds[dt, setting], batches)
+                  for dt in ("float32", "bfloat16")}
+        got = read_launches(fq_attn, fq_gemm)
+        runs = N_BATCHES * 2
+        want = {"K1": n_attn * runs, "K2": 0, "K3": 0,
+                "K4": n_fc2 * runs if gemm else 0, "K5": n_int8 * runs}
+        print(f"serving path {tag} '{setting}': launches {got} for 2 x "
+              f"{N_BATCHES} batches of {BATCH} (want K1 {n_attn}, K4 "
+              f"{n_fc2 if gemm else 0}, K5 {n_int8} per batch: {want})")
+        check(got == want, f"{tag} '{setting}' launches {got} != {want}")
+        for dt, (y, ips) in served.items():
+            check_logits(torch, y, spec, BATCH * N_BATCHES,
+                         f"{tag} {dt} {setting}")
+            print(f"serving {tag} {dt}, {setting}: {ips:.1f} img/s")
+        launches = got
+    return launches
+
+
+def int8_phase(torch, fq_attn, fq_gemm, device, ckpt_dir, start):
+    """K5 against its plain version at INT8_SHAPES; the calibrated
+    deit_small (the calibration phase's folded state) and the smoke
+    swin_tiny: int8 block checks, then served with eval_int8 (serve_int8);
+    then site_error_report on the calibrated deit_small and its export
+    round trip on the card. Returns (the K5 kernel numbers, {kernel:
+    launches of the served paths}, {kernel: worst max|diff|})."""
+    from adalog_tpu_torch.serve import make_predictor
+    from adalog_tpu_torch.utils.checkpoint import save_checkpoint
+    from adalog_tpu_torch.utils.diagnostics import site_error_report
+    from adalog_tpu_torch.utils.export import export_quantized, load_exported
+
+    line = card_line()
+    numbers, worst = int8_kernel_phase(torch, device)
+    spec, (params, qstate) = start["spec"], start.pop("served")
+    cfg = spec.cfg
+    x = torch.from_numpy(start["held_out"]).to(device)
+    launches = {k: 0 for k in ("K1", "K2", "K3", "K4", "K5")}
+    block_worst = 0.0
+    for name in ("deit_small", "swin_tiny"):
+        if name == CALIB_MODEL:
+            spec_m, model, qs = spec, params, qstate
+            batches = [calibration_images(cfg, BATCH, SEED + 9 + i)
+                       for i in range(N_BATCHES)]
+            ckpt = os.path.join(ckpt_dir, f"{name}_calibrated_int8.ckpt")
+            save_checkpoint(ckpt, model, qs, {"model": name})
+            xb = x
+        else:
+            spec_m, model, qs, ckpt, batches = smoke_model(torch, device,
+                                                           ckpt_dir, name)
+            xb = torch.from_numpy(batches[0]).to(device)
+        n, d, share = int8_block_check(torch, spec_m, model, qs, xb)
+        print(f"block check {name} int8 float32: K5 vs the fake-quant path "
+              f"on the inputs of all {n} int8 sites, batch {BATCH}: "
+              f"max|diff|={d:.3e} share_past_tol={share:.3e} (atol={ATOL} "
+              f"rtol={INT8_BLOCK_RTOL}; allowed share {FLIP_SHARE}, max "
+              f"{INT8_BLOCK_MAX})")
+        check(share <= FLIP_SHARE and d <= INT8_BLOCK_MAX,
+              f"{name} int8 block check: max|diff| {d}, share {share}")
+        block_worst = max(block_worst, d)
+        got = serve_int8(torch, fq_attn, fq_gemm, device, spec_m, ckpt,
+                         batches, f"{name} int8")
+        for k, v in got.items():
+            launches[k] += v
+        if name != CALIB_MODEL:
+            del model, qs
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    rows = site_error_report(spec, params, qstate, start["calib"].layout,
+                             [start["held_out"]])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check(len(rows) == len(qstate) and all(
+        np.isfinite(r["quant"]) for r in rows), "site_error_report rows")
+    print(f"diagnostics {CALIB_MODEL} calibrated: site_error_report on "
+          f"{len(start['held_out'])} images, {len(rows)} sites in "
+          f"{secs:.2f} s; top {DIAG_TOP} by full-quantization error:")
+    for r in sorted(rows, key=lambda r: -r["quant"])[:DIAG_TOP]:
+        print("diagnostics   %-28s %-14s w_only %s a_only %s quant %.4f" % (
+            r["site"], r["kind"],
+            *("-" if r[k] is None else f"{r[k]:.4f}"
+              for k in ("w_only", "a_only")), r["quant"]))
+
+    t0 = time.perf_counter()
+    blob = export_quantized(spec, params, qstate, BATCH, device=device)
+    t_export = time.perf_counter() - t0
+    y = load_exported(blob)(start["held_out"])
+    want = make_predictor(spec, params, qstate, cfg=w4a4_config(),
+                          use_kernels=False, device=device)(x)
+    torch.cuda.synchronize()
+    diff = (y - want).abs().max().item()
+    print(f"export {CALIB_MODEL} calibrated, batch {BATCH}: {len(blob)} "
+          f"bytes in {t_export:.2f} s; loaded on the card, logits vs the "
+          f"plain predictor max|diff| {diff:.3e} (allowed {EXPORT_ATOL}); "
+          f"{line}")
+    check(tuple(y.shape) == (BATCH, cfg.num_classes)
+          and y.device == want.device,
+          f"exported logits {tuple(y.shape)} on {y.device}")
+    check(diff <= EXPORT_ATOL, f"exported logits apart by {diff}")
+    del params, qstate, blob
+    torch.cuda.empty_cache()
+    return numbers, launches, {"K5": max(worst, block_worst)}
 
 
 # Reconstruction phase: BRECQ on the calibration phase's warm deit_small
@@ -1995,9 +2318,10 @@ def cli_phase(torch, fq_attn, fq_gemm, device, ckpt_dir):
     run on the same calib_batches and its logged Prec@1 / Prec@5 to
     make_predictor's own; (c) that checkpoint loaded and validated with the
     GEMM kernel on, then exported to a reference .pth and loaded the same
-    way; (d) --load-calibrate-checkpoint --optimize. Launches asserted per
-    validation batch: K1 12 each run, K4 0 (b, d) or 49 (c). Returns
-    ({kernel: launches of the runs}, {kernel: 0.0})."""
+    way; (e) the checkpoint loaded and validated with eval_int8; (d)
+    --load-calibrate-checkpoint --optimize. Launches asserted per
+    validation batch: K1 12 each run, K4 0 (b, d, e) or 49 (c), K5 37 (e)
+    else 0. Returns ({kernel: launches of the runs}, {kernel: 0.0})."""
     import logging
     import shutil
 
@@ -2031,11 +2355,13 @@ def cli_phase(torch, fq_attn, fq_gemm, device, ckpt_dir):
               str(CLI_SEED), "--val-batch-size", str(BATCH)]
     val_batches = -(-CLI_CLASSES * CLI_PER_CLASS // BATCH)
     n_attn, n_linear = MODELS[CLI_MODEL]["K1"], MODELS[CLI_MODEL]["K4"]
-    stages, launches = {}, {k: 0 for k in ("K1", "K2", "K3", "K4")}
+    n_int8 = INT8_MODELS[CLI_MODEL]
+    stages, launches = {}, {k: 0 for k in ("K1", "K2", "K3", "K4", "K5")}
 
-    def expect(got, batches, gemm, tag):
+    def expect(got, batches, gemm, tag, int8=False):
         want = {"K1": n_attn * batches, "K2": 0, "K3": 0,
-                "K4": n_linear * batches if gemm else 0}
+                "K4": n_linear * batches if gemm else 0,
+                "K5": n_int8 * batches if int8 else 0}
         check(got == want, f"cli {tag}: launches {got} != {want}")
         for k, n in got.items():
             launches[k] += n
@@ -2047,8 +2373,10 @@ def cli_phase(torch, fq_attn, fq_gemm, device, ckpt_dir):
             "--config", cfg4, "--calibrate", "--output-dir", out_b],
         "--calibrate")
     expect(got, val_batches, False, "--calibrate")
+    why = native_loader.unavailable_reason()
     print(f"cli: the loader decoded with "
-          f"{'the native library' if native_loader.available() else 'PIL'}")
+          f"{'the native library' if native_loader.available() else 'PIL'}"
+          + ("" if why is None else f"; the native build failed:\n{why}"))
     ckpt = only_file(os.path.join(out_b, "*", f"{CLI_MODEL}_w4_a4_s4_"
                                   f"calibsize_32.ckpt"))
     spec = model_spec(CLI_MODEL)
@@ -2111,6 +2439,19 @@ def cli_phase(torch, fq_attn, fq_gemm, device, ckpt_dir):
     del runs, y
     torch.cuda.empty_cache()
 
+    # (e) the same checkpoint loaded with eval_int8: every validation batch
+    # through K5 at the uniform sites
+    cfg_int8 = write_config(os.path.join(root, "int8_cfg.py"),
+                            eval_int8=True)
+    _, _, got, vals, stages["load .ckpt, eval_int8"] = run_cli(
+        torch, fq_attn, fq_gemm, common + [
+            "--load-calibrate-checkpoint", ckpt,
+            "--test-calibrate-checkpoint", "--config", cfg_int8,
+            "--output-dir", os.path.join(root, "load_int8")],
+        "--load-calibrate-checkpoint .ckpt, eval_int8")
+    expect(got, val_batches, False, "load .ckpt, eval_int8", int8=True)
+    check(len(vals) == 1, f"cli eval_int8 validations {vals}")
+
     # (d) reconstruct the loaded checkpoint (--optimize), cut in depth
     out_d = os.path.join(root, "optimize")
     _, _, got, vals, stages["optimize"] = run_cli(
@@ -2130,7 +2471,7 @@ def cli_phase(torch, fq_attn, fq_gemm, device, ckpt_dir):
     print(json.dumps({"cli": {"model": CLI_MODEL, "card": line,
                               "stages_s": stages,
                               "decoder": "native" if native_loader.available()
-                              else "PIL"}}))
+                              else "PIL", "decoder_error": why}}))
     return launches, {"K1": 0.0, "K4": 0.0}
 
 
@@ -2450,8 +2791,8 @@ def main(argv):
     # just after: serving each model with the attention and GEMM kernels
     # (K1, K4), the three configurations that reach K2 and K3, and the
     # calibrated deit_small served
-    launches = {k: 0 for k in ("K1", "K2", "K3", "K4")}
-    block_worst = dict(launches, K1=0.0, K2=0.0, K3=0.0, K4=0.0)
+    launches = {k: 0 for k in ("K1", "K2", "K3", "K4", "K5")}
+    block_worst = {k: 0.0 for k in launches}
 
     def add(got, errs):
         for k, n in got.items():
@@ -2467,6 +2808,11 @@ def main(argv):
     served, start = calibration_phase(torch, fq_attn, fq_gemm, device,
                                       ckpt_dir)
     add(*served)
+    # the int8 path: K5's cases, then the calibrated deit_small and the
+    # smoke swin_tiny served with eval_int8, diagnostics and export
+    k5, got, errs = int8_phase(torch, fq_attn, fq_gemm, device, ckpt_dir,
+                               start)
+    add(got, errs)
     add(*reconstruction_phase(torch, fq_attn, fq_gemm, device, ckpt_dir,
                               start))
     # the reference-compatible CLI: calibrate, load (.ckpt and .pth) and
@@ -2482,15 +2828,16 @@ def main(argv):
                  if (site, kind) != ("fc2", "uniform")]
 
     def entry(name, source, replaces, key, err, ms, plain_ms, bound, by,
-              **more):
-        # library_ms: no single PyTorch call computes any of the four (the
-        # fake quantizers sit inside the products), so there is none to time
+              library_ms=None, **more):
+        # library_ms: no single PyTorch call computes K1-K4 (the fake
+        # quantizers sit inside the products), so there is none to time;
+        # K5's is torch._int_mm on the activation codes, the product alone
         return {"name": name, "route": "cuda", **more,
                 "source": f"adalog_tpu_torch/csrc/{source}.cu",
                 "replaces": f"adalog_tpu/ops/{replaces}",
                 "launches": launches[key], "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                "library_ms": None}
+                "library_ms": library_ms}
 
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - started:.1f} s")
@@ -2520,7 +2867,14 @@ def main(argv):
               sum(b for b, _ in k4_bounds), max(k4_bounds)[1],
               # ms is one call a timing and ms_back_to_back ten in a row,
               # both with the wrapper's host time; ms_graph the device alone
-              variant="mma", ms_back_to_back=gq_ms, ms_graph=gg_ms)]}))
+              variant="mma", ms_back_to_back=gq_ms, ms_graph=gg_ms),
+        # K5: times summed over deit_small's three block sites and the head
+        # (fp32), as K4's
+        entry("int8_gemm", "int8_gemm", "int8_linear.py:117", "K5",
+              block_worst["K5"], k5["ms"], k5["plain_ms"], k5["bound_ms"],
+              k5["bound_by"], library_ms=k5["library_ms"],
+              ms_back_to_back=k5["ms_back_to_back"],
+              ms_graph=k5["ms_graph"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

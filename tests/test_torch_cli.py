@@ -31,6 +31,7 @@ import torch
 
 import adalog_tpu.cli as j_cli
 import adalog_tpu.data.imagenet as j_data
+import adalog_tpu.ops.int8_linear as j_int8
 import adalog_tpu.utils.cache as j_cache
 import adalog_tpu.utils.metrics as j_metrics
 import adalog_tpu_torch
@@ -39,6 +40,7 @@ import adalog_tpu_torch.utils.metrics as p_metrics
 from adalog_tpu_torch import cli
 from adalog_tpu_torch.models import zoo
 from adalog_tpu_torch.models.zoo import model_forward_fn
+from adalog_tpu_torch.ops import int8_linear
 from adalog_tpu_torch.serve import make_predictor
 from adalog_tpu_torch.utils import profiling
 from adalog_tpu_torch.utils.config import load_config
@@ -353,12 +355,36 @@ def test_cli_multi_device_not_ported(tiny, flags):
         cli.main(_args(tmp_path, config, calibrate=True, **flags))
 
 
-def test_cli_int8_not_ported(tiny):
+def test_cli_int8_not_ported(tiny, monkeypatch):
+    """A config with eval_int8: the port's CLI validates every supported
+    Linear site as an integer product (int8_gemm), and a loaded checkpoint
+    validates as the JAX package's CLI does with its int8 switch: top-1 and
+    top-5 equal, the loss within LOSS_RTOL. The JAX switch is process-global
+    (its later forwards all run int8), so the JAX run only loads."""
     tmp_path, config = tiny
     with open(config, "a") as f:
         f.write("        self.eval_int8 = True\n")
-    with pytest.raises(NotImplementedError, match="int8"):
-        cli.main(_args(tmp_path, config, calibrate=True))
+    _small_synthetic(monkeypatch, j_data)
+    monkeypatch.setattr(j_cache, "enable_compilation_cache", lambda: None)
+    monkeypatch.setattr(j_int8, "_ENABLED", False)   # restored afterwards
+    p_seen = _record_validate(monkeypatch, p_metrics)
+    j_seen = _record_validate(monkeypatch, j_metrics)
+    calls = int8_linear.int8_gemm.calls
+    cli.main(_args(tmp_path, config, calibrate=True,
+                   output_dir=os.path.join(tmp_path, "p")))
+    # test_tiny: qkv, proj and fc1 of both blocks and the head (fc2 is an
+    # AdaLog site), on 2 validation batches
+    assert int8_linear.int8_gemm.calls - calls == 7 * 2
+    ckpt, = glob.glob(os.path.join(tmp_path, "p", "*", "*.ckpt"))
+    load = dict(load_calibrate_checkpoint=ckpt, test_calibrate_checkpoint=True)
+    cli.main(_args(tmp_path, config, **load,
+                   output_dir=os.path.join(tmp_path, "p2")))
+    j_cli.main(_args(tmp_path, config, parser=j_cli.get_args_parser, **load,
+                     output_dir=os.path.join(tmp_path, "j")))
+    assert j_int8.enabled()
+    (lp, t1p, t5p), (lj, t1j, t5j) = p_seen[-1], j_seen[-1]
+    assert (t1p, t5p) == (t1j, t5j)
+    np.testing.assert_allclose(lp, lj, rtol=LOSS_RTOL)
 
 
 @pytest.mark.parametrize("flags", [

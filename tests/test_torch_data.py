@@ -283,3 +283,26 @@ def test_average_meter():
     m.update(2.0, 3)
     m.update(4.0, 1)
     assert (m.val, m.sum, m.count, m.avg) == (4.0, 10.0, 4, 2.5)
+
+
+def test_native_build_failure_keeps_the_compiler_tail(monkeypatch, caplog):
+    """A failed build leaves decoding to PIL and keeps why: the error's
+    first line and the tail of the compiler's output, also in the log."""
+    lines = [f"adalog_data.cpp:{i}: note: context line" for i in range(50)]
+    err = "\n".join(["adalog_data.cpp: g++ failed (1):"] + lines
+                    + ["fatal error: jpeglib.h: No such file or directory"])
+
+    def fail():
+        raise RuntimeError(err)
+
+    monkeypatch.setattr(p_native, "build", fail)
+    monkeypatch.setattr(p_native, "_tried", False)
+    monkeypatch.setattr(p_native, "_lib", None)
+    monkeypatch.setattr(p_native, "_reason", None)
+    with caplog.at_level(logging.INFO, logger="adalog_tpu_torch"):
+        assert not p_native.available()
+    why = p_native.unavailable_reason().splitlines()
+    assert why[0] == "adalog_data.cpp: g++ failed (1):"
+    assert why[-1] == "fatal error: jpeglib.h: No such file or directory"
+    assert len(why) == 1 + p_native.ERROR_TAIL_LINES
+    assert "jpeglib.h: No such file" in caplog.text

@@ -1,0 +1,422 @@
+"""The port's int8 path (ops/int8_linear.py, its dispatch in qlinear and the
+predictor's table) against adalog_tpu's on the CPU, case for case of
+tests/test_int8_path.py.
+
+The same numpy inputs go to both packages. JAX's ``int8_qlinear`` runs
+eagerly, one XLA program an operation, so its epilogue rounds the product
+and the sum apart as the port's plain version does: codes and outputs are
+held bit for bit. Whole forwards are held to the serving tests' LOGIT_TOL:
+the jitted JAX forward may fuse that product and sum, and the two packages'
+fp32 GEMMs and quantizers elsewhere sum in other orders.
+"""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from adalog_tpu.calib.init_state import init_qstate as j_init_qstate
+from adalog_tpu.models.layers import LinearP as JLinearP
+from adalog_tpu.models.layers import LinearSite as JLinearSite
+from adalog_tpu.models.zoo import build_model as j_build_model
+from adalog_tpu.models.zoo import model_forward_fn as j_forward_fn
+from adalog_tpu.ops import int8_linear as j_int8
+from adalog_tpu.quantizers.state import QuantizerState as JQState
+from adalog_tpu.quantizers.state import WeightQuantizerState as JWQState
+from adalog_tpu.serve import make_predictor as j_make_predictor
+from adalog_tpu.utils.config import Config as JConfig
+from adalog_tpu_torch.models import zoo
+from adalog_tpu_torch.models.layers import LinearSite, qlinear
+from adalog_tpu_torch.ops import fq_gemm, int8_linear, weight_prep
+from adalog_tpu_torch.serve import make_predictor
+from adalog_tpu_torch.utils.config import Config
+from adalog_tpu_torch.utils.interop import from_jax, qstate_from_tree
+
+torch.set_num_threads(1)
+
+W4A4 = dict(w_bit=4, a_bit=4, s_bit=4, qhead_a_bit=4)
+# logits of whole forwards, as tests/test_torch_vit_serve.py holds them
+LOGIT_TOL = 1e-5
+# int8 against the fake-quant path of the same package: the fake-quant
+# products are fp32-rounded, the integer ones exact (JAX's own bound)
+FAKE_QUANT_TOL = 2e-5
+MODELS = ("test_tiny", "test_tiny_swin")
+
+
+@pytest.fixture(autouse=True)
+def jax_int8_off():
+    """JAX's switch is process-global: every test leaves it off."""
+    yield
+    j_int8.set_enabled(False)
+
+
+def _site(rng, O, n_V=1, bits=4):
+    """tests/test_int8_path.py's site: a JAX LinearSite and the port's."""
+    N = 2 ** (bits - 1)
+    V, R = n_V, O // n_V
+    j = JLinearSite(
+        wq=JWQState(
+            scale=jnp.asarray(0.02 + 0.01 * rng.random((V, R, 1)),
+                              jnp.float32),
+            zero_point=jnp.asarray(
+                rng.integers(N - 2, N + 2, (V, R, 1)).astype(np.float32)),
+            bits=bits, symmetric=False),
+        aq=JQState(scale=jnp.full((1,), 0.07, jnp.float32),
+                   zero_point=jnp.full((1,), float(N - 1), jnp.float32),
+                   kind="uniform", bits=bits, symmetric=False),
+        n_V=n_V)
+    return j, qstate_from_tree({"s": jax.tree_util.tree_map(np.asarray,
+                                                            j)})["s"]
+
+
+def _linear(rng, O, I, bias=True):
+    """(JAX LinearP, the port's nn.Linear) of the same numpy weights."""
+    w = (rng.standard_normal((O, I)) * 0.2).astype(np.float32)
+    b = rng.standard_normal(O).astype(np.float32) if bias else None
+    lin = torch.nn.Linear(I, O, bias=bias).requires_grad_(False)
+    with torch.no_grad():
+        lin.weight.copy_(torch.from_numpy(w))
+        if bias:
+            lin.bias.copy_(torch.from_numpy(b))
+    return JLinearP(w=jnp.asarray(w),
+                    b=None if b is None else jnp.asarray(b)), lin
+
+
+def _x(rng, T, I):
+    return rng.standard_normal((T, I)).astype(np.float32)
+
+
+CASES = [(3, 1), (4, 3), (6, 1)]
+
+
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("bits,n_V", CASES)
+def test_int8_equals_jax_bit_for_bit(rng, bits, n_V, bias):
+    """Weight codes, row scales and outputs equal JAX's int8_qlinear."""
+    T, I, O = 24, 16, 12
+    jp, lin = _linear(rng, O, I, bias)
+    jsite, site = _site(rng, O, n_V, bits)
+    x = _x(rng, T, I)
+
+    j_w, j_s = j_int8.weight_codes(jp, jsite)
+    w_int, s_row = int8_linear.weight_codes(lin.weight, site)
+    assert w_int.dtype == torch.int8
+    np.testing.assert_array_equal(w_int.numpy(), np.asarray(j_w))
+    np.testing.assert_array_equal(s_row.numpy(), np.asarray(j_s))
+
+    want = np.asarray(j_int8.int8_qlinear(jp, jsite, jnp.asarray(x)))
+    got = int8_linear.int8_qlinear(lin, site, torch.from_numpy(x))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("bits,n_V", CASES)
+def test_int8_activation_codes_equal_jax(rng, bits, n_V):
+    """The activation codes, read through an identity weight (codes 1 at
+    row scale 1): equal JAX's bit for bit on inputs spread past the clamp."""
+    T, I = 24, 16
+    jsite, site = _site(rng, I, n_V, bits)
+    x = 3 * _x(rng, T, I)
+    ident = JWQState(scale=jnp.ones((1, I, 1), jnp.float32),
+                     zero_point=jnp.zeros((1, I, 1), jnp.float32), bits=2,
+                     symmetric=False)
+    want = np.asarray(j_int8.int8_qlinear(
+        JLinearP(w=jnp.eye(I, dtype=jnp.float32), b=None),
+        jsite.replace(wq=ident, n_V=1), jnp.asarray(x)))
+    aq = site.aq
+    a_params = torch.stack([aq.scale.reshape(()), aq.zero_point.reshape(())])
+    codes = int8_linear.activation_codes(torch.from_numpy(x), a_params,
+                                         bits=bits)
+    got = int8_linear.int8_gemm(torch.from_numpy(x),
+                                torch.eye(I, dtype=torch.int8), a_params,
+                                aq.scale.reshape(()) * torch.ones(I),
+                                bits=bits)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), (codes * aq.scale).numpy())
+    assert codes.min() == -round(float(aq.zero_point))
+    assert codes.max() == 2 ** bits - 1 - round(float(aq.zero_point))
+
+
+@pytest.mark.parametrize("bits,n_V", CASES)
+def test_int8_matches_fake_quant(rng, bits, n_V):
+    """int8 against the port's own fake-quant qlinear (JAX's bound)."""
+    T, I, O = 24, 16, 12
+    _, lin = _linear(rng, O, I)
+    _, site = _site(rng, O, n_V, bits)
+    x = torch.from_numpy(_x(rng, T, I))
+    got = int8_linear.int8_qlinear(lin, site, x)
+    with torch.no_grad():
+        want = qlinear(lin, site, x, mode="quant")
+    np.testing.assert_allclose(got.numpy(), want.numpy(),
+                               rtol=FAKE_QUANT_TOL, atol=FAKE_QUANT_TOL)
+
+
+@pytest.mark.parametrize("bits,n_V", [(4, 3), (6, 1)])
+def test_int8_prepared_weights_identical(rng, bits, n_V):
+    """Codes from the active table give the per-call result bit for bit."""
+    T, I, O = 24, 16, 12
+    _, lin = _linear(rng, O, I)
+    _, site = _site(rng, O, n_V, bits)
+    x = torch.from_numpy(_x(rng, T, I))
+    want = int8_linear.int8_qlinear(lin, site, x)
+    hit = int8_linear.site_weights(lin.weight, site)
+    w_int, s_row = int8_linear.weight_codes(lin.weight, site)
+    assert torch.equal(hit.w_int, w_int)
+    assert torch.equal(hit.scale_row, site.aq.scale.reshape(()) * s_row)
+    calls = int8_linear.int8_gemm.calls
+    with int8_linear.activate({"ln": hit}):
+        got = int8_linear.int8_qlinear(lin, site, x, name="ln")
+        via_qlinear = qlinear(lin, site, x, mode="quant", name="ln")
+    assert int8_linear.int8_gemm.calls == calls + 2
+    assert torch.equal(got, want) and torch.equal(via_qlinear, want)
+
+
+def test_int8_prepared_shape_mismatch_recomputes(rng):
+    """A table entry of another shape is not used: the codes of the weight
+    at hand are computed per call (JAX's fallback for a weight shard)."""
+    T, I, O, bits = 24, 16, 12, 4
+    jp, lin = _linear(rng, O, I)
+    jsite, site = _site(rng, O, 1, bits)
+    x = _x(rng, T, I)
+    half = torch.nn.Linear(I, O // 2).requires_grad_(False)
+    with torch.no_grad():
+        half.weight.copy_(lin.weight[: O // 2])
+        half.bias.copy_(lin.bias[: O // 2])
+    wq = site.wq
+    site_h = LinearSite(wq=type(wq)(scale=wq.scale[:, : O // 2],
+                                    zero_point=wq.zero_point[:, : O // 2],
+                                    bits=wq.bits, symmetric=False),
+                        aq=site.aq, n_V=1)
+    want = int8_linear.int8_qlinear(half, site_h, torch.from_numpy(x))
+    table = {"ln": int8_linear.site_weights(lin.weight, site)}   # full (O, I)
+    with int8_linear.activate(table):
+        assert int8_linear.lookup("ln", half.weight.shape) is None
+        got = int8_linear.int8_qlinear(half, site_h, torch.from_numpy(x),
+                                       name="ln")
+    assert got.shape == (T, O // 2)
+    assert torch.equal(got, want)
+    # and the same shard through JAX's fallback
+    jp_h = JLinearP(w=jp.w[: O // 2], b=jp.b[: O // 2])
+    jsite_h = jsite.replace(wq=jsite.wq.replace(
+        scale=jsite.wq.scale[:, : O // 2],
+        zero_point=jsite.wq.zero_point[:, : O // 2]))
+    with j_int8.activate({"ln": j_int8.weight_codes(jp, jsite)}):
+        j_got = j_int8.int8_qlinear(jp_h, jsite_h, jnp.asarray(x), name="ln")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(j_got))
+
+
+def test_int8_tables_isolated_across_predictors(rng):
+    """Two models' tables, each entered by its own predictor, never mix, in
+    whatever order the predictors first run; outside both, qlinear takes the
+    fake-quant path."""
+    T, I, O, bits = 8, 16, 12, 4
+    _, site = _site(rng, O, 1, bits)
+    x = torch.from_numpy(_x(rng, T, I))
+
+    def make_model(seed):
+        _, lin = _linear(np.random.default_rng(seed), O, I, bias=False)
+        table = {"ln": int8_linear.site_weights(lin.weight, site)}
+
+        def predict(xx):
+            with int8_linear.activate(table):
+                return qlinear(lin, site, xx, mode="quant", name="ln")
+        return lin, predict
+
+    lin1, pred1 = make_model(1)
+    lin2, pred2 = make_model(2)
+    out2, out1 = pred2(x), pred1(x)
+    assert torch.equal(out1, int8_linear.int8_qlinear(lin1, site, x))
+    assert torch.equal(out2, int8_linear.int8_qlinear(lin2, site, x))
+    assert not torch.equal(out1, out2)
+    assert not int8_linear.enabled()
+    calls = int8_linear.int8_gemm.calls
+    with torch.no_grad():
+        qlinear(lin1, site, x, mode="quant", name="ln")
+    assert int8_linear.int8_gemm.calls == calls
+
+
+def test_int8_bf16_codes_from_cast_weights(rng):
+    """Codes of the bf16-cast weights equal JAX's prepare with
+    cast_dtype=bfloat16, and serve a bf16 weight bit for bit as JAX."""
+    T, I, O, bits = 24, 16, 12, 4
+    jp, lin = _linear(rng, O, I)
+    jsite, site = _site(rng, O, 1, bits)
+    x = _x(rng, T, I)
+    j_w, j_s = j_int8.weight_codes(jp, jsite, cast_dtype=jnp.bfloat16)
+    lin_bf = torch.nn.Linear(I, O).requires_grad_(False)
+    with torch.no_grad():
+        lin_bf.weight = torch.nn.Parameter(lin.weight.to(torch.bfloat16),
+                                           requires_grad=False)
+        lin_bf.bias.copy_(lin.bias)
+    w_int, s_row = int8_linear.weight_codes(lin_bf.weight, site)
+    np.testing.assert_array_equal(w_int.numpy(), np.asarray(j_w))
+    np.testing.assert_array_equal(s_row.numpy(), np.asarray(j_s))
+    p_bf = JLinearP(w=jp.w.astype(jnp.bfloat16), b=jp.b)
+    want = np.asarray(j_int8.int8_qlinear(p_bf, jsite, jnp.asarray(x)))
+    with int8_linear.activate({"ln": int8_linear.site_weights(lin_bf.weight,
+                                                              site)}):
+        got = int8_linear.int8_qlinear(lin_bf, site, torch.from_numpy(x),
+                                       name="ln")
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_int8_bf16_inputs_round_once(rng):
+    """bf16 x and bias: the fp32 epilogue rounded once to bf16, equal to
+    JAX's int8_qlinear on the same bf16 values."""
+    T, I, O, bits = 24, 16, 12, 4
+    jp, lin = _linear(rng, O, I)
+    jsite, site = _site(rng, O, 3, bits)
+    x = torch.from_numpy(_x(rng, T, I)).to(torch.bfloat16)
+    lin_bf = torch.nn.Linear(I, O).to(torch.bfloat16).requires_grad_(False)
+    with torch.no_grad():
+        lin_bf.weight.copy_(lin.weight)
+        lin_bf.bias.copy_(lin.bias)
+    got = int8_linear.int8_qlinear(lin_bf, site, x)
+    assert got.dtype == torch.bfloat16
+    p_bf = JLinearP(w=jp.w.astype(jnp.bfloat16), b=jp.b.astype(jnp.bfloat16))
+    want = j_int8.int8_qlinear(p_bf, jsite,
+                               jnp.asarray(x.float().numpy(), jnp.bfloat16))
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
+
+
+def _uniform_state(name):
+    """JAX model ``name`` (seed 0) and its init_qstate at W4A4 with every
+    uniform activation at scale 0.05, zero point 8 (as
+    tests/test_int8_path.py sets them), in both packages."""
+    spec, params = j_build_model(name, seed=0)
+    qstate = j_init_qstate(spec, JConfig(**W4A4), params)
+    for nm, site in list(qstate.items()):
+        if hasattr(site, "aq") and site.aq.kind == "uniform" and \
+                site.aq.zero_point is not None:
+            qstate[nm] = site.replace(aq=site.aq.replace(
+                scale=jnp.full_like(site.aq.scale, 0.05),
+                zero_point=jnp.full_like(site.aq.zero_point, 8.0)))
+    np_params = jax.tree_util.tree_map(np.asarray, params)
+    np_q = jax.tree_util.tree_map(np.asarray, qstate)
+    port_spec = zoo.model_spec(name)
+    model, tq = from_jax(port_spec.cfg, np_params, np_q)
+    return spec, params, qstate, port_spec, model, tq
+
+
+def _images(spec, seed, n=2):
+    s = spec.cfg.img_size
+    return np.random.default_rng(seed).standard_normal(
+        (n, s, s, 3)).astype(np.float32)
+
+
+@pytest.mark.parametrize("name", MODELS)
+def test_int8_prepare_walks_model_as_jax(name):
+    """The port's table holds the sites of JAX's prepare with their codes
+    bit for bit, and the forward with it equals the forward with per-call
+    codes bit for bit."""
+    jspec, jparams, jq, spec, model, tq = _uniform_state(name)
+    cfg = Config(**W4A4)
+    j_table = j_int8.prepare(jspec, jparams, jq, JConfig(**W4A4))
+    table = int8_linear.prepare(spec, model, tq, cfg)
+    assert set(table) == set(j_table) and len(table) >= 4, sorted(table)
+    for nm, (j_w, j_s) in j_table.items():
+        np.testing.assert_array_equal(table[nm].w_int.numpy(),
+                                      np.asarray(j_w))
+        np.testing.assert_array_equal(
+            table[nm].scale_row.numpy(),
+            np.asarray(jq[nm].aq.scale.reshape(()) * j_s))
+    fwd = zoo.model_forward_fn(spec)
+    x = torch.from_numpy(_images(spec, 3))
+    with torch.no_grad():
+        with int8_linear.activate(table):
+            got = fwd(spec.cfg, model, x, tq, {"*": "quant"})
+        with int8_linear.activate({}):
+            per_call = fwd(spec.cfg, model, x, tq, {"*": "quant"})
+    assert torch.equal(got, per_call)
+
+
+@pytest.mark.parametrize("eval_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", MODELS)
+def test_int8_predictor_matches_jax(name, eval_dtype):
+    """make_predictor(use_int8=True) against JAX's predictor with its
+    int8_prep table on the same state and images; the int8 sites take
+    neither the weight-prep table nor the fused GEMM."""
+    jspec, jparams, jq, spec, model, tq = _uniform_state(name)
+    x = _images(spec, 4)
+    j_int8.set_enabled(True)
+    prep = j_int8.prepare(jspec, jparams, jq, JConfig(**W4A4),
+                          cast_dtype=eval_dtype)
+    want = np.asarray(j_make_predictor(jspec, jparams, jq,
+                                       eval_dtype=eval_dtype, int8_prep=prep,
+                                       cfg=JConfig(**W4A4))(jnp.asarray(x)))
+    j_int8.set_enabled(False)
+    calls = int8_linear.int8_gemm.calls
+    predict = make_predictor(spec, model, tq, eval_dtype=eval_dtype,
+                             cfg=Config(**W4A4), use_int8=True,
+                             use_gemm_kernels=True, device="cpu")
+    got = predict(x).numpy()
+    n_int8 = int8_linear.int8_gemm.calls - calls
+    assert n_int8 == len(prep), (n_int8, sorted(prep))
+    tol = LOGIT_TOL if eval_dtype == "float32" else 2.0 ** -7
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+
+
+def test_int8_sites_skip_weight_prep_and_fused_gemm():
+    """The skip sets: an int8 site holds no fake-quantized weight and no
+    fused GEMM entry; every other Linear site keeps both."""
+    _, _, _, spec, model, tq = _uniform_state("test_tiny")
+    cfg = Config(**W4A4)
+    table = int8_linear.prepare(spec, model, tq, cfg)
+    skip = set(table)
+    full = weight_prep.prepare(spec, model, tq, cfg)
+    kept = weight_prep.prepare(spec, model, tq, cfg, skip=skip)
+    assert set(kept) == set(full) - skip and skip <= set(full)
+    gemm_full = fq_gemm.prepare(tq)
+    gemm_kept = fq_gemm.prepare(tq, skip=skip)
+    assert skip & set(gemm_full) and set(gemm_kept) == set(gemm_full) - skip
+
+
+def test_int8_supports_as_jax(rng):
+    """supports() answers as JAX's for the uniform site, and no for what
+    JAX refuses: 8 bits, a per-channel activation scale, an AdaRound alpha,
+    a mode other than quant."""
+    jsite, site = _site(rng, 12, 1, 4)
+    j_int8.set_enabled(True)
+    assert int8_linear.supports(site, "quant") == j_int8.supports(jsite,
+                                                                  "quant")
+    assert not int8_linear.supports(site, "w_only")
+    wq, aq = site.wq, site.aq
+    for bad in (LinearSite(wq=wq, aq=type(aq)(**{**aq.__dict__, "bits": 8})),
+                LinearSite(wq=type(wq)(**{**wq.__dict__, "bits": 8}), aq=aq),
+                LinearSite(wq=wq, aq=type(aq)(**{**aq.__dict__,
+                                                 "scale": aq.scale.repeat(3)})),
+                LinearSite(wq=type(wq)(**{**wq.__dict__,
+                                          "alpha": torch.zeros(1, 12, 16)}),
+                           aq=aq)):
+        assert not int8_linear.supports(bad, "quant")
+
+
+def test_int8_prepare_refuses_codes_past_int8():
+    """A zero point that would give codes past ±127 raises where the table
+    is built, not in a served call."""
+    _, _, _, spec, model, tq = _uniform_state("test_tiny")
+    name = "blocks.0.attn.qkv"
+    aq = tq[name].aq
+    tq[name] = LinearSite(wq=tq[name].wq, n_V=tq[name].n_V,
+                          aq=type(aq)(**{**aq.__dict__, "bits": 7,
+                                         "zero_point": aq.zero_point - 10.0}))
+    with pytest.raises(ValueError, match="past int8"):
+        int8_linear.prepare(spec, model, tq, Config(**W4A4))
+
+
+def test_int8_wrapper_checks():
+    x = torch.zeros(4, 8)
+    w = torch.zeros(3, 8, dtype=torch.int8)
+    prm, s = torch.tensor([0.1, 3.0]), torch.ones(3)
+    with pytest.raises(TypeError):
+        int8_linear.int8_gemm(x, w.float(), prm, s, bits=4)
+    with pytest.raises(TypeError):
+        int8_linear.int8_gemm(x, w, prm, s, torch.zeros(3).double(), bits=4)
+    with pytest.raises(ValueError):
+        int8_linear.int8_gemm(x, w[:, :4], prm, s, bits=4)
+    with pytest.raises(ValueError):
+        int8_linear.int8_gemm(x, w, prm, s, bits=8)
+    with pytest.raises(RuntimeError, match="no path"):
+        int8_linear.int8_gemm(x.to("meta"), w.to("meta"), prm.to("meta"),
+                              s.to("meta"), bits=4)

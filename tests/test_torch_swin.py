@@ -522,6 +522,35 @@ def test_unported_swin_paths_raise(jax_calibrated, tmp_path):
     j_checkpoint.save_checkpoint(path, params, qstate)
     with pytest.raises(NotImplementedError):
         load_quantized("test_tiny_swin", path, device="cpu", mesh_devices=2)
-    with pytest.raises(NotImplementedError):
-        load_quantized("test_tiny_swin", path, device="cpu",
-                       config=Config(**W4A4, eval_int8=True))
+
+
+def test_load_quantized_int8_matches_jax(jax_calibrated, tmp_path):
+    """Config(eval_int8=True) serves: every site of JAX's int8 table runs as
+    an integer product (int8_gemm), once a call, and the logits match the
+    JAX package's predictor with its int8 table and switch."""
+    from adalog_tpu.models.zoo import model_spec as j_model_spec
+    from adalog_tpu.ops import int8_linear as j_int8
+    from adalog_tpu.serve import make_predictor as j_make_predictor
+    from adalog_tpu_torch.ops import int8_linear
+
+    params, qstate = jax_calibrated
+    path = str(tmp_path / "m.ckpt")
+    j_checkpoint.save_checkpoint(path, params, qstate)
+    x = _images(15)
+    predict, *_ = load_quantized("test_tiny_swin", path, device="cpu",
+                                 config=Config(**W4A4, eval_int8=True))
+    calls = int8_linear.int8_gemm.calls
+    got = predict(x).numpy()
+    n = int8_linear.int8_gemm.calls - calls
+    jspec = j_model_spec("test_tiny_swin")
+    jp, jq = (jax.tree_util.tree_map(jnp.asarray, t) for t in (params, qstate))
+    table = j_int8.prepare(jspec, jp, jq, JConfig(**W4A4))
+    j_int8.set_enabled(True)
+    try:
+        want = np.asarray(j_make_predictor(jspec, jp, jq, int8_prep=table,
+                                           cfg=JConfig(**W4A4))(
+            jnp.asarray(x)))
+    finally:
+        j_int8.set_enabled(False)
+    assert n == len(table) > 0, (n, sorted(table))
+    np.testing.assert_allclose(got, want, rtol=LOGIT_TOL, atol=LOGIT_TOL)
