@@ -5,7 +5,7 @@
       [--test-calibrate-checkpoint] [--optimize | --load-optimize-checkpoint P]
       [--test-optimize-checkpoint] [--calib-size N] [--calib-batch-size N]
       [--val-batch-size N] [--w_bit N] [--a_bit N] [--s_bit N] [--seed N]
-      [--device cuda|cpu]
+      [--device cuda|cpu] [--mesh-devices N [--mesh-tp T]]
 
 The counterpart of ``adalog_tpu.cli``, flag for flag: the mutually exclusive
 calibrate / load groups, the timestamped run dir with collision retry
@@ -19,8 +19,25 @@ predictor all run there, and with no card the run raises unless
 ``--device cpu`` is given. A config's ``eval_int8`` serves every validation
 through the int8 GEMM (ops/int8_linear.py); unlike the JAX package's
 process-global switch it reaches the predictors only, never calibration or
-reconstruction. One device only: ``--mesh-devices`` above one and
-``--mesh-tp`` above one raise NotImplementedError.
+reconstruction.
+
+Multi-device eval runs one process per rank:
+
+  torchrun --nproc-per-node N -m adalog_tpu_torch.cli ... \
+      --load-calibrate-checkpoint P --test-calibrate-checkpoint \
+      --mesh-devices N [--mesh-tp T]
+
+``--mesh-devices`` must equal the run's rank count (or be -1: all of them)
+and ``--mesh-tp`` divide it, else the run exits, as the JAX package's does.
+Every rank runs the same loader and validation; the predictor splits each
+batch over dp and, with T > 1, slices weights and heads over tp
+(serve.py, parallel/). ``--device cuda`` puts each rank on
+cuda:{LOCAL_RANK} with nccl, ``--device cpu`` runs gloo ranks on the CPU.
+The fused attention kernel stays on, the fused GEMM stays off under a mesh
+(as in the JAX package) and ``eval_int8`` is honoured. Only rank 0 logs,
+writes the run dir and its checkpoints. Calibration and reconstruction over
+a mesh are not ported: ``--calibrate`` and ``--optimize`` with
+``--mesh-devices`` raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -95,10 +112,11 @@ def get_args_parser():
                         "interrupted run restarts where it left off (the "
                         "JAX package's framed file format)")
     p.add_argument("--mesh-devices", type=int, default=0,
-                   help="0, 1 or -1 (all local devices) on one device; "
-                        "more devices are not ported")
+                   help="ranks of a multi-process eval (torchrun), -1 for "
+                        "all of them; 0 or 1 runs on one device")
     p.add_argument("--mesh-tp", type=int, default=1,
-                   help="tensor-parallel eval factor; only 1 is ported")
+                   help="tensor-parallel eval factor; must divide "
+                        "--mesh-devices")
     return p
 
 
@@ -134,17 +152,32 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def check_mesh(args, device: torch.device):
-    """One device: --mesh-devices 0, 1 or -1 (all local devices, one here)
-    and --mesh-tp 1; anything else is multi-device, not ported."""
-    n = args.mesh_devices
+def check_mesh(args):
+    """(dp, tp) of the run's eval mesh, or None on one device. Exits as the
+    JAX package's CLI does when --mesh-tp does not divide --mesh-devices, or
+    when --mesh-devices is not the run's rank count; raises
+    NotImplementedError for calibration and reconstruction over a mesh."""
+    from adalog_tpu_torch.parallel.mesh import world_size
+
+    n, tp = args.mesh_devices, max(1, args.mesh_tp)
     if n == -1:
-        n = torch.cuda.device_count() if device.type == "cuda" else 1
-    if n > 1 or args.mesh_tp > 1:
+        n = world_size()
+    if tp > 1 and (n <= 1 or n % tp):
+        raise SystemExit(f"--mesh-tp {tp} must divide --mesh-devices")
+    if n <= 1:
+        return None
+    if n != world_size():
+        raise SystemExit(
+            f"--mesh-devices {n}: this run has {world_size()} rank(s); "
+            f"launch it as torchrun --nproc-per-node {n} -m "
+            "adalog_tpu_torch.cli ...")
+    if args.calibrate or args.optimize:
         raise NotImplementedError(
-            f"--mesh-devices {args.mesh_devices} / --mesh-tp {args.mesh_tp}: "
-            "multi-device calibration and serving are not ported to PyTorch "
-            "yet")
+            "--calibrate / --optimize over a mesh: calibration and BRECQ "
+            "reconstruction over torch.distributed are the next slice of "
+            "the port; calibrate on one device, then evaluate the "
+            "checkpoint with --load-calibrate-checkpoint over the mesh")
+    return n // tp, tp
 
 
 def main(args):
@@ -162,10 +195,22 @@ def main(args):
     from adalog_tpu_torch.utils.config import load_config
     from adalog_tpu_torch.utils.metrics import validate
 
-    device = resolve_device(args.device)
-    check_mesh(args, device)
-    run_dir = make_run_dir(args.output_dir)
-    setup_logging(run_dir)
+    shape = check_mesh(args)
+    mesh = None
+    if shape is None:
+        device = resolve_device(args.device)
+    else:
+        from adalog_tpu_torch.parallel.mesh import make_mesh_2d
+
+        mesh = make_mesh_2d(*shape, device=args.device)
+        device = mesh.device
+    lead = mesh is None or mesh.rank == 0
+    run_dir = None
+    if lead:
+        run_dir = make_run_dir(args.output_dir)
+        setup_logging(run_dir)
+    else:
+        logging.getLogger().setLevel(logging.WARNING)
     log.info("%s - start the process.", datetime.now())
     log.info("%s", args)
 
@@ -212,13 +257,18 @@ def main(args):
     resolve_kernel_config(cfg, spec)   # None = auto -> measured per-model
     log.info("eval kernels: use_pallas=%s use_pallas_gemm=%s eval_int8=%s",
              cfg.use_pallas, cfg.use_pallas_gemm, cfg.eval_int8)
+    if mesh is not None:
+        log.info("eval on a dp=%d x tp=%d mesh of %s ranks on %s", mesh.dp,
+                 mesh.tp, mesh.backend, device)
+        if cfg.use_pallas_gemm:
+            log.info("mesh active: fq_gemm linear kernels stay disabled")
 
     def eval_forward(p, qs):
         return make_predictor(
             spec, p, qs, eval_dtype=cfg.eval_dtype, cfg=cfg,
             use_kernels=bool(cfg.use_pallas),
-            use_gemm_kernels=bool(cfg.use_pallas_gemm),
-            use_int8=bool(cfg.eval_int8), device=device)
+            use_gemm_kernels=bool(cfg.use_pallas_gemm) and mesh is None,
+            use_int8=bool(cfg.eval_int8), device=device, mesh=mesh)
 
     def load_any_checkpoint(path):
         """Route by format: the reference's torch.save(state_dict)

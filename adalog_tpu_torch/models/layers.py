@@ -18,14 +18,21 @@ kernel: no int8 GEMM, no weight-prep table, no fused GEMM, no fused
 attention matmul.
 ``soft=True`` takes the soft AdaRound target of a weight quantizer that
 carries an ``alpha``, and reads no weight-prep table either.
+
+Under tensor parallelism (parallel/tp.py) the row-parallel Linear sites
+named by ``tp_row_context`` hold an input-feature slice of their weight:
+``qlinear`` sums their partial products over the tp group and adds the bias
+once, on the sum.
 """
 
 from __future__ import annotations
 
+import contextvars
 from contextlib import contextmanager
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from adalog_tpu_torch.quantizers.state import QuantizerState, WeightQuantizerState
@@ -62,6 +69,36 @@ class MatMulSite:
 
 
 # ---------------------------------------------------------------------------
+# Tensor-parallel context
+# ---------------------------------------------------------------------------
+
+# (tp process group, frozenset of row-parallel site names) while a rank's
+# forward runs over a tp mesh (parallel/tp.py), else None
+_TP_ROW: contextvars.ContextVar = contextvars.ContextVar(
+    "adalog_tp_row", default=None)
+
+
+def tp_row_group(name):
+    """The tp process group when site ``name`` is row-parallel in the active
+    context, else None."""
+    ctx = _TP_ROW.get()
+    if ctx is not None and name is not None and name in ctx[1]:
+        return ctx[0]
+    return None
+
+
+@contextmanager
+def tp_row_context(group, names):
+    """Mark the Linear sites ``names`` row-parallel over the process group
+    ``group`` inside the block."""
+    tok = _TP_ROW.set((group, frozenset(names)))
+    try:
+        yield
+    finally:
+        _TP_ROW.reset(tok)
+
+
+# ---------------------------------------------------------------------------
 # Forwards
 # ---------------------------------------------------------------------------
 
@@ -91,9 +128,15 @@ def qlinear(p: torch.nn.Linear, site, x, *, mode: str = "raw",
     mode), else it is quantized here. In quant mode, outside training, a
     site of the active ``ops.fq_gemm`` table runs through the fused kernel:
     the activation quantizer inside the GEMM, the bias added after the
-    product in the compute dtype."""
-    if site is not None and mode == "quant" and not training \
-            and int8_linear.enabled() and int8_linear.supports(site, mode):
+    product in the compute dtype.
+
+    A row-parallel site of the active ``tp_row_context`` takes neither the
+    int8 nor the fused GEMM (as in the JAX package): its partial product is
+    summed over the tp group, then the bias is added once."""
+    row = tp_row_group(name)
+    if row is None and site is not None and mode == "quant" \
+            and not training and int8_linear.enabled() \
+            and int8_linear.supports(site, mode):
         return int8_linear.int8_qlinear(p, site, x, name=name)
     w = p.weight
     if site is not None and mode in ("quant", "w_only"):
@@ -103,13 +146,17 @@ def qlinear(p: torch.nn.Linear, site, x, *, mode: str = "raw",
         if w is None:
             w = quant_linear_weight(p, site, soft=soft, training=training)
     if site is not None and mode in ("quant", "a_only"):
-        hit = fq_gemm.lookup(name) if mode == "quant" and not training \
-            else None
+        hit = fq_gemm.lookup(name) \
+            if mode == "quant" and not training and row is None else None
         if hit is not None:
             y = fq_gemm.run(hit, x.reshape(-1, x.shape[-1]), w, p.bias)
             return y.reshape(*x.shape[:-1], w.shape[0])
         x = apply_quantizer(site.aq, x, training=training)
-    return F.linear(x, w, p.bias)
+    if row is None:
+        return F.linear(x, w, p.bias)
+    y = F.linear(x, w)
+    dist.all_reduce(y, group=row)
+    return y if p.bias is None else y + p.bias
 
 
 def conv_view(w: torch.Tensor) -> torch.Tensor:

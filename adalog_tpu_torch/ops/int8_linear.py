@@ -231,11 +231,12 @@ def _check_fits_int8(name, site):
                              "take this site")
 
 
-def prepare(spec, params, qstate, cfg) -> dict:
+def prepare(spec, params, qstate, cfg, skip=()) -> dict:
     """{site_name: Int8Weights} for every supported Linear site of a loaded
-    model, from the module the predictor runs (cast, on its device); the
-    caller keeps the table and enters ``activate(table)`` around its
-    forward. Raises if a site's codes do not fit int8."""
+    model but those in ``skip`` (a tp rank's row-parallel sites), from the
+    module the predictor runs (cast, on its device); the caller keeps the
+    table and enters ``activate(table)`` around its forward. Raises if a
+    site's codes do not fit int8."""
     from adalog_tpu_torch.calib.layout import quant_layout, tree_get
     from adalog_tpu_torch.models.layers import LinearSite
 
@@ -243,8 +244,8 @@ def prepare(spec, params, qstate, cfg) -> dict:
     with torch.no_grad():
         for nm, ss in quant_layout(spec, cfg).items():
             site = qstate.get(nm)
-            if not isinstance(site, LinearSite) or not supports(site,
-                                                                "quant"):
+            if not isinstance(site, LinearSite) \
+                    or not supports(site, "quant") or nm in skip:
                 continue
             _check_fits_int8(nm, site)
             table[nm] = site_weights(tree_get(params, ss.param_path).weight,

@@ -1,4 +1,5 @@
-"""Serving API: a quantized model as one batch predictor on one device.
+"""Serving API: a quantized model as one batch predictor, on one device or
+over a mesh of ranks.
 
 ``load_quantized`` reads a v2 .ckpt (written by this package or by
 ``adalog_tpu``), a round-1 pickle of ``adalog_tpu``, or a reference-format
@@ -14,7 +15,19 @@ activation-quant GEMM kernel (ops/fq_gemm.py). With ``Config``'s
 integer product in the int8 GEMM kernel (ops/int8_linear.py), ahead of
 both.
 
-Multi-device meshes are not ported yet and raise ``NotImplementedError``.
+Over a mesh (parallel/mesh.py; one process per rank, each calling the same
+entry point with the same batches) every rank's ``predict`` takes the whole
+batch and returns the whole batch's logits:
+
+  - dp only: each rank runs the whole model on its batch slice;
+  - dp x tp: each rank runs its weight and head slices (parallel/tp.py) on
+    its batch slice, its tables built from those slices, so every kernel
+    sees local shapes; the row-parallel sites sum over the tp group.
+
+Either way a batch that dp does not divide is padded with zero images to a
+multiple of dp and the padding's logits dropped (the JAX package pads under
+dp x tp and runs a dp remainder whole on every device; the logits are the
+same).
 """
 
 from __future__ import annotations
@@ -41,28 +54,17 @@ def pin_fp32_matmul():
     torch.set_float32_matmul_precision("highest")
 
 
-def make_predictor(spec, params, qstate, *, eval_dtype: str = "float32",
-                   cfg=None, use_kernels: bool = True,
-                   use_gemm_kernels: bool = False, use_int8: bool = False,
-                   device=None):
-    """Build ``predict(images) -> logits`` for a (model, qstate) pair.
-
-    The model is copied to ``device`` (default: the first CUDA device,
-    which raises where torch finds none; the tests pass 'cpu') in
-    ``eval_dtype`` ('float32' or 'bfloat16'; quantizer math stays fp32);
-    the caller's module is left as it was. ``use_kernels`` routes the
-    attention through the fused kernels (the whole attention in one where
-    the sites allow it, else the matmul kernels); False runs the plain
-    PyTorch ops of the unfused path. ``use_gemm_kernels`` routes every
-    Linear site that ``ops.fq_gemm.supports`` through the fused
-    activation-quant GEMM, and the attention through its kernels too; which
-    sites take it is decided here, once. ``use_int8`` runs every Linear site
-    that ``ops.int8_linear.supports`` as an integer product (the int8 GEMM
-    kernel on a CUDA device), with weight codes computed here from the cast
-    module; those sites then take neither the weight-prep table nor the
-    fused GEMM. The table belongs to this predictor alone.
-    """
+def local_forward(spec, params, qstate, *, eval_dtype: str = "float32",
+                  cfg=None, use_kernels: bool = True,
+                  use_gemm_kernels: bool = False, use_int8: bool = False,
+                  device=None, row_group=None, row_sites=frozenset()):
+    """``forward(images) -> logits`` on one device: ``make_predictor``'s body
+    without the mesh, and each rank's forward over one. ``row_group`` and
+    ``row_sites`` mark the row-parallel sites of a tp rank
+    (``models.layers.tp_row_context``); those take neither the int8 nor the
+    fused GEMM table."""
     from adalog_tpu_torch.calib.calibrator import _resolve_device
+    from adalog_tpu_torch.models.layers import tp_row_context
     from adalog_tpu_torch.models.zoo import model_forward_fn
     from adalog_tpu_torch.ops import (
         fq_attn, fq_gemm, int8_linear, weight_prep,
@@ -82,9 +84,10 @@ def make_predictor(spec, params, qstate, *, eval_dtype: str = "float32",
     model.requires_grad_(False)
     qs = map_tensors(lambda t: t.to(device), qstate)
     cfg = cfg or Config()
+    row_sites = frozenset(row_sites)
     int8_table = None
     if use_int8:
-        int8_table = int8_linear.prepare(spec, model, qs, cfg)
+        int8_table = int8_linear.prepare(spec, model, qs, cfg, skip=row_sites)
         log.info("int8 eval: weight codes materialized for %d sites",
                  len(int8_table))
     skip = set(int8_table or ())
@@ -95,7 +98,7 @@ def make_predictor(spec, params, qstate, *, eval_dtype: str = "float32",
         # variant of the GEMM kernel; bf16 inputs take it as they are
         codes = weight_prep.weight_codes(spec, model, qs, cfg) \
             if dtype == torch.float32 else None
-        gemm_table = fq_gemm.prepare(qs, codes, skip=skip)
+        gemm_table = fq_gemm.prepare(qs, codes, skip=skip | row_sites)
     # read once here, so that no served call waits for the device to learn
     # which variant of the attention kernel its zero points allow
     exact_ints = fq_attn.integers_exact(qs) \
@@ -104,13 +107,73 @@ def make_predictor(spec, params, qstate, *, eval_dtype: str = "float32",
     attn_params = fq_attn.prepare(qs) \
         if use_kernels or use_gemm_kernels else None
 
-    def predict(x):
+    def forward(x):
         x = torch.as_tensor(x).to(device=device, dtype=dtype)
         with torch.inference_mode(), weight_prep.activate(wprep), \
                 fq_attn.activate(use_kernels, exact_ints, attn_params), \
                 fq_gemm.activate(gemm_table), \
-                int8_linear.activate(int8_table):
+                int8_linear.activate(int8_table), \
+                tp_row_context(row_group, row_sites):
             return fwd(spec.cfg, model, x, qs, {"*": "quant"}).float()
+
+    return forward
+
+
+def make_predictor(spec, params, qstate, *, eval_dtype: str = "float32",
+                   cfg=None, use_kernels: bool = True,
+                   use_gemm_kernels: bool = False, use_int8: bool = False,
+                   device=None, mesh=None):
+    """Build ``predict(images) -> logits`` for a (model, qstate) pair.
+
+    The model is copied to ``device`` (default: the first CUDA device,
+    which raises where torch finds none; the tests pass 'cpu') in
+    ``eval_dtype`` ('float32' or 'bfloat16'; quantizer math stays fp32);
+    the caller's module is left as it was. ``use_kernels`` routes the
+    attention through the fused kernels (the whole attention in one where
+    the sites allow it, else the matmul kernels); False runs the plain
+    PyTorch ops of the unfused path. ``use_gemm_kernels`` routes every
+    Linear site that ``ops.fq_gemm.supports`` through the fused
+    activation-quant GEMM, and the attention through its kernels too; which
+    sites take it is decided here, once. ``use_int8`` runs every Linear site
+    that ``ops.int8_linear.supports`` as an integer product (the int8 GEMM
+    kernel on a CUDA device), with weight codes computed here from the cast
+    module; those sites then take neither the weight-prep table nor the
+    fused GEMM. The table belongs to this predictor alone.
+
+    ``mesh`` (parallel/mesh.py): every rank of the mesh calls this with the
+    same arguments and then ``predict`` with the same batches; the model
+    runs on ``mesh.device`` (``device`` must be None or the same), over dp
+    batch slices and, with tp > 1, on the rank's weight and head slices
+    (``parallel.tp.tp_eval_fn``). A batch that dp does not divide is padded
+    with zero images, whose logits are dropped.
+    """
+    kw = dict(eval_dtype=eval_dtype, cfg=cfg, use_kernels=use_kernels,
+              use_gemm_kernels=use_gemm_kernels, use_int8=use_int8,
+              device=device)
+    if mesh is None:
+        return local_forward(spec, params, qstate, **kw)
+    from adalog_tpu_torch.parallel.mesh import gather_batch, shard_batch
+
+    if device is not None and torch.device(device) != mesh.device:
+        raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+    kw["device"] = mesh.device
+    if mesh.tp > 1:
+        from adalog_tpu_torch.parallel.tp import tp_eval_fn
+
+        run, plan = tp_eval_fn(spec, params, qstate, mesh, **kw)
+        log.info("tp eval over dp=%d x tp=%d: %d column / %d row sites "
+                 "sliced", mesh.dp, mesh.tp, len(plan.col_sites),
+                 len(plan.row_sites))
+    else:
+        run = local_forward(spec, params, qstate, **kw)
+
+    def predict(x):
+        x = torch.as_tensor(x)
+        n = x.shape[0]
+        pad = (-n) % mesh.dp
+        if pad:
+            x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+        return gather_batch(run(shard_batch(x, mesh)), mesh)[:n]
 
     return predict
 
@@ -118,7 +181,8 @@ def make_predictor(spec, params, qstate, *, eval_dtype: str = "float32",
 def load_quantized(model: str, checkpoint: str, *, config=None,
                    eval_dtype: Optional[str] = None, device="cuda",
                    mesh_devices: int = 0, mesh_tp: int = 1,
-                   use_pallas: Optional[bool] = None):
+                   use_pallas: Optional[bool] = None,
+                   backend: Optional[str] = None):
     """One-call deployment: model name + checkpoint -> predictor on
     ``device``. The checkpoint is a v2 .ckpt, a round-1 pickle, or a
     reference-format state dict (.pth/.pt/.bin).
@@ -132,6 +196,13 @@ def load_quantized(model: str, checkpoint: str, *, config=None,
     way) serves the uniform Linear sites as integer products
     (``make_predictor``'s ``use_int8``). Returns (predict, spec, model,
     qstate).
+
+    ``mesh_devices`` > 1 (or -1: every rank of the run) serves over a mesh
+    of that many ranks, ``mesh_tp`` of them a tp group: every rank calls
+    this, in a process group of exactly that size (torchrun, or one the
+    caller initialized). ``device`` follows the mesh's rules ('cuda' is
+    cuda:{LOCAL_RANK}) and ``backend`` None is nccl for CUDA, gloo for the
+    CPU (parallel/mesh.py).
     """
     from adalog_tpu_torch.models.zoo import model_spec
     from adalog_tpu_torch.ops.kernel_defaults import resolve_kernel_config
@@ -146,13 +217,21 @@ def load_quantized(model: str, checkpoint: str, *, config=None,
         cfg = config
     if eval_dtype is None:
         eval_dtype = getattr(cfg, "eval_dtype", "float32")
-    if mesh_devices == -1:
-        # all local devices, as in the JAX package: one device serves
-        on_cpu = torch.device(device).type == "cpu"
-        mesh_devices = 1 if on_cpu else torch.cuda.device_count()
-    if mesh_devices not in (0, 1) or mesh_tp != 1:
-        raise NotImplementedError(
-            "multi-device serving is not ported to PyTorch yet")
+    mesh = None
+    if mesh_tp > 1 and not mesh_devices:
+        raise ValueError("mesh_tp > 1 requires mesh_devices (the total rank "
+                         "count, dp*tp)")
+    if mesh_devices:
+        from adalog_tpu_torch.parallel.mesh import make_mesh_2d, world_size
+
+        n = world_size() if mesh_devices == -1 else mesh_devices
+        if n % mesh_tp:
+            raise ValueError(f"mesh_tp={mesh_tp} must divide "
+                             f"mesh_devices={n}")
+        if n > 1:
+            mesh = make_mesh_2d(n // mesh_tp, mesh_tp, device=device,
+                                backend=backend)
+            device = mesh.device
     spec = model_spec(model)
     resolve_kernel_config(cfg, spec)
     enable = cfg.use_pallas if use_pallas is None else use_pallas
@@ -171,5 +250,6 @@ def load_quantized(model: str, checkpoint: str, *, config=None,
     predict = make_predictor(spec, params, qstate, eval_dtype=eval_dtype,
                              cfg=cfg, use_kernels=bool(enable),
                              use_gemm_kernels=gemm,
-                             use_int8=bool(cfg.eval_int8), device=device)
+                             use_int8=bool(cfg.eval_int8),
+                             device=None if mesh else device, mesh=mesh)
     return predict, spec, params, qstate

@@ -131,9 +131,29 @@ Phases, each a hard check (any failure raises and exits non-zero):
      validation batch asserted: K1 12 every run, K4 49 with the GEMM
      switch, else 0, K5 37 with eval_int8, else 0. The decoder used (and
      the compiler's error if the native one did not build) is printed. Each run's seconds and each validation's
-     img/s and the loader's share of its wall time are printed.
+     img/s and the loader's share of its wall time are printed;
+ 12. mesh phase (run after phase 7): serving over a mesh of ranks, spawned
+     with torch.multiprocessing (start method spawn) once the kernels are
+     built, every rank on cuda:0 with backend gloo (the machine shows one
+     card, and NCCL refuses two ranks on one device; the nccl path is not
+     run); each case loaded through load_quantized(mesh_devices=,
+     mesh_tp=) with the attention and GEMM kernels at full width:
+     deit_small tp=2 in fp32, bf16 and with eval_int8, deit_small dp=2 and
+     swin_tiny tp=2 (stage 0's 3 heads keep its attention whole) in two
+     ranks, test_tiny dp=2 x tp=2 in four. Per rank, 4 batches of 32 with
+     the launch counts set to 0 just before and read just after, asserted
+     (MESH_LAUNCHES: deit_small tp=2 K1 12, K4 25, with eval_int8 K5 25;
+     dp=2 K1 12, K4 49; swin_tiny tp=2 K1 12, K4 30; K4 and K5 never at
+     the row-parallel sites), every K1 and K4 launch "mma"; each rank's
+     kernels held to their plain versions on its own batch slice and
+     weight and head slices (block checks, phase 6's bounds); rank 0's
+     gathered logits against the single-device predictor on the same card
+     (max|diff| and top-1 agreement reported; test_tiny's within 2e-4, the
+     JAX package's own tolerance) and its img/s, labelled as ranks sharing
+     one card through gloo, not a scaling number.
 The last two lines are a JSON summary of the kernels (launches summed over
-the main paths of phases 6 to 11; times of the fp32 kernel phases; the bound
+the main paths of phases 6 to 12, every rank's; times of the fp32 kernel
+phases; the bound
 from those phases' shapes; K1-K4's entries are the variant their paths
 launch, "mma"; K5's library_ms is torch._int_mm's) and the ok line.
 
@@ -1082,7 +1102,7 @@ def attention_bias(spec, model, path, stage, blk, dtype):
 
 
 def block_check(torch, fq_attn, fq_gemm, spec, model, qstate, x, dt,
-                require_mma=True):
+                require_mma=True, n_linear=None, skip=()):
     """Hold K1 against its plain version on the q/kT/v (and, for Swin, the
     rel-pos bias and shift mask) that every block of the quantized model
     gives it for images x (as the wrapper routes it: variant "mma",
@@ -1092,7 +1112,10 @@ def block_check(torch, fq_attn, fq_gemm, spec, model, qstate, x, dt,
     included for fp32; every launch variant "mma", asserted), from one
     capture pass with the served path's tables active; returns {kernel: (largest
     max|diff|, largest share past tolerance)}. With ``require_mma`` False a
-    call of variant "fma" is reported with the reason, not failed."""
+    call of variant "fma" is reported with the reason, not failed. On a tp
+    rank's slices the caller enters the row-parallel context and names the
+    row-parallel sites (``skip``, which take no K4) and the count of the
+    rest that do (``n_linear``)."""
     from adalog_tpu_torch.models.zoo import model_forward_fn
     from adalog_tpu_torch.ops import weight_prep
 
@@ -1100,8 +1123,9 @@ def block_check(torch, fq_attn, fq_gemm, spec, model, qstate, x, dt,
     # as make_predictor builds it: fp32 sites carry their weight codes
     table = fq_gemm.prepare(
         qstate, weight_prep.weight_codes(spec, model, qstate, w4a4_config())
-        if dt == "float32" else None)
-    n_linear = MODELS[spec.name]["K4"]
+        if dt == "float32" else None, skip=skip)
+    if n_linear is None:
+        n_linear = MODELS[spec.name]["K4"]
     check(len(table) == n_linear,
           f"{len(table)} Linear sites take K4, want {n_linear}")
     worst = {"K1": (0.0, 0.0), "K4": (0.0, 0.0)}
@@ -1772,23 +1796,28 @@ EXPORT_ATOL = 1e-5
 DIAG_TOP = 5
 
 
-def int8_block_check(torch, spec, model, qstate, x):
+def int8_block_check(torch, spec, model, qstate, x, n_sites=None, skip=()):
     """Each int8 site of ``model`` (fp32) through K5, as the served path
     calls it (the table entry), against the fake-quant qlinear on the same
     inputs: every Linear site's input captured from the raw model on images
-    x. Returns (sites, largest max|diff|, largest share past tolerance)."""
-    from adalog_tpu_torch.calib.calibrator import capture_all_sites
+    x. On a tp rank's slices the caller enters the row-parallel context and
+    names the row-parallel sites (``skip``) and the count of int8 sites
+    left (``n_sites``). Returns (sites, largest max|diff|, largest share
+    past tolerance)."""
     from adalog_tpu_torch.calib.layout import quant_layout, tree_get
     from adalog_tpu_torch.models.layers import qlinear
+    from adalog_tpu_torch.models.zoo import model_forward_fn
     from adalog_tpu_torch.ops import int8_linear
 
     cfg = w4a4_config()
     layout = quant_layout(spec, cfg)
-    table = int8_linear.prepare(spec, model, qstate, cfg)
-    check(len(table) == INT8_MODELS[spec.name],
-          f"{spec.name}: {len(table)} int8 sites, want "
-          f"{INT8_MODELS[spec.name]}")
-    taps = capture_all_sites(spec, model, [x], names=list(table))
+    table = int8_linear.prepare(spec, model, qstate, cfg, skip=skip)
+    if n_sites is None:
+        n_sites = INT8_MODELS[spec.name]
+    check(len(table) == n_sites,
+          f"{spec.name}: {len(table)} int8 sites, want {n_sites}")
+    with torch.no_grad():
+        _, taps = model_forward_fn(spec)(spec.cfg, model, x, capture=True)
     worst = share_max = 0.0
     with torch.no_grad():
         for nm, hit in table.items():
@@ -1921,6 +1950,245 @@ def int8_phase(torch, fq_attn, fq_gemm, device, ckpt_dir, start):
     del params, qstate, blob
     torch.cuda.empty_cache()
     return numbers, launches, {"K5": max(worst, block_worst)}
+
+
+# Mesh phase: ranks spawned with torch.multiprocessing (start method spawn)
+# after the parent has built the kernels, all on cuda:0 through gloo: the
+# machine shows one card and NCCL refuses two ranks on one device. Every case
+# at full width with the attention and GEMM kernels on: (model, dp, tp,
+# dtype, eval_int8)
+MESH_CASES = (("deit_small", 1, 2, "float32", False),
+              ("deit_small", 1, 2, "bfloat16", False),
+              ("deit_small", 1, 2, "float32", True),
+              ("deit_small", 2, 1, "float32", False),
+              ("swin_tiny", 1, 2, "float32", False))
+# and test_tiny at dp=2 x tp=2, four ranks, its logits held to the
+# single-device predictor's at the JAX package's own tolerance
+# (tests/test_sharding.py: rtol = atol = 2e-4)
+MESH_TINY = ("test_tiny", 2, 2, "float32", False)
+MESH_TINY_TOL = 2e-4
+MESH_RUNS = ((2, MESH_CASES), (4, (MESH_TINY,)))     # (ranks, cases)
+# launches a batch on each rank, by (model, dp, tp, eval_int8): K1 on every
+# block's local heads; K4 at the column-parallel and replicated sites, never
+# at the row-parallel proj / fc2 (deit_small tp=2: qkv and fc1 of 12 blocks
+# and the head; swin_tiny tp=2: stage 0's 3 heads keep its two attentions
+# whole, so qkv, proj and fc1 there, qkv and fc1 in the 10 blocks of stages
+# 1-3, its 3 reductions and the head; test_tiny: qkv and fc1 of 2 blocks
+# and the head); with eval_int8 K5 at those sites instead (all uniform)
+MESH_LAUNCHES = {("deit_small", 1, 2, False): {"K1": 12, "K4": 25, "K5": 0},
+                 ("deit_small", 1, 2, True): {"K1": 12, "K4": 0, "K5": 25},
+                 ("deit_small", 2, 1, False): {"K1": 12, "K4": 49, "K5": 0},
+                 ("swin_tiny", 1, 2, False): {"K1": 12, "K4": 30, "K5": 0},
+                 ("test_tiny", 1, 2, False): {"K1": 2, "K4": 5, "K5": 0},
+                 ("test_tiny", 2, 2, False): {"K1": 2, "K4": 5, "K5": 0}}
+MESH_TIMEOUT = 600
+
+
+def mesh_key(model, dp, tp, dtype, int8):
+    return f"{model} dp={dp} tp={tp} {dtype}" + (" int8" if int8 else "")
+
+
+def mesh_block_check(torch, fq_attn, fq_gemm, case, spec, model, qstate,
+                     batch, want):
+    """K1 and K4 (K5 with eval_int8) against their plain versions on this
+    rank's own inputs: its dp slice of ``batch`` and, under tp, its slices
+    of the model and state, the forward in the row-parallel context.
+    Returns {kernel: (largest max|diff|, largest share past tolerance)}."""
+    from contextlib import nullcontext
+
+    from adalog_tpu_torch.models.layers import tp_row_context
+    from adalog_tpu_torch.parallel.mesh import make_mesh_2d, shard_batch
+    from adalog_tpu_torch.parallel.tp import make_tp_plan
+    from adalog_tpu_torch.quantizers.state import map_tensors
+
+    device = torch.device(case["device"])
+    mesh = make_mesh_2d(case["dp"], case["tp"], device=device,
+                        backend="gloo")
+    dtype = getattr(torch, case["dtype"])
+    x = shard_batch(torch.from_numpy(batch), mesh).to(device=device,
+                                                      dtype=dtype)
+    skip, ctx = frozenset(), nullcontext()
+    if mesh.tp > 1:
+        plan = make_tp_plan(spec, qstate, mesh.tp)
+        model = plan.shard_module(model, mesh.tp_index)
+        qstate = plan.shard_qstate(qstate, mesh.tp_index)
+        skip = plan.row_sites
+        ctx = tp_row_context(mesh.tp_group, skip)
+    model = model.to(device=device, dtype=dtype)      # the rank's own copy
+    qstate = map_tensors(lambda t: t.to(device), qstate)
+    with ctx:
+        if case["int8"]:
+            _, d, share = int8_block_check(torch, spec, model, qstate, x,
+                                           n_sites=want["K5"], skip=skip)
+            return {"K5": (d, share)}
+        return block_check(torch, fq_attn, fq_gemm, spec, model, qstate, x,
+                           case["dtype"], n_linear=want["K4"], skip=skip)
+
+
+def mesh_rank(work, cases):
+    """One rank of the mesh phase (run by parallel.mesh.spawn): each case
+    served through load_quantized over its mesh on the case's device (every
+    rank on the parent's card) with gloo, a
+    warm-up batch, then N_BATCHES batches with the launch counts set to 0
+    just before and read just after; then the block checks on the rank's
+    own inputs. Rank 0 saves each case's logits. Writes this rank's
+    launches, variants, seconds and block-check results as JSON."""
+    import torch
+    import torch.distributed as dist
+
+    from adalog_tpu_torch.ops import fq_attn, fq_gemm
+    from adalog_tpu_torch.serve import load_quantized, pin_fp32_matmul
+
+    pin_fp32_matmul()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    out = {}
+    for case in cases:
+        key = case["key"]
+        predict, spec, model, qstate = load_quantized(
+            case["model"], case["ckpt"], device=case["device"],
+            backend="gloo",
+            eval_dtype=case["dtype"], mesh_devices=case["dp"] * case["tp"],
+            mesh_tp=case["tp"], config=w4a4_config(
+                use_pallas_gemm=True, eval_int8=case["int8"]))
+        batches = np.load(case["batches"])
+        predict(batches[0])                           # warm-up
+        torch.cuda.synchronize()
+        zero_launches(fq_attn, fq_gemm)
+        t0 = time.perf_counter()
+        ys = [predict(x) for x in batches]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = read_launches(fq_attn, fq_gemm)
+        variants = {"K1": dict(fq_attn.fq_flash_attn.variant_launches),
+                    "K4": dict(fq_gemm.fq_gemm.variant_launches)}
+        if rank == 0:
+            np.save(os.path.join(work, f"{key}.npy"),
+                    torch.cat(ys).float().cpu().numpy())
+        want = MESH_LAUNCHES[case["model"], case["dp"], case["tp"],
+                             case["int8"]]
+        block = mesh_block_check(torch, fq_attn, fq_gemm, case, spec, model,
+                                 qstate, batches[0], want)
+        out[key] = dict(launches=got, variants=variants, seconds=secs,
+                        block=block)
+        del predict, model, qstate
+        torch.cuda.empty_cache()
+    with open(os.path.join(work, f"world{world}_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def mesh_phase(torch, fq_attn, fq_gemm, device, ckpt_dir, runs=MESH_RUNS):
+    """Serving over a mesh of ranks on the one card (gloo): each of ``runs``
+    (default MESH_CASES in 2 ranks, MESH_TINY in 4) spawns its ranks
+    (mesh_rank). Per rank and case: the launches a
+    batch asserted (MESH_LAUNCHES; K2 and K3 none), every K1 and K4 launch
+    "mma", the block checks on the rank's own inputs held as phase 6 holds
+    them; rank 0's logits against the single-device predictor's on the same
+    card (reported; test_tiny's within MESH_TINY_TOL); img/s of rank 0.
+    Returns ({kernel: launches summed over every rank and case},
+    {kernel: largest block-check max|diff|})."""
+    import shutil
+
+    from adalog_tpu_torch.parallel.mesh import spawn
+    from adalog_tpu_torch.serve import load_quantized
+
+    line = card_line()
+    work = os.path.join(ckpt_dir, "mesh")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    print("mesh: every rank on cuda:0 with backend gloo: this machine shows "
+          "one card and NCCL refuses two ranks on one device; the nccl path "
+          "(a card a rank) is not run here")
+    inputs = {}
+    for name in dict.fromkeys(c[0] for _, cs in runs for c in cs):
+        *_, ckpt, batches = smoke_model(torch, device, work, name)
+        path = os.path.join(work, f"{name}_batches.npy")
+        np.save(path, np.stack(batches))
+        inputs[name] = (ckpt, path)
+    torch.cuda.empty_cache()
+
+    def cases(specs):
+        return [dict(key=mesh_key(*c), model=c[0], dp=c[1], tp=c[2],
+                     dtype=c[3], int8=c[4], ckpt=inputs[c[0]][0],
+                     batches=inputs[c[0]][1], device=str(device))
+                for c in specs]
+
+    runs = [(world, cases(cs)) for world, cs in runs]
+    for world, cs in runs:
+        t0 = time.perf_counter()
+        spawn(mesh_rank, world, (work, cs), backend="gloo",
+              init_file=os.path.join(work, f"rendezvous{world}"),
+              timeout=MESH_TIMEOUT)
+        print(f"mesh: {world} ranks ran {len(cs)} case(s) in "
+              f"{time.perf_counter() - t0:.1f} s (spawn, CUDA start, serving "
+              "and block checks)")
+
+    launches = {k: 0 for k in ("K1", "K2", "K3", "K4", "K5")}
+    worst = {"K1": 0.0, "K4": 0.0, "K5": 0.0}
+    for world, cs in runs:
+        ranks = []
+        for rank in range(world):
+            with open(os.path.join(work, f"world{world}_rank{rank}.json")) \
+                    as f:
+                ranks.append(json.load(f))
+        for case in cs:
+            key = case["key"]
+            per_batch = MESH_LAUNCHES[case["model"], case["dp"], case["tp"],
+                                      case["int8"]]
+            want = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
+            want.update({k: n * N_BATCHES for k, n in per_batch.items()})
+            for rank, res in enumerate(ranks):
+                r = res[key]
+                print(f"mesh {key} rank {rank}: launches {r['launches']} for "
+                      f"{N_BATCHES} batches of {BATCH} (want {want}); by "
+                      f"variant K1 {r['variants']['K1']}, K4 "
+                      f"{r['variants']['K4']}")
+                check(r["launches"] == want,
+                      f"mesh {key} rank {rank}: launches {r['launches']} != "
+                      f"{want}")
+                for k in ("K1", "K4"):
+                    check(r["variants"][k]["fma"] == 0,
+                          f"mesh {key} rank {rank}: {k} took variant 'fma'")
+                for k, (d, share) in r["block"].items():
+                    print(f"block check mesh {key} rank {rank}: {k} vs plain "
+                          f"on the rank's own inputs: max|diff|={d:.3e} "
+                          f"share_past_tol={share:.3e} (allowed share "
+                          f"{FLIP_SHARE})")
+                    check(share <= FLIP_SHARE,
+                          f"mesh {key} rank {rank} {k} block check share "
+                          f"{share}")
+                    check(k != "K4" or d <= FLIP_MAX,
+                          f"mesh {key} rank {rank} K4 max|diff| {d}")
+                    check(k != "K5" or d <= INT8_BLOCK_MAX,
+                          f"mesh {key} rank {rank} K5 max|diff| {d}")
+                    worst[k] = max(worst[k], d)
+                for k, n in r["launches"].items():
+                    launches[k] += n
+            y = torch.from_numpy(np.load(os.path.join(work, f"{key}.npy")))
+            predict, spec, *_ = load_quantized(
+                case["model"], case["ckpt"], device=device,
+                eval_dtype=case["dtype"], config=w4a4_config(
+                    use_pallas_gemm=True, eval_int8=case["int8"]))
+            batches = np.load(case["batches"])
+            single = torch.cat([predict(x) for x in batches]).float().cpu()
+            check_logits(torch, y, spec, BATCH * N_BATCHES, f"mesh {key}")
+            diff = (y - single).abs().max().item()
+            agree = (y.argmax(-1) == single.argmax(-1)).float().mean().item()
+            ips = BATCH * N_BATCHES / ranks[0][key]["seconds"]
+            print(f"mesh {key}: logits gathered on rank 0 vs the single-device "
+                  f"predictor on the same card: max|diff| {diff:.4e}, top-1 "
+                  f"agreement {agree:.4f} (max|logit| "
+                  f"{single.abs().max().item():.4e}); {ips:.1f} img/s on rank "
+                  f"0 ({world} ranks sharing one card through gloo, not a "
+                  f"scaling number); {line}")
+            if case["model"] == MESH_TINY[0]:
+                check(torch.allclose(y, single, rtol=MESH_TINY_TOL,
+                                     atol=MESH_TINY_TOL),
+                      f"mesh {key}: logits apart by {diff} (allowed "
+                      f"{MESH_TINY_TOL})")
+            del predict
+            torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    return launches, worst
 
 
 # Reconstruction phase: BRECQ on the calibration phase's warm deit_small
@@ -2803,6 +3071,9 @@ def main(argv):
     for name in MODELS:
         add(*serving_phase(torch, fq_attn, fq_gemm, device, ckpt_dir, name))
         add(*fallback_phase(torch, fq_attn, fq_gemm, device, ckpt_dir, name))
+    # serving over a mesh of ranks on the one card: K1, K4 and K5 on each
+    # rank's batch, weight and head slices
+    add(*mesh_phase(torch, fq_attn, fq_gemm, device, ckpt_dir))
     # the calibration half of the main path, then its model served; then
     # the calibrated state reconstructed, folded and served
     served, start = calibration_phase(torch, fq_attn, fq_gemm, device,

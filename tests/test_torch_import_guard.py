@@ -38,8 +38,8 @@ print("imported", sys.argv[1])
     "adalog_tpu_torch.utils.metrics", "adalog_tpu_torch.utils.ref_checkpoint",
     "adalog_tpu_torch.utils.profiling", "adalog_tpu_torch.utils.checkpoint",
     "adalog_tpu_torch.ops.int8_linear", "adalog_tpu_torch.utils.diagnostics",
-    "adalog_tpu_torch.utils.export",
-    "chip_smoke"])
+    "adalog_tpu_torch.utils.export", "adalog_tpu_torch.parallel.mesh",
+    "adalog_tpu_torch.parallel.tp", "chip_smoke"])
 def test_module_imports_no_jax(module):
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", GUARD, module], cwd=ROOT,

@@ -520,7 +520,9 @@ def test_unported_swin_paths_raise(jax_calibrated, tmp_path):
     params, qstate = jax_calibrated
     path = str(tmp_path / "m.ckpt")
     j_checkpoint.save_checkpoint(path, params, qstate)
-    with pytest.raises(NotImplementedError):
+    # a mesh serves in a process group of its size (test_torch_parallel.py);
+    # outside one, the error says how to launch
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         load_quantized("test_tiny_swin", path, device="cpu", mesh_devices=2)
 
 

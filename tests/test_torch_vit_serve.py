@@ -272,9 +272,11 @@ def test_unported_paths_raise(jax_calibrated, tmp_path):
     params, qstate = jax_calibrated
     path = str(tmp_path / "m.ckpt")
     j_checkpoint.save_checkpoint(path, params, qstate)
-    with pytest.raises(NotImplementedError):
+    # a mesh serves in a process group of its size (test_torch_parallel.py);
+    # outside one, the error says how to launch
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         load_quantized("test_tiny", path, device="cpu", mesh_devices=2)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 4"):
         load_quantized("test_tiny", path, device="cpu", mesh_devices=4,
                        mesh_tp=2)
     # reference-format files are read now (utils/ref_checkpoint.py): a
@@ -317,9 +319,11 @@ def test_load_quantized_int8_matches_jax(jax_calibrated, tmp_path):
 
 def test_mesh_devices_minus_one_is_all_local_devices(jax_calibrated, tmp_path,
                                                      monkeypatch):
-    """mesh_devices=-1 means every local device, as in the JAX package: on
-    the CPU, or with at most one GPU, that is one device and serves; with
-    more it is multi-device serving, which is not ported."""
+    """mesh_devices=-1 means every device of the run, one rank each (the
+    JAX package's every local device): a run of one rank serves on its one
+    device, whatever the card count; a run of four ranks (torchrun's
+    WORLD_SIZE) serves over a mesh of four, which needs their process
+    group (the mesh itself runs in test_torch_parallel.py)."""
     params, qstate = jax_calibrated
     path = str(tmp_path / "m.ckpt")
     j_checkpoint.save_checkpoint(path, params, qstate)
@@ -328,11 +332,11 @@ def test_mesh_devices_minus_one_is_all_local_devices(jax_calibrated, tmp_path,
     got = load_quantized("test_tiny", path, device="cpu", mesh_devices=-1)[0](x)
     assert torch.equal(got, want)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    with pytest.raises(NotImplementedError):
-        load_quantized("test_tiny", path, device="cuda", mesh_devices=-1)
-    # the CPU has one device whatever the GPUs
     got = load_quantized("test_tiny", path, device="cpu", mesh_devices=-1)[0](x)
     assert torch.equal(got, want)
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 4"):
+        load_quantized("test_tiny", path, device="cpu", mesh_devices=-1)
 
 
 def test_build_model_random_init():
