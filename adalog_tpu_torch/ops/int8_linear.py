@@ -14,10 +14,23 @@ fake-quant forward up to the rounding of its fp32 products.
 
 ``int8_gemm`` is the wrapper of the kernel: for CPU tensors it runs
 ``int8_gemm_plain`` (an exact int32 product in plain PyTorch); for CUDA
-tensors it launches ``csrc/int8_gemm.cu`` (built at first use,
+tensors it launches a kernel of ``csrc/int8_gemm.cu`` (built at first use,
 ops/cuda_build.py) or raises. ``int8_gemm.launches`` counts kernel
-launches, ``int8_gemm.calls`` every call on either device.
-``int8_qlinear`` is the call of one site.
+launches, ``int8_gemm.variant_launches`` the same by variant,
+``int8_gemm.calls`` every call on either device. ``int8_qlinear`` is the
+call of one site.
+
+Two hand-written variants (``int8_variant`` routes; ``variant=`` forces):
+  "wgmma"  the design for Hopper: each x element quantized once per row
+           tile into resident int8 codes, w through a TMA ring into
+           wgmma, two consumer warpgroups in ping-pong so one tile's
+           stores overlap the next tile's products. It takes K a multiple
+           of 16 up to WGMMA_K_MAX, x's rows 16-byte aligned and O * itemsize
+           a multiple of 16 (``wgmma_refusal``): every int8 site of the
+           served models.
+  "mma"    the first kernel (mma.sync, a cp.async double buffer, x
+           quantized again for every 128-column tile), for the rest.
+Both equal ``int8_gemm_plain`` bit for bit.
 
 Which sites run here is decided once per loaded model: ``prepare`` builds
 {site: Int8Weights} from the module the predictor runs (already cast to the
@@ -35,7 +48,7 @@ import contextvars
 import ctypes
 import functools
 from contextlib import contextmanager
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -43,16 +56,32 @@ from adalog_tpu_torch.ops import cuda_build
 
 MAX_BITS = 7        # codes of at most 7 bits and their zero points fit int8
 _INT8_MAX = 127
+VARIANTS = ("auto", "wgmma", "mma")
+# the largest K whose codes stay resident in "wgmma"'s shared memory
+# (csrc/int8_gemm.cu: W_KMAX)
+WGMMA_K_MAX = 2176
+_ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2}
+
+
+class WeightMap(NamedTuple):
+    """The TMA tensor map "wgmma" reads ``w_int`` through (``blob``, 128
+    bytes), with the address and shape it was encoded for."""
+    ptr: int
+    shape: tuple
+    blob: bytes
 
 
 class Int8Weights(NamedTuple):
     """What the kernel needs of a site: ``w_int`` (O, K) int8 holds
     c_w - round(z_w); ``scale_row`` (O,) float32 is s_a * s_w[o], the one
     fp32 product JAX forms per call; ``a_params`` (2,) float32 is the
-    activation quantizer's [scale, zero point]."""
+    activation quantizer's [scale, zero point]; ``w_map`` the tensor map of
+    w_int (``weight_map``), encoded once where the table is built, on the
+    card only (None on the CPU)."""
     w_int: torch.Tensor
     scale_row: torch.Tensor
     a_params: torch.Tensor
+    w_map: Optional[WeightMap] = None
 
 
 # ---------------------------------------------------------------------------
@@ -86,20 +115,102 @@ def int8_gemm_plain(x, w_int, a_params, scale_row, bias=None, *, bits: int):
 
 
 # ---------------------------------------------------------------------------
-# CUDA kernel: load, launch
+# Routing between the two kernel variants
+# ---------------------------------------------------------------------------
+
+def wgmma_refusal(T: int, K: int, O: int, lda: int, x_ptr_mod16: int,
+                  dtype) -> Optional[str]:
+    """Why variant "wgmma" does not take a call with x (T, K) of row stride
+    ``lda`` (elements) at an address that is ``x_ptr_mod16`` past a
+    multiple of 16, w (O, K) and an output of ``dtype``; None when it does.
+    T takes no part: rows past T in the last 64-row tile are computed and
+    never stored."""
+    item = _ITEMSIZE[dtype]
+    if K % 16:
+        return (f"K = {K} is not a multiple of 16: w's rows are the TMA "
+                "copy's row pitch")
+    if (lda * item) % 16 or x_ptr_mod16 % 16:
+        return ("x's row stride or base is not 16-byte aligned: its rows "
+                "load as 16-byte pieces")
+    if (O * item) % 16:
+        return (f"O = {O}: output rows of {O * item} bytes do not leave as "
+                "16-byte pieces")
+    if K > WGMMA_K_MAX:
+        return (f"K = {K} past the {WGMMA_K_MAX} whose codes stay resident "
+                "in shared memory")
+    return None
+
+
+def int8_variant(T: int, K: int, O: int, lda: int, x_ptr_mod16: int, dtype,
+                 variant: str = "auto") -> str:
+    """Which hand-written variant of K5 a call takes: "wgmma" where it
+    applies, else "mma". A forced "wgmma" that does not take the call
+    raises."""
+    if variant not in VARIANTS:
+        raise ValueError(f"variant {variant!r}: want one of {VARIANTS}")
+    why = wgmma_refusal(T, K, O, lda, x_ptr_mod16, dtype)
+    if variant == "wgmma" and why is not None:
+        raise ValueError(f"int8_gemm variant 'wgmma' refused: {why}")
+    if variant == "mma" or why is not None:
+        return "mma"
+    return "wgmma"
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels: load, launch
 # ---------------------------------------------------------------------------
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 @functools.lru_cache(maxsize=None)
-def _library():
-    lib = cuda_build.library("int8_gemm")
+def _library(profile: bool = False):
+    """The kernels' library; ``profile`` builds and loads the one whose
+    kernels count their warps' cycles by phase (K5_PROFILE in the
+    source)."""
+    lib = ctypes.CDLL(cuda_build.build("int8_gemm", ("K5_PROFILE",))) \
+        if profile else cuda_build.library("int8_gemm")
     fn = lib.int8_gemm_launch
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 7
                    + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    lib.int8_gemm_wmap.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.c_int, ctypes.c_int]
+    lib.int8_gemm_wmap.restype = ctypes.c_int
+    lib.int8_gemm_layout.argtypes = [ctypes.c_int] * 3
+    lib.int8_gemm_layout.restype = ctypes.c_int
+    lib.int8_gemm_kmax.restype = ctypes.c_int
+    if lib.int8_gemm_kmax() != WGMMA_K_MAX:
+        raise RuntimeError("csrc/int8_gemm.cu's W_KMAX differs from "
+                           "WGMMA_K_MAX")
+    if profile:
+        lib.int8_gemm_profile.argtypes = [ctypes.c_void_p]
+        lib.int8_gemm_profile.restype = ctypes.c_int
     return lib
+
+
+def weight_map(w_int) -> WeightMap:
+    """The TMA tensor map of a contiguous (O, K) int8 CUDA tensor, for
+    variant "wgmma" (K a multiple of 16). A host call; no device work."""
+    if w_int.device.type != "cuda":
+        raise RuntimeError("weight_map encodes a tensor map of a CUDA "
+                           "tensor")
+    O, K = w_int.shape
+    blob = ctypes.create_string_buffer(128)
+    err = _library().int8_gemm_wmap(blob, w_int.data_ptr(), K, O)
+    if err != 0:
+        raise RuntimeError(f"int8_gemm tensor map encoding failed: error "
+                           f"{err}")
+    return WeightMap(w_int.data_ptr(), (O, K), blob.raw)
+
+
+def _x_layout(x):
+    """x as the kernels read it (rows may be strided, columns not), its row
+    stride and its address past a multiple of 16."""
+    T, K = x.shape
+    if x.stride(1) != 1 or (T > 1 and x.stride(0) < K):
+        x = x.contiguous()
+    return x, (x.stride(0) if T > 1 else K), x.data_ptr() % 16
 
 
 def _check(x, w_int, a_params, scale_row, bias, bits):
@@ -123,29 +234,49 @@ def _check(x, w_int, a_params, scale_row, bias, bits):
         raise ValueError(f"activation bits {bits} outside 1..{MAX_BITS}")
 
 
-def _launch(x, w_int, a_params, scale_row, bias, bits):
-    """One launch on the current stream; every tensor but x contiguous and
-    on x's device (the caller sees to it)."""
+def _launch(x, lda, w_int, a_params, scale_row, bias, bits, variant, w_map,
+            profile=False):
+    """One launch on the current stream; x as ``_x_layout`` gives it, every
+    other tensor contiguous and on x's device (the caller sees to it)."""
     T, K = x.shape
     O = w_int.shape[0]
-    if x.stride(1) != 1 or (T > 1 and x.stride(0) < K):
-        x = x.contiguous()
     out = torch.empty((T, O), dtype=x.dtype, device=x.device)
     if T == 0 or O == 0:
         return out
-    err = _library().int8_gemm_launch(
-        _DTYPE_CODE[x.dtype], x.data_ptr(), w_int.data_ptr(),
-        a_params.data_ptr(), scale_row.data_ptr(),
+    blob = None
+    if variant == "wgmma":
+        if w_map is None or w_map.ptr != w_int.data_ptr() \
+                or w_map.shape != tuple(w_int.shape):
+            w_map = weight_map(w_int)
+        blob = w_map.blob
+    err = _library(profile).int8_gemm_launch(
+        1 if variant == "wgmma" else 0, _DTYPE_CODE[x.dtype], x.data_ptr(),
+        w_int.data_ptr(), blob, a_params.data_ptr(), scale_row.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
-        T, K, O, x.stride(0) if T > 1 else K, bits, x.device.index,
+        T, K, O, lda, bits, x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"int8_gemm kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"int8_gemm kernel ({variant}) launch failed: "
+                           f"CUDA error {err}")
     int8_gemm.launches += 1
+    int8_gemm.variant_launches[variant] += 1
     return out
 
 
-def int8_gemm(x, w_int, a_params, scale_row, bias=None, *, bits: int):
+def _prepared(x, w_int, a_params, scale_row, bias):
+    """Every input but x contiguous and on x's device, w 16-byte aligned."""
+    for t in (w_int, a_params, scale_row) + (() if bias is None else (bias,)):
+        if t.device != x.device:
+            raise ValueError(f"all int8_gemm inputs must be on {x.device}")
+    w_int = w_int.contiguous()
+    if w_int.data_ptr() % 16:
+        w_int = w_int.clone()
+    return (w_int, a_params.contiguous(), scale_row.contiguous(),
+            None if bias is None else bias.contiguous())
+
+
+def int8_gemm(x, w_int, a_params, scale_row, bias=None, *, bits: int,
+              variant: str = "auto", w_map: Optional[WeightMap] = None):
     """y = (codes(x) @ w_intᵀ) * scale_row (+ bias), the activation
     quantizer fused.
 
@@ -155,25 +286,65 @@ def int8_gemm(x, w_int, a_params, scale_row, bias=None, *, bits: int):
     [2^bits - 128, 127] so every code fits int8; scale_row: (O,) float32;
     bias: None or (O,) in x's dtype. Returns (T, O) in x's dtype.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel; any
-    other device raises."""
+    CPU tensors run the plain version; CUDA tensors launch a kernel; any
+    other device raises. ``variant`` picks the kernel: "auto" routes by
+    ``int8_variant``, "wgmma" or "mma" force one (a forced "wgmma" that
+    does not take the call raises, on the CPU too). ``w_map``, the
+    ``WeightMap`` of w_int, spares "wgmma" encoding one per call."""
     _check(x, w_int, a_params, scale_row, bias, bits)
+    if variant not in VARIANTS:
+        raise ValueError(f"variant {variant!r}: want one of {VARIANTS}")
     int8_gemm.calls += 1
-    if x.device.type == "cpu":
+    cpu = x.device.type == "cpu"
+    if not cpu and x.device.type != "cuda":
+        raise RuntimeError(f"int8_gemm has no path for {x.device}")
+    x_in, lda, mod16 = _x_layout(x)
+    variant = int8_variant(x.shape[0], x.shape[1], w_int.shape[0], lda,
+                           mod16, x.dtype, variant)
+    if cpu:
         return int8_gemm_plain(x, w_int, a_params, scale_row, bias,
                                bits=bits)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"int8_gemm has no path for {x.device}")
-    for t in (w_int, a_params, scale_row) + (() if bias is None else (bias,)):
-        if t.device != x.device:
-            raise ValueError(f"all int8_gemm inputs must be on {x.device}")
-    return _launch(x, w_int.contiguous(), a_params.contiguous(),
-                   scale_row.contiguous(),
-                   None if bias is None else bias.contiguous(), bits)
+    return _launch(x_in, lda, *_prepared(x, w_int, a_params, scale_row, bias),
+                   bits, variant, w_map)
 
 
 int8_gemm.launches = 0
 int8_gemm.calls = 0
+int8_gemm.variant_launches = {"wgmma": 0, "mma": 0}
+
+# the phases both variants count their cycles by
+INT8_PHASES = ("waiting for w", "loading and quantizing x", "products",
+               "epilogue and stores", "at a row tile's barriers")
+
+
+def int8_phase_cycles(x, w_int, a_params, scale_row, bias=None, *,
+                      bits: int, variant: str):
+    """{phase: cycles summed over the warps} of one launch of ``variant``
+    ("wgmma" or "mma") on these inputs, from a second build of the kernels
+    that reads clock64 between their phases (K5_PROFILE; the timers cost
+    registers and time, so the shares are the result, not the sum; "wgmma"
+    counts every warp but its TMA producer's). Same arguments as
+    ``int8_gemm``; CUDA tensors only; waits for the device."""
+    _check(x, w_int, a_params, scale_row, bias, bits)
+    if x.device.type != "cuda":
+        raise RuntimeError("int8_phase_cycles times the kernel on a GPU")
+    if variant not in ("wgmma", "mma"):
+        raise ValueError(f"variant {variant!r}: want 'wgmma' or 'mma'")
+    x_in, lda, mod16 = _x_layout(x)
+    int8_variant(x.shape[0], x.shape[1], w_int.shape[0], lda, mod16,
+                 x.dtype, variant)
+    lib = _library(True)
+    cycles = (ctypes.c_ulonglong * 8)()
+    with torch.cuda.device(x.device):
+        torch.cuda.synchronize()
+        err = lib.int8_gemm_profile(cycles)          # reads, then zeroes
+        _launch(x_in, lda, *_prepared(x, w_int, a_params, scale_row, bias),
+                bits, variant, None, profile=True)
+        torch.cuda.synchronize()
+        err = err or lib.int8_gemm_profile(cycles)
+    if err != 0:
+        raise RuntimeError(f"int8_gemm profile read failed: CUDA error {err}")
+    return dict(zip(INT8_PHASES, cycles[:len(INT8_PHASES)]))
 
 
 # ---------------------------------------------------------------------------
@@ -207,13 +378,17 @@ def weight_codes(weight, site):
 
 def site_weights(weight, site) -> Int8Weights:
     """The ``Int8Weights`` of a supported site, computed on the weight's
-    device with no host read."""
+    device with no host read; on the card with the tensor map of its codes
+    where "wgmma" can read them (K a multiple of 16)."""
     aq = site.aq
     w_int, s_row = weight_codes(weight, site)
+    w_int = w_int.contiguous()
     a_params = torch.stack([aq.scale.reshape(()),
                             aq.zero_point.reshape(())]).float()
-    return Int8Weights(w_int.contiguous(), (a_params[0] * s_row).contiguous(),
-                       a_params.to(weight.device).contiguous())
+    w_map = weight_map(w_int) if w_int.device.type == "cuda" \
+        and w_int.shape[1] % 16 == 0 else None
+    return Int8Weights(w_int, (a_params[0] * s_row).contiguous(),
+                       a_params.to(weight.device).contiguous(), w_map)
 
 
 def _check_fits_int8(name, site):
@@ -294,5 +469,5 @@ def int8_qlinear(p: torch.nn.Linear, site, x, name=None):
     if hit is None:
         hit = site_weights(p.weight, site)
     y = int8_gemm(x.reshape(-1, x.shape[-1]), hit.w_int, hit.a_params,
-                  hit.scale_row, p.bias, bits=site.aq.bits)
+                  hit.scale_row, p.bias, bits=site.aq.bits, w_map=hit.w_map)
     return y.reshape(*x.shape[:-1], y.shape[-1])

@@ -8,8 +8,9 @@ Phases, each a hard check (any failure raises and exits non-zero):
   2. build the four kernel sources with nvcc, one process each, started
      together: K1 (csrc/fq_flash_attn.cu), K2 and K3
      (csrc/fq_attn_matmul.cu), K4 (csrc/fq_gemm.cu) and K5
-     (csrc/int8_gemm.cu); each kernel's registers are printed, and none may
-     spill;
+     (csrc/int8_gemm.cu, variants "wgmma" and "mma"); each kernel's
+     registers and static shared memory are printed, none may spill, and
+     the compiler may not serialize a wgmma;
   3. K1 kernel phase: the fused attention kernel against its plain PyTorch
      version at the deit_small attention shapes (batch 64: G=384, S=197,
      D=64), fp32 and bf16, with and without a (6, S, S) bias, per-slice
@@ -85,19 +86,27 @@ Phases, each a hard check (any failure raises and exits non-zero):
      each launch's variant printed, the reason for any "fma"); and
      test_tiny calibrated at the same numbers on the card and on the CPU:
      integer picks exact or adjacent, scales to a stated tolerance;
-  9. int8 phase: K5, the int8 GEMM of eval_int8, against its plain version
-     bit for bit at deit_small's int8 sites at batch 32 (qkv, proj, fc1,
-     the head), deit_base's three block sites and two ragged shapes, fp32
-     and bf16, timed as K4 (one call, ten in a row, ten from a CUDA graph)
-     beside torch._int_mm on the activation codes (the product alone); then
+  9. int8 phase: K5, the int8 GEMM of eval_int8, both variants forced
+     ("wgmma" where wgmma_refusal takes the shape, "mma" everywhere)
+     against the plain version bit for bit, with and without the bias, at
+     deit_small's int8 sites at batch 32 (qkv, proj, fc1, the head),
+     deit_base's three block sites, vit_large's three and its head,
+     swin_base_384's stage 0 qkv, stage 2 fc1 and stage 2-3 reduction, and
+     two ragged shapes ("wgmma" must take every shape but the ragged ones,
+     whose reason is printed; the routed call takes the variant
+     int8_variant names), fp32 and bf16, each variant timed as K4 (one
+     call, ten in a row, ten from a CUDA graph) beside torch._int_mm on the
+     activation codes (the product alone; one call and from a CUDA graph),
+     the sums over deit_small's four sites printed; then
      the calibrated deit_small of phase 8 and the smoke swin_tiny: every
      int8 site through K5 against the fake-quant path on the same inputs
      (block check, fp32), then served through load_quantized with
      eval_int8, with the attention kernel and with the attention and GEMM
      kernels, fp32 and bf16: per batch K5 37 (deit_small) or 40 (swin_tiny)
-     times, K1 12, K4 12 (the AdaLog fc2 sites) with the GEMM switch, else
-     0; img/s; then site_error_report on the calibrated deit_small (its top
-     rows and seconds) and its export round trip (export_quantized, then
+     times, every launch "wgmma" (the heads' 32 rows too), K1 12, K4 12
+     (the AdaLog fc2 sites) with the GEMM switch, else 0; img/s; then
+     site_error_report on the calibrated deit_small (its top rows and
+     seconds) and its export round trip (export_quantized, then
      load_exported on the card, logits against the plain predictor);
  10. reconstruction phase: BRECQ (BlockReconstructor.reconstruct) on the
      warm calibration's deit_small state before the post-GeLU fold, all 14
@@ -129,7 +138,8 @@ Phases, each a hard check (any failure raises and exits non-zero):
      CLI_RECON_ITERS steps on CLI_OPTIM_SIZE images (an optimize checkpoint
      saved, the calibration set and val validated). Launches per
      validation batch asserted: K1 12 every run, K4 49 with the GEMM
-     switch, else 0, K5 37 with eval_int8, else 0. The decoder used (and
+     switch, else 0, K5 37 with eval_int8 (all "wgmma"), else 0. The
+     decoder used (and
      the compiler's error if the native one did not build) is printed. Each run's seconds and each validation's
      img/s and the loader's share of its wall time are printed;
  12. mesh phase (run after phase 7): serving over a mesh of ranks, spawned
@@ -142,7 +152,8 @@ Phases, each a hard check (any failure raises and exits non-zero):
      swin_tiny tp=2 (stage 0's 3 heads keep its attention whole) in two
      ranks, test_tiny dp=2 x tp=2 in four. Per rank, 4 batches of 32 with
      the launch counts set to 0 just before and read just after, asserted
-     (MESH_LAUNCHES: deit_small tp=2 K1 12, K4 25, with eval_int8 K5 25;
+     (MESH_LAUNCHES: deit_small tp=2 K1 12, K4 25, with eval_int8 K5 25,
+     all "wgmma";
      dp=2 K1 12, K4 49; swin_tiny tp=2 K1 12, K4 30; K4 and K5 never at
      the row-parallel sites), every K1 and K4 launch "mma"; each rank's
      kernels held to their plain versions on its own batch slice and
@@ -155,10 +166,13 @@ The last two lines are a JSON summary of the kernels (launches summed over
 the main paths of phases 6 to 12, every rank's; times of the fp32 kernel
 phases; the bound
 from those phases' shapes; K1-K4's entries are the variant their paths
-launch, "mma"; K5's library_ms is torch._int_mm's) and the ok line.
+launch, "mma", K5's "wgmma", with "mma"'s times beside it; K5's
+library_ms is torch._int_mm's, library_ms_graph the same from a CUDA
+graph) and the ok line.
 
 With --profile, after the build: the share of K1's, K2's, K3's and K4's
-cycles in each phase of the kernel (second, instrumented builds), then each smoke
+cycles in each phase of the kernel, and of K5's two variants at deit_small's
+qkv and fc1 (second, instrumented builds), then each smoke
 model served in
 each dtype and setting, 5 batches of 32 after 3 warm-up, wall ms untraced,
 then one torch.profiler trace: device busy ms a batch, idle share of the
@@ -204,9 +218,12 @@ GEMM_SWIN_SHAPES = (("swin_tiny stage 0 qkv", 100352, 96, 288, "uniform"),
                     ("swin_tiny stage 3 fc2", 1568, 3072, 768,
                      "adalog_shift"))
 # K5 at deit_small's int8 sites at batch 32 (qkv, proj and fc1 of a block
-# and the head; fc2 is an AdaLog site), deit_base's three block sites and two
-# ragged shapes (K neither a multiple of 16 nor of a stage, odd O): (site, T,
-# K, O)
+# and the head; fc2 is an AdaLog site), deit_base's three block sites, the
+# int8 sites of the models the JAX package serves with int8 by default at
+# batch 32 (vit_large's block sites and head; swin_base_384's longest
+# Linear, stage 0's qkv, stage 2's fc1 and its deepest, the stage 2-3
+# reduction) and two ragged shapes (K neither a multiple of 16 nor of a
+# stage, odd O), which variant "wgmma" refuses: (site, T, K, O)
 INT8_SHAPES = (("deit_small qkv", 6304, 384, 1152),
                ("deit_small proj", 6304, 384, 384),
                ("deit_small fc1", 6304, 384, 1536),
@@ -214,6 +231,13 @@ INT8_SHAPES = (("deit_small qkv", 6304, 384, 1152),
                ("deit_base qkv", 6304, 768, 2304),
                ("deit_base proj", 6304, 768, 768),
                ("deit_base fc1", 6304, 768, 3072),
+               ("vit_large qkv", 6304, 1024, 3072),
+               ("vit_large proj", 6304, 1024, 1024),
+               ("vit_large fc1", 6304, 1024, 4096),
+               ("vit_large head", 32, 1024, 1000),
+               ("swin_base_384 stage 0 qkv", 294912, 128, 384),
+               ("swin_base_384 stage 2 fc1", 18432, 512, 2048),
+               ("swin_base_384 reduction 2-3", 4608, 2048, 1024),
                ("ragged", 777, 100, 130),
                ("ragged", 6304, 40, 1001))
 SMOKE_LOG_Q = 29.0          # AdaLog base of the smoke state, not 37
@@ -309,8 +333,45 @@ def cuda_graph_ms(torch, fn, calls=10, reps=20):
     return statistics.median(times)
 
 
+def kernel_name(mangled):
+    """name<template arguments> of a kernel in an anonymous namespace, from
+    its mangled name (_ZN <len> <namespace> <len> <name> [I <args> E] ...);
+    the mangled name where it is not of that form."""
+    import re
+
+    m = re.match(r"_ZN(\d+)", mangled)
+    if m is None:
+        return mangled
+    rest = mangled[m.end() + int(m.group(1)):]
+    m = re.match(r"(\d+)", rest)
+    if m is None:
+        return mangled
+    n = int(m.group(1))
+    name, rest = rest[m.end():m.end() + n], rest[m.end() + n:]
+    if not rest.startswith("I"):
+        return name
+    args, rest = [], rest[1:]
+    while rest and not rest.startswith("E"):
+        lit = re.match(r"L[ib](\d+)E", rest)
+        named = re.match(r"(\d+)", rest)
+        if lit:
+            args.append(lit.group(1))
+            rest = rest[lit.end():]
+        elif named:
+            k = int(named.group(1))
+            args.append(rest[named.end():named.end() + k])
+            rest = rest[named.end() + k:]
+        else:
+            args.append({"f": "float", "i": "int", "b": "bool"}.get(
+                rest[0], rest[0]))
+            rest = rest[1:]
+    return f"{name}<{', '.join(args)}>"
+
+
 def ptxas_report(log_path):
-    """[(kernel, registers, spill bytes)] of one build's compiler report."""
+    """([(kernel, registers, spill bytes, static shared memory bytes)],
+    [the compiler's warnings and performance notes]) of one build's
+    report."""
     import re
 
     with open(log_path) as f:
@@ -318,12 +379,14 @@ def ptxas_report(log_path):
     rows = []
     for m in re.finditer(
             r"Compiling entry function '(\S+)'.*?(\d+) bytes spill stores, "
-            r"(\d+) bytes spill loads.*?Used (\d+) registers", txt, re.S):
-        name = re.sub(r"^_ZN\d+_GLOBAL__N_\w+?(?=\d+(?:fq_|int8_))", "", m.group(1))
-        name = re.sub(r"Ev(PK|P).*$", "", name)      # the argument list
+            r"(\d+) bytes spill loads.*?Used (\d+) registers"
+            r"(?:, used \d+ barriers)?(?:, (\d+) bytes smem)?", txt, re.S):
+        name = kernel_name(m.group(1))
         rows.append((name, int(m.group(4)),
-                     int(m.group(2)) + int(m.group(3))))
-    return rows
+                     int(m.group(2)) + int(m.group(3)), int(m.group(5) or 0)))
+    warnings = [ln.strip() for ln in txt.splitlines()
+                if "arning" in ln or "Performance Loss" in ln]
+    return rows, warnings
 
 
 # NVIDIA's published H100 SXM peaks, for the kernels' bounds: device memory
@@ -881,82 +944,144 @@ def int8_bound_ms(T, K, O, dtype):
 
 
 def int8_case(torch, x, w_int, a_params, scale_row, b, tag):
-    """One K5 call against its plain version, bit for bit, with and
-    without the bias, and timed: {"ms": one call a timing, "ms_back_to_back":
-    ten in a row, "ms_graph": ten replayed from a CUDA graph (the device
-    alone), "plain_ms", "library_ms": torch._int_mm on the activation codes,
-    the integer product alone, where it takes the shape (T > 16, K and O
-    multiples of 8), else None, "bound_ms", "bound_by"}."""
+    """K5 on one shape: each variant that takes it ("wgmma" unless
+    wgmma_refusal refuses, "mma" always) forced, against the plain version
+    bit for bit with and without the bias, and timed; the routed call
+    launches the variant int8_variant names. Returns ({variant: {"ms": one
+    call a timing, "ms_back_to_back": ten in a row, "ms_graph": ten replayed
+    from a CUDA graph (the device alone)}, "refused": why "wgmma" does not
+    take the shape or None, "plain_ms", "library_ms": torch._int_mm on the
+    activation codes (the integer product alone) one call a timing, and
+    "library_ms_graph" from a CUDA graph, both None where it does not take
+    the shape (T > 16, K and O multiples of 8), "bound_ms", "bound_by"},
+    the largest max|diff|)."""
     from adalog_tpu_torch.ops import int8_linear
 
     (T, K), O, dt = x.shape, w_int.shape[0], str(x.dtype).split(".")[-1]
     args = (x, w_int, a_params, scale_row)
-    before = int8_linear.int8_gemm.launches
-    got = int8_linear.int8_gemm(*args, b, bits=4)
-    got_nb = int8_linear.int8_gemm(*args, bits=4)
+    counts = int8_linear.int8_gemm.variant_launches
+    refused = int8_linear.wgmma_refusal(T, K, O, K, x.data_ptr() % 16,
+                                        x.dtype)
+    routed = "mma" if refused else "wgmma"
+    w_map = None if refused else int8_linear.weight_map(w_int)
     want = int8_linear.int8_gemm_plain(*args, b, bits=4)
     want_nb = int8_linear.int8_gemm_plain(*args, bits=4)
-    torch.cuda.synchronize()
-    check(int8_linear.int8_gemm.launches == before + 2,
-          f"[{tag}] the wrapper did not launch K5")
-    check(tuple(got.shape) == (T, O) and got.dtype == x.dtype,
-          f"[{tag}] kernel output shape/dtype")
-    check(bool(torch.isfinite(got).all()), f"[{tag}] not finite")
-    max_diff = max((got.float() - want.float()).abs().max().item(),
-                   (got_nb.float() - want_nb.float()).abs().max().item())
-    n_diff = int((got != want).sum()) + int((got_nb != want_nb).sum())
+    before = dict(counts)
+    int8_linear.int8_gemm(*args, b, bits=4, w_map=w_map)
+    check(counts[routed] == before[routed] + 1,
+          f"[{tag}] the routed call did not launch '{routed}'")
+    r, worst = {"refused": refused}, 0.0
+    for v in ("mma",) if refused else ("wgmma", "mma"):
+        before = dict(counts)
+        got = int8_linear.int8_gemm(*args, b, bits=4, variant=v,
+                                    w_map=w_map)
+        got_nb = int8_linear.int8_gemm(*args, bits=4, variant=v,
+                                       w_map=w_map)
+        torch.cuda.synchronize()
+        check(counts[v] == before[v] + 2,
+              f"[{tag}] the wrapper did not launch K5 '{v}'")
+        check(tuple(got.shape) == (T, O) and got.dtype == x.dtype,
+              f"[{tag}] '{v}' output shape/dtype")
+        check(bool(torch.isfinite(got).all()), f"[{tag}] '{v}' not finite")
+        max_diff = max((got.float() - want.float()).abs().max().item(),
+                       (got_nb.float() - want_nb.float()).abs().max().item())
+        n_diff = int((got != want).sum()) + int((got_nb != want_nb).sum())
 
-    def call():
-        return int8_linear.int8_gemm(*args, b, bits=4)
+        def call(v=v):
+            return int8_linear.int8_gemm(*args, b, bits=4, variant=v,
+                                         w_map=w_map)
 
-    r = {"ms": cuda_ms(torch, call),
-         "ms_back_to_back": cuda_ms(torch, call, calls=10),
-         "ms_graph": cuda_graph_ms(torch, call),
-         "plain_ms": cuda_ms(torch, lambda: int8_linear.int8_gemm_plain(
-             *args, b, bits=4)),
-         "library_ms": None}
+        r[v] = {"ms": cuda_ms(torch, call),
+                "ms_back_to_back": cuda_ms(torch, call, calls=10),
+                "ms_graph": cuda_graph_ms(torch, call)}
+        print(f"kernel K5 int8_gemm '{v}' [{tag}] T={T} K={K} O={O}: outputs "
+              f"differing from the plain version {n_diff} (want 0), "
+              f"max|diff|={max_diff:.3e} kernel_ms={r[v]['ms']:.4f} "
+              f"back_to_back_ms={r[v]['ms_back_to_back']:.4f} "
+              f"graph_ms={r[v]['ms_graph']:.4f}")
+        check(n_diff == 0, f"[{tag}] K5 '{v}' differs from its plain "
+              f"version in {n_diff} outputs")
+        worst = max(worst, max_diff)
+        del got, got_nb
+    r["plain_ms"] = cuda_ms(torch, lambda: int8_linear.int8_gemm_plain(
+        *args, b, bits=4))
+    r["library_ms"] = r["library_ms_graph"] = None
     if T > 16 and K % 8 == 0 and O % 8 == 0:
         codes = int8_linear.activation_codes(x, a_params, bits=4).to(
             torch.int8)
         wt = w_int.t()
         r["library_ms"] = cuda_ms(torch, lambda: torch._int_mm(codes, wt))
+        r["library_ms_graph"] = cuda_graph_ms(
+            torch, lambda: torch._int_mm(codes, wt))
     r["bound_ms"], r["bound_by"] = int8_bound_ms(T, K, O, dt)
-    lib = "n/a (shape)" if r["library_ms"] is None \
-        else f"{r['library_ms']:.4f}"
-    print(f"kernel K5 int8_gemm [{tag}] T={T} K={K} O={O}: outputs differing "
-          f"from the plain version {n_diff} (want 0), max|diff|="
-          f"{max_diff:.3e} kernel_ms={r['ms']:.4f} back_to_back_ms="
-          f"{r['ms_back_to_back']:.4f} graph_ms={r['ms_graph']:.4f} "
-          f"plain_ms={r['plain_ms']:.4f} int_mm_ms(product alone)={lib} "
+    lib = "n/a (shape)" if r["library_ms"] is None else \
+        f"{fmt_ms(r['library_ms'])} graph {fmt_ms(r['library_ms_graph'])}"
+    print(f"kernel K5 int8_gemm [{tag}] T={T} K={K} O={O}: routed "
+          f"'{routed}'" + (f" ('wgmma' refused: {refused})" if refused
+                           else "")
+          + f"; plain_ms={r['plain_ms']:.4f} int_mm_ms(product alone)={lib} "
           f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})")
-    check(n_diff == 0, f"[{tag}] K5 differs from its plain version in "
-          f"{n_diff} outputs")
-    return r, max_diff
+    return r, worst
+
+
+def fmt_ms(ms):
+    return "n/a" if ms is None else f"{ms:.4f}"
 
 
 def int8_kernel_phase(torch, device):
-    """K5 against its plain version, bit for bit, at INT8_SHAPES in fp32 and
-    bf16. Returns ({key: the fp32 numbers summed over deit_small's four
-    shapes, one block's three int8 sites and the head}, the largest
-    max|diff|)."""
-    worst, sums, bounds = 0.0, {}, []
+    """K5's variants against the plain version, bit for bit, at INT8_SHAPES
+    in fp32 and bf16; every shape but the ragged ones must take "wgmma".
+    Returns ({dtype: {key: the numbers summed over deit_small's four int8
+    sites, its block's three and the head; for "wgmma" and "mma" a dict of
+    their times}}, the largest max|diff|)."""
+    from adalog_tpu_torch.ops import int8_linear
+
+    lib = int8_linear._library()
+    print("K5 'wgmma' a block (one an SM): dynamic shared memory bytes / "
+          "ring stages: " + "; ".join(
+              f"K={K} " + ", ".join(
+                  f"{dt} " + "/".join(str(lib.int8_gemm_layout(d, K, what))
+                                      for what in range(2))
+                  for d, dt in enumerate(("fp32", "bf16")))
+              for K in sorted({K for _, _, K, _ in INT8_SHAPES
+                               if K % 16 == 0})))
+    worst, sums = 0.0, {}
     for dt in ("float32", "bfloat16"):
         dtype = getattr(torch, dt)
+        tot, bounds = {}, []
         for i, (site, T, K, O) in enumerate(INT8_SHAPES):
             x, w_int, prm, srow, b = int8_inputs(torch, T, K, O,
                                                  SEED + 40 + i, device)
             r, d = int8_case(torch, x.to(dtype), w_int, prm, srow,
                              b.to(dtype), f"{dt}, {site}")
+            check((r["refused"] is None) == (site != "ragged"),
+                  f"[{dt}, {site}] 'wgmma' refusal: {r['refused']}")
             worst = max(worst, d)
-            if dt == "float32" and site.startswith("deit_small"):
+            if site.startswith("deit_small"):
                 bounds.append((r.pop("bound_ms"), r.pop("bound_by")))
-                for k, v in r.items():      # None where one is None
-                    prev = sums.get(k, 0.0)
-                    sums[k] = None if v is None or prev is None else prev + v
+                for k, v in r.items():
+                    if k == "refused":
+                        continue
+                    if isinstance(v, dict):
+                        tot.setdefault(k, {})
+                        for kk, vv in v.items():
+                            tot[k][kk] = tot[k].get(kk, 0.0) + vv
+                    else:                      # None where one is None
+                        prev = tot.get(k, 0.0)
+                        tot[k] = None if v is None or prev is None \
+                            else prev + v
             del x, w_int, b
             torch.cuda.empty_cache()
-    sums["bound_ms"] = sum(b for b, _ in bounds)
-    sums["bound_by"] = max(bounds)[1]
+        tot["bound_ms"] = sum(b for b, _ in bounds)
+        tot["bound_by"] = max(bounds)[1]
+        sums[dt] = tot
+        print(f"kernel K5 int8_gemm [{dt}, deit_small's four int8 sites "
+              f"summed]: 'wgmma' graph {tot['wgmma']['ms_graph']:.4f} ms "
+              f"({100 * tot['bound_ms'] / tot['wgmma']['ms_graph']:.1f}% of "
+              f"the bound), 'mma' graph {tot['mma']['ms_graph']:.4f} ms "
+              f"({100 * tot['bound_ms'] / tot['mma']['ms_graph']:.1f}%), "
+              f"torch._int_mm graph {fmt_ms(tot['library_ms_graph'])} ms, "
+              f"bound {tot['bound_ms']:.4f} ms; {card_line()}")
     return sums, worst
 
 
@@ -1235,8 +1360,24 @@ def wrappers(fq_attn, fq_gemm):
 def zero_launches(fq_attn, fq_gemm):
     for w in wrappers(fq_attn, fq_gemm).values():
         w.launches = 0
-        if hasattr(w, "variant_launches"):      # K5 has one variant
-            w.variant_launches.update(mma=0, fma=0)
+        for v in w.variant_launches:
+            w.variant_launches[v] = 0
+
+
+def k5_variants():
+    """K5's launches by variant since the counts were last set to 0."""
+    from adalog_tpu_torch.ops import int8_linear
+
+    return dict(int8_linear.int8_gemm.variant_launches)
+
+
+def check_k5_variants(n, tag):
+    """Every one of the n K5 launches of a served path was "wgmma": each
+    block site, and the heads' 32-row calls, whose rows past 32 the kernel
+    computes and never stores."""
+    got = k5_variants()
+    check(got == {"wgmma": n, "mma": 0},
+          f"{tag}: K5 launches by variant {got}, want all {n} 'wgmma'")
 
 
 def read_launches(fq_attn, fq_gemm):
@@ -1859,6 +2000,9 @@ def serve_int8(torch, fq_attn, fq_gemm, device, spec, ckpt, batches, tag):
               f"{N_BATCHES} batches of {BATCH} (want K1 {n_attn}, K4 "
               f"{n_fc2 if gemm else 0}, K5 {n_int8} per batch: {want})")
         check(got == want, f"{tag} '{setting}' launches {got} != {want}")
+        print(f"serving path {tag} '{setting}': K5 by variant "
+              f"{k5_variants()}")
+        check_k5_variants(want["K5"], f"{tag} '{setting}'")
         for dt, (y, ips) in served.items():
             check_logits(torch, y, spec, BATCH * N_BATCHES,
                          f"{tag} {dt} {setting}")
@@ -2060,7 +2204,8 @@ def mesh_rank(work, cases):
         secs = time.perf_counter() - t0
         got = read_launches(fq_attn, fq_gemm)
         variants = {"K1": dict(fq_attn.fq_flash_attn.variant_launches),
-                    "K4": dict(fq_gemm.fq_gemm.variant_launches)}
+                    "K4": dict(fq_gemm.fq_gemm.variant_launches),
+                    "K5": k5_variants()}
         if rank == 0:
             np.save(os.path.join(work, f"{key}.npy"),
                     torch.cat(ys).float().cpu().numpy())
@@ -2141,10 +2286,13 @@ def mesh_phase(torch, fq_attn, fq_gemm, device, ckpt_dir, runs=MESH_RUNS):
                 print(f"mesh {key} rank {rank}: launches {r['launches']} for "
                       f"{N_BATCHES} batches of {BATCH} (want {want}); by "
                       f"variant K1 {r['variants']['K1']}, K4 "
-                      f"{r['variants']['K4']}")
+                      f"{r['variants']['K4']}, K5 {r['variants']['K5']}")
                 check(r["launches"] == want,
                       f"mesh {key} rank {rank}: launches {r['launches']} != "
                       f"{want}")
+                check(r["variants"]["K5"] == {"wgmma": want["K5"], "mma": 0},
+                      f"mesh {key} rank {rank}: K5 by variant "
+                      f"{r['variants']['K5']}, want all 'wgmma'")
                 for k in ("K1", "K4"):
                     check(r["variants"][k]["fma"] == 0,
                           f"mesh {key} rank {rank}: {k} took variant 'fma'")
@@ -2631,6 +2779,7 @@ def cli_phase(torch, fq_attn, fq_gemm, device, ckpt_dir):
                 "K4": n_linear * batches if gemm else 0,
                 "K5": n_int8 * batches if int8 else 0}
         check(got == want, f"cli {tag}: launches {got} != {want}")
+        check_k5_variants(want["K5"], f"cli {tag}")
         for k, n in got.items():
             launches[k] += n
 
@@ -2915,6 +3064,30 @@ def gemm_phase_profile(torch, fq_gemm, device):
                   + f" of {total / 1e6:.1f} M warp cycles")
 
 
+def int8_phase_profile(torch, device):
+    """Where the cycles of K5's two variants go, by phase of the kernel, at
+    deit_small's qkv and fc1 at batch 32, fp32 and bf16: one launch each of
+    the instrumented build (int8_linear.int8_phase_cycles)."""
+    from adalog_tpu_torch.ops import int8_linear
+
+    for i, (site, T, K, O) in enumerate(INT8_SHAPES):
+        if site not in ("deit_small qkv", "deit_small fc1"):
+            continue
+        x, w_int, prm, srow, b = int8_inputs(torch, T, K, O, SEED + 40 + i,
+                                             device)
+        for dtype in (torch.float32, torch.bfloat16):
+            for variant in ("wgmma", "mma"):
+                cycles = int8_linear.int8_phase_cycles(
+                    x.to(dtype), w_int, prm, srow, b.to(dtype), bits=4,
+                    variant=variant)
+                total = sum(cycles.values())
+                print(f"K5 '{variant}' phases {site} T={T} K={K} O={O} "
+                      f"{str(dtype).split('.')[-1]}: "
+                      + ", ".join(f"{k} {100 * c / total:.1f}%"
+                                  for k, c in cycles.items() if c)
+                      + f" of {total / 1e6:.1f} M warp cycles")
+
+
 PROFILE_WARMUP, PROFILE_BATCHES = 3, 5
 
 
@@ -3033,18 +3206,25 @@ def main(argv):
     print(f"build: {time.perf_counter() - t0:.2f} s (in parallel) -> "
           + ", ".join(os.path.relpath(p) for p in libs))
     for lib in libs:
-        rows = ptxas_report(lib + ".log")
+        rows, warnings = ptxas_report(lib + ".log")
         check(rows, f"{lib}.log names no kernel")
-        for kernel, regs, spill in rows:
-            print(f"ptxas: {kernel}: {regs} registers, {spill} bytes of "
-                  "spill stores and loads")
+        for kernel, regs, spill, smem in rows:
+            print(f"ptxas: {kernel}: {regs} registers, {smem} bytes of "
+                  f"static shared memory, {spill} bytes of spill stores and "
+                  "loads")
             check(spill == 0, f"{kernel} spills registers")
+        for w in warnings:
+            print(f"ptxas: {os.path.basename(lib)}: {w}")
+        # a wgmma the compiler serializes waits for each product in turn
+        check(not any("wgmma" in w and "serialized" in w for w in warnings),
+              f"{lib}: the compiler serializes wgmma")
     ckpt_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "checkpoints")
     if profile:
         flash_phase_profile(torch, fq_attn, device)
         matmul_phase_profile(torch, fq_attn, device)
         gemm_phase_profile(torch, fq_gemm, device)
+        int8_phase_profile(torch, device)
         for name in MODELS:
             profile_phase(torch, device, ckpt_dir, name)
         calibration_profile(torch, device)
@@ -3083,6 +3263,7 @@ def main(argv):
     # smoke swin_tiny served with eval_int8, diagnostics and export
     k5, got, errs = int8_phase(torch, fq_attn, fq_gemm, device, ckpt_dir,
                                start)
+    k5 = k5["float32"]
     add(got, errs)
     add(*reconstruction_phase(torch, fq_attn, fq_gemm, device, ckpt_dir,
                               start))
@@ -3140,12 +3321,18 @@ def main(argv):
               # both with the wrapper's host time; ms_graph the device alone
               variant="mma", ms_back_to_back=gq_ms, ms_graph=gg_ms),
         # K5: times summed over deit_small's three block sites and the head
-        # (fp32), as K4's
-        entry("int8_gemm", "int8_gemm", "int8_linear.py:117", "K5",
-              block_worst["K5"], k5["ms"], k5["plain_ms"], k5["bound_ms"],
-              k5["bound_by"], library_ms=k5["library_ms"],
-              ms_back_to_back=k5["ms_back_to_back"],
-              ms_graph=k5["ms_graph"])]}))
+        # (fp32), as K4's, of the variant its paths launch, asserted:
+        # "wgmma"; "mma"'s beside them; library_ms_graph is torch._int_mm
+        # from a CUDA graph
+        entry("int8_gemm", "int8_gemm", "int8_linear.py:147", "K5",
+              block_worst["K5"], k5["wgmma"]["ms"], k5["plain_ms"],
+              k5["bound_ms"], k5["bound_by"], library_ms=k5["library_ms"],
+              variant="wgmma", ms_back_to_back=k5["wgmma"]["ms_back_to_back"],
+              ms_graph=k5["wgmma"]["ms_graph"],
+              library_ms_graph=k5["library_ms_graph"],
+              mma_ms=k5["mma"]["ms"],
+              mma_ms_back_to_back=k5["mma"]["ms_back_to_back"],
+              mma_ms_graph=k5["mma"]["ms_graph"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

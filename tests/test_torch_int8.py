@@ -420,3 +420,139 @@ def test_int8_wrapper_checks():
     with pytest.raises(RuntimeError, match="no path"):
         int8_linear.int8_gemm(x.to("meta"), w.to("meta"), prm.to("meta"),
                               s.to("meta"), bits=4)
+
+
+# ---------------------------------------------------------------------------
+# Routing between K5's variants (ops/int8_linear.py::int8_variant)
+# ---------------------------------------------------------------------------
+
+# the models the routing is held to: the two the port serves in its checks
+# and the three the JAX package serves with int8 by default
+ROUTED_MODELS = ("deit_small", "swin_tiny", "deit_base", "vit_large",
+                 "swin_base_384")
+
+
+def _int8_site_shapes(spec, batch=32):
+    """[(site, T, K, O)] of every int8 site of a model at ``batch`` images
+    (the uniform Linear sites: qkv, proj and fc1 of each block, Swin's
+    patch-merging reductions and the head; fc2 is an AdaLog site), from its
+    config: the large models are not built on the CPU."""
+    c, out = spec.cfg, []
+    if spec.family == "vit":
+        T, D = batch * (c.num_patches + 1), c.dim
+        for i in range(c.depth):
+            out += [(f"blocks.{i} qkv", T, D, 3 * D),
+                    (f"blocks.{i} proj", T, D, D),
+                    (f"blocks.{i} fc1", T, D, int(D * c.mlp_ratio))]
+        return out + [("head", batch, D, c.num_classes)]
+    for s, depth in enumerate(c.depths):
+        C, T = c.stage_dim(s), batch * c.stage_res(s) ** 2
+        for i in range(depth):
+            out += [(f"stage {s} block {i} qkv", T, C, 3 * C),
+                    (f"stage {s} block {i} proj", T, C, C),
+                    (f"stage {s} block {i} fc1", T, C, int(C * c.mlp_ratio))]
+        if s + 1 < len(c.depths):
+            out.append((f"reduction {s}-{s + 1}",
+                        batch * c.stage_res(s + 1) ** 2, 4 * C, 2 * C))
+    return out + [("head", batch, c.stage_dim(len(c.depths) - 1),
+                   c.num_classes)]
+
+
+@pytest.mark.parametrize("name", MODELS)
+def test_int8_site_shapes_match_prepare(name):
+    """The shape arithmetic of the routing test lists the (K, O) of every
+    entry of the port's int8 table, on the tiny models that do build."""
+    *_, spec, model, tq = _uniform_state(name)
+    table = int8_linear.prepare(spec, model, tq, Config(**W4A4))
+    want = sorted((K, O) for _, _, K, O in _int8_site_shapes(spec))
+    assert sorted(tuple(hit.w_int.shape[::-1]) for hit in table.values()) \
+        == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ROUTED_MODELS)
+def test_int8_every_model_site_routes_wgmma(name, dtype):
+    """Every int8 site of the served models, at batch 32, contiguous x:
+    "wgmma" takes it (the heads' T = 32 too: rows past T are computed and
+    never stored), by int8_variant and by the wrapper's forced call."""
+    sites = _int8_site_shapes(zoo.model_spec(name))
+    assert len(sites) == {"deit_small": 37, "swin_tiny": 40, "deit_base": 37,
+                          "vit_large": 73, "swin_base_384": 76}[name]
+    for site, T, K, O in sites:
+        assert int8_linear.wgmma_refusal(T, K, O, K, 0, dtype) is None, site
+        assert int8_linear.int8_variant(T, K, O, K, 0, dtype) == "wgmma"
+    assert max(K for _, _, K, _ in sites) <= int8_linear.WGMMA_K_MAX
+
+
+@pytest.mark.parametrize("T,K,O,lda,mod16,dtype,why", [
+    (64, 100, 128, 100, 0, torch.float32, "multiple of 16"),
+    (64, 40, 1001, 40, 0, torch.bfloat16, "multiple of 16"),
+    (64, 32, 64, 33, 0, torch.float32, "16-byte aligned"),
+    (64, 32, 64, 36, 0, torch.bfloat16, "16-byte aligned"),
+    (64, 32, 64, 32, 8, torch.float32, "16-byte aligned"),
+    (64, 32, 130, 32, 0, torch.float32, "16-byte pieces"),
+    (64, 32, 1004, 32, 0, torch.bfloat16, "16-byte pieces"),
+    (64, 2192, 128, 2192, 0, torch.float32, "stay resident"),
+    (64, 4096, 1024, 4096, 0, torch.bfloat16, "stay resident"),
+])
+def test_int8_wgmma_refusal_reasons(T, K, O, lda, mod16, dtype, why):
+    """Each reason "wgmma" refuses a call for; the call then takes "mma",
+    and a forced "wgmma" raises naming the reason."""
+    assert why in int8_linear.wgmma_refusal(T, K, O, lda, mod16, dtype)
+    assert int8_linear.int8_variant(T, K, O, lda, mod16, dtype) == "mma"
+    assert int8_linear.int8_variant(T, K, O, lda, mod16, dtype,
+                                    "mma") == "mma"
+    with pytest.raises(ValueError, match=why):
+        int8_linear.int8_variant(T, K, O, lda, mod16, dtype, "wgmma")
+
+
+@pytest.mark.parametrize("T", [1, 32, 63, 64, 65, 294912])
+def test_int8_wgmma_takes_any_row_count(T):
+    """T takes no part in the routing: a partial last row tile is computed
+    and never stored; K up to the resident limit is taken."""
+    for K in (16, 96, 384, int8_linear.WGMMA_K_MAX):
+        assert int8_linear.int8_variant(T, K, 1000, K, 0,
+                                        torch.bfloat16) == "wgmma"
+
+
+def test_int8_variant_argument(rng):
+    """variant= takes "auto", "wgmma" or "mma"; anything else raises, on
+    the CPU too; a forced "wgmma" the call's shape refuses raises on the
+    CPU as on the card; every accepted variant runs the plain version on CPU
+    tensors and launches nothing."""
+    x = torch.from_numpy(_x(rng, 5, 32))
+    w = torch.from_numpy(rng.integers(-7, 8, (16, 32)).astype(np.int8))
+    prm, s = torch.tensor([0.07, 7.0]), torch.rand(16)
+    want = int8_linear.int8_gemm_plain(x, w, prm, s, bits=4)
+    launches = dict(int8_linear.int8_gemm.variant_launches)
+    for v in int8_linear.VARIANTS:
+        assert torch.equal(int8_linear.int8_gemm(x, w, prm, s, bits=4,
+                                                 variant=v), want)
+    assert int8_linear.int8_gemm.variant_launches == launches
+    with pytest.raises(ValueError, match="variant"):
+        int8_linear.int8_gemm(x, w, prm, s, bits=4, variant="fma")
+    with pytest.raises(ValueError, match="variant"):
+        int8_linear.int8_variant(5, 32, 16, 32, 0, torch.float32, "cuda")
+    with pytest.raises(ValueError, match="'wgmma' refused"):
+        int8_linear.int8_gemm(x[:, :24], w[:, :24], prm, s, bits=4,
+                              variant="wgmma")
+    strided = torch.from_numpy(_x(rng, 5, 66))[:, :33]     # lda 66, K 33
+    with pytest.raises(ValueError, match="'wgmma' refused"):
+        int8_linear.int8_gemm(strided, w.repeat(1, 2)[:, :33], prm, s,
+                              bits=4, variant="wgmma")
+    assert torch.equal(
+        int8_linear.int8_gemm(strided, w.repeat(1, 2)[:, :33], prm, s,
+                              bits=4, variant="mma"),
+        int8_linear.int8_gemm_plain(strided, w.repeat(1, 2)[:, :33], prm, s,
+                                    bits=4))
+
+
+def test_int8_cpu_table_has_no_tensor_map(rng):
+    """The tensor map is built on the card only: a CPU table's entries carry
+    none, and weight_map refuses a CPU tensor."""
+    _, site = _site(rng, 12)
+    _, lin = _linear(rng, 12, 32)
+    hit = int8_linear.site_weights(lin.weight, site)
+    assert hit.w_map is None and hit.w_int.is_contiguous()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        int8_linear.weight_map(hit.w_int)

@@ -6,11 +6,15 @@ This file imports no jax, so it runs on a GPU machine without JAX:
     python -m pytest --noconftest tests/test_torch_int8_cuda.py
 
 The integer sum is exact in both, and both round the same fp32 epilogue
-(the sum to float, times the row scale, plus the bias, one cast), so the
-kernel equals its plain version bit for bit, in float32 and bfloat16, at
-the Linear shapes of deit_small and deit_base at batch 32 and at ragged
-ones. A CUDA call the kernel does not take raises; a reconstruction inside
-a predictor's int8 table launches no kernel.
+(the sum to float, times the row scale, plus the bias, one cast), so both
+variants of the kernel ("wgmma" and "mma") equal the plain version bit for
+bit, in float32 and bfloat16, at the int8 Linear shapes of chip_smoke.py
+(deit_small, deit_base, vit_large and swin_base_384 at batch 32) and at
+ragged ones, as routed and forced; the routed variant is the one
+int8_variant names. A forced "wgmma" on a call it refuses raises, as does
+a CUDA call neither variant takes; a capture into a CUDA graph replays to
+the direct call's output; a reconstruction inside a predictor's int8 table
+launches no kernel.
 """
 
 import numpy as np
@@ -35,35 +39,53 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _kernel_vs_plain(device, T, K, O, dt, seed, bits=4, strided=False,
-                     bias=True):
+VARIANTS = ("auto", "wgmma", "mma")
+
+
+def _kernel_vs_plain(device, T, K, O, dt, seed, variant, bits=4,
+                     strided=False, bias=True):
+    """One call of ``variant`` against the plain version: the routed
+    variant launched once (by variant_launches), 0 outputs differing."""
     dtype = getattr(torch, dt)
     x, w_int, a_params, scale_row, b = chip_smoke.int8_inputs(
         torch, T, K, O, seed, device, bits)
     x, b = x.to(dtype), b.to(dtype) if bias else None
     if strided:                      # rows of a wider tensor
         x = torch.cat([x, x], dim=1)[:, :K]
-    before = int8_linear.int8_gemm.launches
-    got = int8_linear.int8_gemm(x, w_int, a_params, scale_row, b, bits=bits)
+    lda = x.stride(0) if T > 1 else K
+    why = int8_linear.wgmma_refusal(T, K, O, lda, x.data_ptr() % 16, dtype)
+    if variant == "wgmma" and why is not None:
+        pytest.skip(f"'wgmma' refuses this call: {why}")
+    routed = "mma" if variant == "mma" or why is not None else "wgmma"
+    before = dict(int8_linear.int8_gemm.variant_launches)
+    got = int8_linear.int8_gemm(x, w_int, a_params, scale_row, b, bits=bits,
+                                variant=variant)
     torch.cuda.synchronize()
-    assert int8_linear.int8_gemm.launches == before + 1
+    after = int8_linear.int8_gemm.variant_launches
+    assert {v: after[v] - before[v] for v in after} == \
+        {v: int(v == routed) for v in after}
     want = int8_linear.int8_gemm_plain(x, w_int, a_params, scale_row, b,
                                        bits=bits)
     assert got.dtype == dtype and tuple(got.shape) == (T, O)
     assert bool(torch.isfinite(got).all())
-    assert torch.equal(got, want), (got.float() - want.float()).abs().max()
+    assert int((got != want).sum()) == 0, \
+        (got.float() - want.float()).abs().max()
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("variant", VARIANTS)
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 @pytest.mark.parametrize("site,T,K,O", INT8_SHAPES)
-def test_kernel_equals_plain_at_model_shapes(cuda_device, site, T, K, O, dt):
-    """deit_small's and deit_base's int8 sites at batch 32, the ragged
-    cases of chip_smoke.py."""
-    _kernel_vs_plain(cuda_device, T, K, O, dt, seed=1)
+def test_kernel_equals_plain_at_model_shapes(cuda_device, site, T, K, O, dt,
+                                             variant):
+    """The int8 sites of deit_small, deit_base, vit_large and swin_base_384
+    at batch 32, and the ragged cases of chip_smoke.py ("wgmma" refuses
+    those)."""
+    _kernel_vs_plain(cuda_device, T, K, O, dt, 1, variant)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("variant", VARIANTS)
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 @pytest.mark.parametrize("T,K,O,bits,strided,bias", [
     (10, 8, 7, 4, False, True),      # smaller than one tile everywhere
@@ -71,11 +93,68 @@ def test_kernel_equals_plain_at_model_shapes(cuda_device, site, T, K, O, dt):
     (129, 100, 130, 6, False, True),  # one past a tile, K a 4th of 16
     (200, 40, 33, 7, True, True),    # strided rows, odd O, 7 bits
     (64, 1000, 5, 4, False, True),   # K past a stage many times, odd
+    (1, 32, 16, 4, False, True),     # one row through "wgmma"
+    (130, 96, 288, 5, True, False),  # swin_tiny's stage 0 width, strided
+    (300, 1024, 4096, 4, False, True),  # more k stages than the ring
+    (65, 2176, 128, 4, False, True),    # the largest resident K
 ])
 def test_kernel_equals_plain_ragged(cuda_device, T, K, O, bits, strided,
-                                    bias, dt):
-    _kernel_vs_plain(cuda_device, T, K, O, dt, seed=2, bits=bits,
+                                    bias, dt, variant):
+    _kernel_vs_plain(cuda_device, T, K, O, dt, 2, variant, bits=bits,
                      strided=strided, bias=bias)
+
+
+@pytest.mark.cuda
+def test_forced_wgmma_refused_raises(cuda_device):
+    """A forced "wgmma" on a call it refuses raises and launches nothing;
+    the same call routed takes "mma"."""
+    x, w_int, a_params, scale_row, _ = chip_smoke.int8_inputs(
+        torch, 64, 40, 32, 4, cuda_device)
+    before = dict(int8_linear.int8_gemm.variant_launches)
+    with pytest.raises(ValueError, match="'wgmma' refused"):
+        int8_linear.int8_gemm(x, w_int, a_params, scale_row, bits=4,
+                              variant="wgmma")
+    assert int8_linear.int8_gemm.variant_launches == before
+    int8_linear.int8_gemm(x, w_int, a_params, scale_row, bits=4)
+    torch.cuda.synchronize()
+    assert int8_linear.int8_gemm.variant_launches["mma"] == before["mma"] + 1
+    x, w_int, a_params, scale_row, _ = chip_smoke.int8_inputs(
+        torch, 64, 48, 32, 4, cuda_device)
+    wide = torch.cat([x, x[:, :1]], dim=1)[:, :48]    # row stride 49
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        int8_linear.int8_gemm(wide, w_int, a_params, scale_row, bits=4,
+                              variant="wgmma")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("variant", ["wgmma", "mma"])
+def test_cuda_graph_replay_equals_direct_call(cuda_device, variant, dt):
+    """Each variant captured into a CUDA graph (the table's tensor map
+    passed by value) replays to the direct call's output, on new inputs
+    copied into the captured ones too."""
+    dtype = getattr(torch, dt)
+    x, w_int, a_params, scale_row, b = chip_smoke.int8_inputs(
+        torch, 6304, 384, 1152, 5, cuda_device)
+    x, b = x.to(dtype), b.to(dtype)
+    w_map = int8_linear.weight_map(w_int)
+
+    def call():
+        return int8_linear.int8_gemm(x, w_int, a_params, scale_row, b,
+                                     bits=4, variant=variant, w_map=w_map)
+
+    direct = call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, direct)
+    x.copy_(torch.flip(x, dims=[0]))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, call())
 
 
 @pytest.mark.cuda
