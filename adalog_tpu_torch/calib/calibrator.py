@@ -17,6 +17,15 @@ The calibrator works on its own copy of the caller's model, on ``device``
 (CUDA unless the caller asks for the CPU). Model rewrites are functional
 (``layout.tree_set``): each returned model is a new root that shares its
 unchanged submodules with the calibrator's earlier ones.
+
+Over a mesh (``mesh=``, a ``parallel.mesh.Mesh`` in every rank of its
+process group) the calibration is data-parallel over the dp group, as the
+JAX package's is over its 'dp' axis: each rank captures and keeps only its
+``dp_split`` of every batch, the searches run inside ``dp_context`` (every
+sum over tokens or images a partial plus an all_reduce, the quantiles
+selected across the ranks), and every rank ends with the same model and
+state, bit for bit, which ``calibrate`` asserts. The result equals the
+single-device one up to the order of the float sums.
 """
 
 from __future__ import annotations
@@ -42,8 +51,13 @@ from adalog_tpu_torch.calib.reparam import (
 from adalog_tpu_torch.models.layers import ConvSite, LinearSite, MatMulSite
 from adalog_tpu_torch.models.zoo import model_forward_fn
 from adalog_tpu_torch.ops import scoring
+from adalog_tpu_torch.parallel.mesh import (
+    dp_assert_replicated, dp_barrier, dp_context, dp_max, dp_split,
+    require_group,
+)
 from adalog_tpu_torch.quantizers.state import (
     GELU_MIN, QuantizerState, WeightQuantizerState, map_tensors,
+    tensor_leaves,
 )
 from adalog_tpu_torch.utils.config import Config
 from adalog_tpu_torch.utils.resume import resume_append, resume_scan
@@ -88,10 +102,12 @@ def capture_all_sites(spec, params, batches: List[np.ndarray],
     decision is made against the smaller bytes; the searches upcast to fp32.
     When one batch's taps exceed a quarter of the budget, they are taken in
     groups of sites (a forward a group; each forward keeps only its group).
-    ``mesh`` (data-parallel capture in the JAX package) is not ported."""
+    With ``mesh`` each rank runs the forward on its ``dp_split`` of every
+    batch and keeps its rows of the taps; the budget, spill and dtypes
+    apply per rank. Every rank must get an image of every batch."""
     if mesh is not None:
-        raise NotImplementedError(
-            "calibration over a device mesh is not ported to PyTorch yet")
+        require_group(mesh, "capture_all_sites")
+        batches = [_rank_slice(xb, mesh) for xb in batches]
     device = _model_device(params)
     fwd = model_forward_fn(spec)
     shapes = tap_shapes(spec, params, tuple(np.shape(batches[0])))
@@ -152,6 +168,17 @@ def capture_all_sites(spec, params, batches: List[np.ndarray],
     return out
 
 
+def _rank_slice(xb, mesh):
+    """This rank's dp slice of a batch, which may not be empty: a forward
+    on no image is no forward."""
+    n = np.shape(xb)[0]
+    if n < mesh.dp:
+        raise ValueError(f"a batch of {n} images leaves ranks of dp="
+                         f"{mesh.dp} without one; use batches of at least "
+                         f"{mesh.dp}")
+    return dp_split(xb, mesh)
+
+
 def _flat2d(x):
     return x.reshape(-1, x.shape[-1])
 
@@ -182,18 +209,19 @@ class QuantCalibrator:
     capture and scoring.
     resume_path: optional file; per-site results and reparam folds are
     appended as they finish, so an interrupted calibration restarts where it
-    left off (utils/resume.py, the JAX package's file format).
-    mesh: data-parallel search in the JAX package; not ported.
+    left off (utils/resume.py, the JAX package's file format). Over a mesh
+    only its rank 0 writes the file; every rank reads it.
+    mesh: a ``parallel.mesh.Mesh``: calibrate data-parallel over its dp
+    group (the module's docstring); raises without a process group.
     ``seconds`` holds the wall-clock of the capture and of each search family
     ('reparam', 'linear', 'postgelu', 'matmul', 'matmul_post', 'conv', ...),
-    synchronized with the device.
+    synchronized with the device (per rank over a mesh).
     """
 
     def __init__(self, spec, params, cfg: Config, reparam: bool = True,
                  mesh=None, resume_path: str = None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "calibration over a device mesh is not ported to PyTorch yet")
+        self.mesh = None if mesh is None else require_group(
+            mesh, "QuantCalibrator")
         self.device = _resolve_device(device)
         if self.device.type == "cuda":
             from adalog_tpu_torch.serve import pin_fp32_matmul
@@ -285,8 +313,11 @@ class QuantCalibrator:
 
     def _resume_append(self, records):
         """Append ("site" | "fold", name, payload) records (None entries
-        skipped); the tensors are copied to the host by the encoder."""
-        resume_append(self.resume_path, [r for r in records if r is not None])
+        skipped); the tensors are copied to the host by the encoder. Over a
+        mesh rank 0 writes, as every rank holds the same records."""
+        if self.mesh is None or self.mesh.rank == 0:
+            resume_append(self.resume_path,
+                          [r for r in records if r is not None])
 
     def _fold_record(self, name, new_norm, new_lin, r, b):
         """The fold's resume record, or None with no resume file."""
@@ -418,6 +449,10 @@ class QuantCalibrator:
         job fields that are stacked (reparam stage 1 stacks x2 only)."""
         budget = int(getattr(self.cfg, "batch_group_bytes", 1 << 29))
         per = sum(_module_bytes(el) for el in jobs[0][stacked_slice])
+        if self.mesh is not None:
+            # the largest rank's bytes: every rank must cut the same chunks
+            per = int(dp_max(torch.tensor(per, device=self.device),
+                             self.mesh))
         n = max(1, min(len(jobs), budget // max(per, 1)))
         k = -(-len(jobs) // n)                  # number of chunks
         bounds = np.linspace(0, len(jobs), k + 1).astype(int)
@@ -690,9 +725,13 @@ class QuantCalibrator:
         self._flush_pending()
 
     def _tap_bytes(self, batches, names):
-        """Per-site capture footprint (all batches), from ``tap_shapes``."""
-        shapes = tap_shapes(self.spec, self.params,
-                            tuple(np.shape(batches[0])))
+        """Per-site capture footprint (all batches), from ``tap_shapes``;
+        over a mesh that of the largest rank slice (the first), so that
+        every rank cuts the same waves."""
+        shape = list(np.shape(batches[0]))
+        if self.mesh is not None:
+            shape[0] = -(-shape[0] // self.mesh.dp)
+        shapes = tap_shapes(self.spec, self.params, tuple(shape))
         item = 2 if self._capture_dtype == torch.bfloat16 else 4
         return {nm: sum(int(np.prod(s)) * item for s in shapes[nm])
                 * len(batches) for nm in names}
@@ -731,7 +770,7 @@ class QuantCalibrator:
                 self.spec, self.params, batches,
                 self.cfg.capture_device_budget_bytes, names=names,
                 spill_dtype=self._spill_dtype,
-                capture_dtype=self._capture_dtype)
+                capture_dtype=self._capture_dtype, mesh=self.mesh)
 
     def calibrate(self, batches: List[np.ndarray]):
         """Full calibration: capture, then search every site. ``batches``:
@@ -743,36 +782,48 @@ class QuantCalibrator:
         streaming waves (cfg.streaming_calib): capture a budget-sized slice
         of sites, search it, free it, rerun the raw forward for the next.
         Raw taps are invariant under the folds already applied, so the
-        per-wave recapture is exact."""
-        with torch.no_grad():
-            recs = self._resume_scan()
-            done = {name for tag, name, _ in recs if tag == "site"}
-            need = [nm for nm in self.layout if nm not in done]
-
-            waves = self._streaming_waves(batches, need)
-            if waves is not None:
-                # streaming: resume records first, since the waves capture
-                # from the folded model, so restored-fold sites' taps come
-                # out already rewritten
-                self._resume_apply(recs)
-                self._taps_post_fold = set(self._folded)
-                for i, wave in enumerate(waves):
-                    taps = self._capture(batches, tuple(wave))
-                    log.info("wave %d/%d: captured %d sites", i + 1,
-                             len(waves), len(taps))
-                    self._run_sites(wave, taps)
-                return self.params, self.qstate
-
-            # one pass: capture BEFORE applying resume records, from the
-            # ORIGINAL model: the same taps as an uninterrupted run (folds
-            # preserve the function; folded sites' cached inputs are
-            # rewritten from the stored (r, b)); searched sites are skipped
-            taps = self._capture(batches, None if not recs else tuple(need))
-            log.info("capture: %d sites in %.1fs", len(taps),
-                     self.seconds["capture"])
-            self._resume_apply(recs)
-            self._run_sites(list(self.layout), taps)
+        per-wave recapture is exact. Over a mesh, every rank must call this
+        with the same batches."""
+        with torch.no_grad(), dp_context(self.mesh):
+            self._calibrate(batches)
+            dp_assert_replicated(
+                list(self.params.state_dict().values()) + tensor_leaves(
+                    [self.qstate[nm] for nm in sorted(self.qstate)]),
+                self.mesh, "calibration")
         return self.params, self.qstate
+
+    def _calibrate(self, batches):
+        recs = self._resume_scan()
+        if self.mesh is not None:
+            # an all_reduce as a barrier: every rank has read the file
+            # before rank 0 appends to it
+            dp_barrier(self.mesh)
+        done = {name for tag, name, _ in recs if tag == "site"}
+        need = [nm for nm in self.layout if nm not in done]
+
+        waves = self._streaming_waves(batches, need)
+        if waves is not None:
+            # streaming: resume records first, since the waves capture from
+            # the folded model, so restored-fold sites' taps come out
+            # already rewritten
+            self._resume_apply(recs)
+            self._taps_post_fold = set(self._folded)
+            for i, wave in enumerate(waves):
+                taps = self._capture(batches, tuple(wave))
+                log.info("wave %d/%d: captured %d sites", i + 1, len(waves),
+                         len(taps))
+                self._run_sites(wave, taps)
+            return
+
+        # one pass: capture BEFORE applying resume records, from the
+        # ORIGINAL model: the same taps as an uninterrupted run (folds
+        # preserve the function; folded sites' cached inputs are rewritten
+        # from the stored (r, b)); searched sites are skipped
+        taps = self._capture(batches, None if not recs else tuple(need))
+        log.info("capture: %d sites in %.1fs", len(taps),
+                 self.seconds["capture"])
+        self._resume_apply(recs)
+        self._run_sites(list(self.layout), taps)
 
     def finish_calibration(self):
         """The post-GeLU bias fold for every shifted-log fc2 site. Returns a

@@ -13,7 +13,10 @@ on this layout.
 Quantiles are exact, by a full sort (``quantile``), and equal
 ``jnp.quantile``'s bit for bit: ``torch.quantile`` refuses inputs past 2^24
 elements and need not round its interpolation as numpy's "linear" formula
-does.
+does. The activation and matmul grids take quantiles along a token or image
+axis that may be dp-sharded: under ``parallel.mesh.dp_context`` they select
+the order statistics across the ranks (``parallel.mesh.dp_order_stats``),
+bit for bit as one device would.
 """
 
 from __future__ import annotations
@@ -21,9 +24,20 @@ from __future__ import annotations
 import torch
 
 from adalog_tpu_torch.ops.scoring import tdiv
+from adalog_tpu_torch.parallel.mesh import (
+    dp_count, dp_mesh, dp_order_stats, dp_sum, from_order_key, order_key,
+)
 
 
-def quantile(x, qs, dim=None):
+def _order_stats(x, idx, mesh):
+    """(..., len(idx)): the idx-th smallest of x along its last dim in the
+    floats' total order (-0.0 before +0.0), that dim sharded over
+    ``mesh``'s dp group when it is not None."""
+    keys = torch.sort(order_key(x), dim=-1).values
+    return from_order_key(dp_order_stats(keys, idx, mesh))
+
+
+def quantile(x, qs, dim=None, mesh=None):
     """``jnp.quantile(x, qs, axis=dim)`` (method 'linear') for a float32
     tensor x and a 1-D float32 tensor qs, bit for bit: the values sorted
     along ``dim`` (all of x when None); t = qs * (n - 1) in float32, lo =
@@ -33,12 +47,15 @@ def quantile(x, qs, dim=None):
     one of the two products fused into the add, as XLA's CPU code does: the
     hi product for a full reduction (a 1-D result), the lo product along an
     axis (an exact float64 product and sum stand for the fused
-    multiply-add).
+    multiply-add). The sort puts -0.0 before +0.0 where jnp.quantile's
+    keeps the two in input order, so the results can differ in the sign of
+    a zero only. With ``mesh``, ``dim`` (all of x when None) is sharded
+    over its dp group and n is its global size.
     Returns (len(qs), *x.shape without dim)."""
     if dim is None:
         x, dim = x.reshape(-1), 0
-    xs = torch.sort(x.movedim(dim, -1), dim=-1).values
-    n = xs.shape[-1]
+    xl = x.movedim(dim, -1)
+    n = dp_count(xl.shape[-1], mesh)
     qs = qs.to(device=x.device, dtype=torch.float32)
     last = torch.tensor(n, dtype=torch.float32, device=x.device) - 1
     t = qs * last
@@ -50,8 +67,10 @@ def quantile(x, qs, dim=None):
         i = torch.minimum(torch.clamp(i, min=0), last).to(torch.int64)
         return torch.clamp(i, max=n - 1)
 
-    v_lo = xs[..., index(lo)].movedim(-1, 0)        # (len(qs), *rest)
-    v_hi = xs[..., index(hi)].movedim(-1, 0)
+    k = len(qs)
+    v = _order_stats(xl, torch.cat([index(lo), index(hi)]), mesh)
+    v_lo = v[..., :k].movedim(-1, 0)               # (len(qs), *rest)
+    v_hi = v[..., k:].movedim(-1, 0)
     shape = (-1,) + (1,) * (v_lo.dim() - 1)
     lo_term = (v_lo.double(), w_lo.reshape(shape).double())
     hi_term = (v_hi.double(), w_hi.reshape(shape).double())
@@ -59,6 +78,13 @@ def quantile(x, qs, dim=None):
         (lo_term, hi_term)
     rounded = (other[0] * other[1]).float().double()
     return (fused[0] * fused[1] + rounded).float()
+
+
+def _upper_lower(x, pct, dim=None, mesh=None):
+    """(quantiles at pct, at 1 - pct) of one selection: each entry of qs is
+    its own element-wise computation, so this equals two calls."""
+    q = quantile(x, torch.cat([pct, 1.0 - pct]), dim=dim, mesh=mesh)
+    return q[:len(pct)], q[len(pct):]
 
 
 def _pct(l, r, device):
@@ -103,8 +129,7 @@ def weight_candidates(w_v, bits: int, eq_n: int, l=0.9, r=1.0):
     num_scale = eq_n // num_zp
     V, R, _ = w_v.shape
     pct = _pct(l, r, w_v.device)
-    uppers = quantile(w_v, pct, dim=-1)              # (2, V, R)
-    lowers = quantile(w_v, 1.0 - pct, dim=-1)
+    uppers, lowers = _upper_lower(w_v, pct, dim=-1)   # (2, V, R) each
     delta_min = (uppers[0] - lowers[0]).reshape(1, V * R)
     delta_max = (uppers[1] - lowers[1]).reshape(1, V * R)
     return _grid(delta_min, delta_max, bits, num_zp, num_scale)
@@ -112,17 +137,17 @@ def weight_candidates(w_v, bits: int, eq_n: int, l=0.9, r=1.0):
 
 def act_candidates(x2d, bits: int, eq_n: int, *, channel_wise: bool,
                    l=0.9, r=1.0):
-    """x2d: (T, I) -> scales2d/zps2d of shape (eq_n, 1) or (eq_n, I)."""
+    """x2d: (T, I) -> scales2d/zps2d of shape (eq_n, 1) or (eq_n, I). T
+    may be dp-sharded (``dp_context``)."""
     N = 2 ** (bits - 1)
     num_zp = min(16, 2 * N, eq_n)
     num_scale = eq_n // num_zp
     pct = _pct(l, r, x2d.device)
-    if channel_wise:
-        uppers = quantile(x2d, pct, dim=0)            # (2, I)
-        lowers = quantile(x2d, 1.0 - pct, dim=0)
-    else:
-        uppers = quantile(x2d, pct)[:, None]          # (2, 1)
-        lowers = quantile(x2d, 1.0 - pct)[:, None]
+    if channel_wise:                                  # (2, I) each
+        uppers, lowers = _upper_lower(x2d, pct, dim=0, mesh=dp_mesh())
+    else:                                             # (2, 1) each
+        uppers, lowers = (q[:, None] for q in _upper_lower(
+            x2d, pct, mesh=dp_mesh()))
     delta_min = (uppers[0] - lowers[0])[None, :]
     delta_max = (uppers[1] - lowers[1])[None, :]
     return _grid(delta_min, delta_max, bits, num_zp, num_scale, clip=True)
@@ -130,7 +155,8 @@ def act_candidates(x2d, bits: int, eq_n: int, *, channel_wise: bool,
 
 def matmul_candidates(op, bits: int, eq_n: int, *, head_channel_wise: bool,
                       l=0.9, r=1.0):
-    """op: (N, H, S, C) -> scales2d/zps2d (eq_n, H) or (eq_n, 1).
+    """op: (N, H, S, C) -> scales2d/zps2d (eq_n, H) or (eq_n, 1); N may be
+    dp-sharded (``dp_context``).
 
     num_zp follows the B-operand bit width for both operands; callers pass
     the B bits here."""
@@ -141,35 +167,36 @@ def matmul_candidates(op, bits: int, eq_n: int, *, head_channel_wise: bool,
     if head_channel_wise:
         H = op.shape[1]
         per_head = op.movedim(1, 0).reshape(H, -1)
-        uppers = quantile(per_head, pct, dim=-1)      # (2, H)
-        lowers = quantile(per_head, 1.0 - pct, dim=-1)
+        uppers, lowers = _upper_lower(per_head, pct, dim=-1,  # (2, H)
+                                      mesh=dp_mesh())
     else:
-        uppers = quantile(op, pct)[:, None]
-        lowers = quantile(op, 1.0 - pct)[:, None]
+        uppers, lowers = (q[:, None] for q in _upper_lower(
+            op, pct, mesh=dp_mesh()))
     delta_min = (uppers[0] - lowers[0])[None, :]
     delta_max = (uppers[1] - lowers[1])[None, :]
     return _grid(delta_min, delta_max, bits, num_zp, num_scale)
 
 
-def positive_percentile(flat, qs):
+def positive_percentile(flat, qs, mesh=None):
     """Percentile over the strictly positive values of flat (M,): rank =
     clip(ceil(count * q) - 1, 0) over the ascending-sorted positives; 0 where
-    there are none."""
+    there are none. With ``mesh``, flat is sharded over its dp group and
+    count and M are global."""
     pos = flat > 0
-    count = torch.sum(pos).to(torch.float32)
-    # non-positives sort to the end as +inf
-    sorted_pos = torch.sort(torch.where(pos, flat, torch.inf)).values
+    count = dp_sum(torch.sum(pos), mesh).to(torch.float32)
     ranks = torch.clamp(torch.ceil(count * qs).to(torch.int32) - 1, 0,
-                        flat.numel() - 1).to(torch.int64)
-    vals = sorted_pos[ranks]
+                        dp_count(flat.numel(), mesh) - 1).to(torch.int64)
+    # non-positives sort to the end as +inf
+    vals = _order_stats(torch.where(pos, flat, torch.inf), ranks, mesh)
     return torch.where(count > 0, vals, torch.zeros_like(vals))
 
 
 def postgelu_scale_candidates(x2d, shift, eq_n: int, l=0.9, r=1.0):
     """The post-GeLU scale grid: eq_n points interpolated between the l and
-    r positive percentiles of x, plus ``shift``. Returns (ud (2,), scales2d
-    (eq_n, 1))."""
-    ud = positive_percentile(x2d.reshape(-1), _pct(l, r, x2d.device))
+    r positive percentiles of x, plus ``shift``; x's tokens may be
+    dp-sharded (``dp_context``). Returns (ud (2,), scales2d (eq_n, 1))."""
+    ud = positive_percentile(x2d.reshape(-1), _pct(l, r, x2d.device),
+                             dp_mesh())
     ud = ud + shift
     t = tdiv(torch.arange(eq_n, dtype=torch.float32, device=x2d.device),
              eq_n - 1)

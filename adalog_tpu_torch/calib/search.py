@@ -14,6 +14,13 @@ over a leading site axis, with the scoring memory budget divided by L. The
 JAX package's ``lax.scan`` loops (FPCS steps, search rounds) are Python
 loops here. Ties among candidate scores keep the lower index first, as
 ``jax.lax.top_k`` and ``jnp.argmax`` do.
+
+Inside ``parallel.mesh.dp_context`` the token (or image) axis of every
+input but the weights is this rank's dp slice: the scores and candidate
+grids reduce over the dp group (ops/scoring.py, calib/candidates.py), so
+every rank ranks the same scores and picks the same candidates. The
+batched forms keep their vmap there: the collectives' vmap rule reduces the
+stacked sites at once.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import torch
 from adalog_tpu_torch.calib import candidates as C
 from adalog_tpu_torch.ops import scoring as S
 from adalog_tpu_torch.ops.scoring import tdiv
+from adalog_tpu_torch.parallel.mesh import dp_max, dp_mesh
 
 log = logging.getLogger("adalog_tpu_torch")
 
@@ -359,7 +367,10 @@ def _postgelu_twin_impl(x, y, w, b, *, w_bits: int, a_bits: int, n_V: int,
     ws0, wz0, exp_w, w_s, w_z = _weight_search(w_v, w_bits, eq_n, st,
                                                mem_scale)
     s_neg = torch.tensor([GELU_MIN / N], dtype=torch.float32, device=dev)
-    s_pos = tdiv(torch.abs(x).max().reshape(1), N - 0.5)
+    # |x| max over the tokens (a 0 joins, so that an empty slice has one)
+    x_max = dp_max(torch.cat([torch.abs(x).reshape(-1), x.new_zeros(1)]
+                             ).max(), dp_mesh())
+    s_pos = tdiv(x_max.reshape(1), N - 0.5)
     # 29 evaluated candidates, 2^-5..2^23 times s_neg (exact powers of two)
     pos_grid = (torch.tensor([2.0 ** i for i in range(-5, 24)],
                              dtype=torch.float32, device=dev) * s_neg)[:, None]
@@ -584,8 +595,7 @@ def _conv_impl(x, y, w, b, *, w_bits: int, eq_n: int, steps: int,
     num_scale = eq_n // num_zp
 
     pct = C._pct(0.9, 1.0, w.device)
-    uppers = C.quantile(w_flat, pct, dim=-1)
-    lowers = C.quantile(w_flat, 1.0 - pct, dim=-1)
+    uppers, lowers = C._upper_lower(w_flat, pct, dim=-1)
     ws0, wz0 = C._grid((uppers[0] - lowers[0])[None, :],
                        (uppers[1] - lowers[1])[None, :], w_bits, num_zp,
                        num_scale)

@@ -21,10 +21,10 @@ through the int8 GEMM (ops/int8_linear.py); unlike the JAX package's
 process-global switch it reaches the predictors only, never calibration or
 reconstruction.
 
-Multi-device eval runs one process per rank:
+A multi-device run has one process per rank:
 
   torchrun --nproc-per-node N -m adalog_tpu_torch.cli ... \
-      --load-calibrate-checkpoint P --test-calibrate-checkpoint \
+      [--calibrate | --load-calibrate-checkpoint P] [--optimize] \
       --mesh-devices N [--mesh-tp T]
 
 ``--mesh-devices`` must equal the run's rank count (or be -1: all of them)
@@ -34,10 +34,11 @@ batch over dp and, with T > 1, slices weights and heads over tp
 (serve.py, parallel/). ``--device cuda`` puts each rank on
 cuda:{LOCAL_RANK} with nccl, ``--device cpu`` runs gloo ranks on the CPU.
 The fused attention kernel stays on, the fused GEMM stays off under a mesh
-(as in the JAX package) and ``eval_int8`` is honoured. Only rank 0 logs,
-writes the run dir and its checkpoints. Calibration and reconstruction over
-a mesh are not ported: ``--calibrate`` and ``--optimize`` with
-``--mesh-devices`` raise NotImplementedError.
+(as in the JAX package) and ``eval_int8`` is honoured. Calibration and
+reconstruction run data-parallel over all N ranks (a dp=N mesh,
+calib/calibrator.py and recon/brecq.py), as the JAX package's CLI runs
+them over every device of its mesh; eval then runs on the dp x tp mesh.
+Only rank 0 logs, writes the run dir and its checkpoints.
 """
 
 from __future__ import annotations
@@ -112,7 +113,7 @@ def get_args_parser():
                         "interrupted run restarts where it left off (the "
                         "JAX package's framed file format)")
     p.add_argument("--mesh-devices", type=int, default=0,
-                   help="ranks of a multi-process eval (torchrun), -1 for "
+                   help="ranks of a multi-process run (torchrun), -1 for "
                         "all of them; 0 or 1 runs on one device")
     p.add_argument("--mesh-tp", type=int, default=1,
                    help="tensor-parallel eval factor; must divide "
@@ -155,8 +156,8 @@ def resolve_device(name: str) -> torch.device:
 def check_mesh(args):
     """(dp, tp) of the run's eval mesh, or None on one device. Exits as the
     JAX package's CLI does when --mesh-tp does not divide --mesh-devices, or
-    when --mesh-devices is not the run's rank count; raises
-    NotImplementedError for calibration and reconstruction over a mesh."""
+    when --mesh-devices is not the run's rank count. Calibration and
+    reconstruction run over all dp * tp ranks as dp."""
     from adalog_tpu_torch.parallel.mesh import world_size
 
     n, tp = args.mesh_devices, max(1, args.mesh_tp)
@@ -171,12 +172,6 @@ def check_mesh(args):
             f"--mesh-devices {n}: this run has {world_size()} rank(s); "
             f"launch it as torchrun --nproc-per-node {n} -m "
             "adalog_tpu_torch.cli ...")
-    if args.calibrate or args.optimize:
-        raise NotImplementedError(
-            "--calibrate / --optimize over a mesh: calibration and BRECQ "
-            "reconstruction over torch.distributed are the next slice of "
-            "the port; calibrate on one device, then evaluate the "
-            "checkpoint with --load-calibrate-checkpoint over the mesh")
     return n // tp, tp
 
 
@@ -196,14 +191,16 @@ def main(args):
     from adalog_tpu_torch.utils.metrics import validate
 
     shape = check_mesh(args)
-    mesh = None
+    mesh = calib_mesh = None
     if shape is None:
         device = resolve_device(args.device)
     else:
-        from adalog_tpu_torch.parallel.mesh import make_mesh_2d
+        from adalog_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
 
         mesh = make_mesh_2d(*shape, device=args.device)
         device = mesh.device
+        # calibration and reconstruction: dp over every rank
+        calib_mesh = mesh if mesh.tp == 1 else make_mesh(device=args.device)
     lead = mesh is None or mesh.rank == 0
     run_dir = None
     if lead:
@@ -260,6 +257,9 @@ def main(args):
     if mesh is not None:
         log.info("eval on a dp=%d x tp=%d mesh of %s ranks on %s", mesh.dp,
                  mesh.tp, mesh.backend, device)
+        if args.calibrate or args.optimize:
+            log.info("calibration / reconstruction data-parallel over %d "
+                     "ranks", calib_mesh.dp)
         if cfg.use_pallas_gemm:
             log.info("mesh active: fq_gemm linear kernels stay disabled")
 
@@ -284,7 +284,8 @@ def main(args):
         return (p2.to(device), map_tensors(lambda t: t.to(device), qs))
 
     calibrator = QuantCalibrator(spec, params, cfg, reparam=reparam,
-                                 resume_path=args.resume, device=device)
+                                 mesh=calib_mesh, resume_path=args.resume,
+                                 device=device)
 
     if not args.load_optimize_checkpoint:
         if args.load_calibrate_checkpoint:
@@ -304,7 +305,7 @@ def main(args):
             batches = loader.calib_batches(cfg.calib_size,
                                            cfg.calib_batch_size, args.seed,
                                            **calib_kw)
-            if args.profile:
+            if args.profile and lead:
                 from adalog_tpu_torch.utils.profiling import device_trace
                 with device_trace(os.path.join(run_dir, "trace")):
                     params, qstate = calibrator.calibrate(batches)
@@ -316,10 +317,11 @@ def main(args):
                 torch.cuda.synchronize(device)
             log.info("%s - calibration finished in %.1fs.",
                      datetime.now(), time.time() - t0)
-            save_checkpoint(
-                os.path.join(run_dir, checkpoint_name(args.model, cfg,
-                                                      "calibrate")),
-                params, qstate)
+            if lead:
+                save_checkpoint(
+                    os.path.join(run_dir, checkpoint_name(args.model, cfg,
+                                                          "calibrate")),
+                    params, qstate)
             log.info("Validating after calibration ...")
             validate(loader.val_loader(), eval_forward(params, qstate),
                      args.print_freq)
@@ -335,7 +337,8 @@ def main(args):
             cfg.optim_size, cfg.optim_batch_size, args.seed)
         recon = BlockReconstructor(spec, params, params_full, qstate,
                                    quant_layout(spec, cfg, reparam), cfg,
-                                   resume_path=args.resume, device=device)
+                                   mesh=calib_mesh, resume_path=args.resume,
+                                   device=device)
         params, qstate = recon.reconstruct(calib_loader_batches,
                                            quant_act=cfg.train_act)
         calibrator.params, calibrator.qstate = params, dict(qstate)
@@ -344,10 +347,11 @@ def main(args):
             torch.cuda.synchronize(device)
         log.info("%s - block reconstruction finished in %.1fs.",
                  datetime.now(), time.time() - t0)
-        save_checkpoint(
-            os.path.join(run_dir, checkpoint_name(args.model, cfg,
-                                                  "optimize")),
-            params, qstate)
+        if lead:
+            save_checkpoint(
+                os.path.join(run_dir, checkpoint_name(args.model, cfg,
+                                                      "optimize")),
+                params, qstate)
     if args.load_optimize_checkpoint:
         params, qstate = load_any_checkpoint(args.load_optimize_checkpoint)
         calib_loader_batches = loader.calib_batches(

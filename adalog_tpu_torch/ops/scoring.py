@@ -20,6 +20,13 @@ Conventions
   - divisors are tensors: PyTorch's CUDA kernels divide by a Python number
     as a multiply by its reciprocal, which is not IEEE division, and the
     AdaLog code arithmetic here must be exact on both devices.
+  - the token axis T (or the image axis N) may be dp-sharded: inside
+    ``parallel.mesh.dp_context`` every score that sums over it takes its
+    rank's partial, ``dp_sum``s it once per call (after the candidate
+    chunks), then applies the global normaliser; ``gram_stats`` reduces its
+    token sums once, so the Gram-form weight scores need no collective.
+    The other Gram statistics are per token or per image, and the scores
+    that read them reduce as the direct forms do.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import functools
 
 import torch
 
+from adalog_tpu_torch.parallel.mesh import dp_count, dp_mesh, dp_sum
 from adalog_tpu_torch.quantizers.logarithm import ADALOG_R
 
 # Max bytes for any single candidate-chunk intermediate.
@@ -172,17 +180,26 @@ def score_act_self(x, scales, zps, bits: int, *, channel_wise: bool,
                    n_batch: int, mem_scale: int = 1):
     """x: (T, I) flattened tokens from n_batch calibration samples.
 
-    Per-tensor: scales (E, 1, 1) -> (E,); channel-wise: scales (E, 1, I) ->
-    (E, I)."""
+    Per-tensor: scales (E, 1, 1) -> (E,), the mean over T and I;
+    channel-wise: scales (E, 1, I) -> (E, I), the sum over T over T."""
     E = scales.shape[0]
+    mesh = dp_mesh()
 
     def chunk(s, z):
         err = torch.square(x - uq_asym(x, s, z, bits))
         if channel_wise:
-            return -torch.sum(err, dim=1) * (n_batch / x.shape[0])
-        return -torch.mean(err, dim=(1, 2)) * n_batch
+            return -torch.sum(err, dim=1)
+        if mesh is None:
+            return -torch.mean(err, dim=(1, 2))
+        return -torch.sum(err, dim=(1, 2))
 
-    return _map(chunk, (scales, zps), E, x.numel() * 4 * mem_scale)
+    sims = _map(chunk, (scales, zps), E, x.numel() * 4 * mem_scale)
+    T = dp_count(x.shape[0], mesh)
+    if channel_wise:
+        return dp_sum(sims, mesh) * (n_batch / T)
+    if mesh is None:
+        return sims * n_batch
+    return tdiv(dp_sum(sims, mesh), T * x.shape[1]) * n_batch
 
 
 # ---------------------------------------------------------------------------
@@ -206,14 +223,17 @@ def score_linear_w_out(x_q, target, w_v, scales, zps, bits: int,
         out = _es("ti,evri->etvr", x_q, w_dq)
         return -torch.sum(torch.square(tgt - out), dim=1)    # (c, V, R)
 
-    return _map(chunk, (scales, zps), E, (T * O + V * R * I) * 4 * mem_scale)
+    return dp_sum(_map(chunk, (scales, zps), E,
+                       (T * O + V * R * I) * 4 * mem_scale), dp_mesh())
 
 
 def gram_stats(x_q, target):
     """(G, C) for the Gram-form weight scoring: G = x_qᵀ x_q (I, I),
     C = targetᵀ x_q (O, I). Once per search round; every candidate then
-    scores in O(O·I²) instead of O(T·O·I)."""
-    return x_q.T @ x_q, target.T @ x_q
+    scores in O(O·I²) instead of O(T·O·I). Both are sums over T: reduced
+    over dp once here."""
+    mesh = dp_mesh()
+    return dp_sum(x_q.T @ x_q, mesh), dp_sum(target.T @ x_q, mesh)
 
 
 def score_linear_w_out_gram(G, Cm, w_v, scales, zps, bits: int,
@@ -248,12 +268,14 @@ def score_linear_a_out(x, target, w_q, scales, zps, bits: int,
         out = _mm(uq_asym(x, s, z, bits), w_q.T)
         return -torch.sum(torch.square(target - out), dim=(1, 2))
 
-    return _map(chunk, (scales, zps), E, (T * O + x.numel()) * 4 * mem_scale)
+    return dp_sum(_map(chunk, (scales, zps), E,
+                       (T * O + x.numel()) * 4 * mem_scale), dp_mesh())
 
 
 def act_gram_stats(target, w_q):
     """(Mw, Gw) for the Gram-form activation scoring: Mw = target·w_q
-    (T, I), Gw = w_qᵀ w_q (I, I)."""
+    (T, I), one row per token, Gw = w_qᵀ w_q (I, I), of the weight only:
+    neither is a sum over T."""
     return target @ w_q, w_q.T @ w_q
 
 
@@ -269,7 +291,8 @@ def score_linear_a_out_gram(x, Mw, Gw, scales, zps, bits: int,
         term3 = torch.sum(_mm(x_dq, Gw) * x_dq, dim=(1, 2))
         return 2.0 * term2 - term3
 
-    return _map(chunk, (scales, zps), E, 2 * x.numel() * 4 * mem_scale)
+    return dp_sum(_map(chunk, (scales, zps), E, 2 * x.numel() * 4 * mem_scale),
+                  dp_mesh())
 
 
 def score_linear_a_out_twin(x, target, w_q, scales_pos, scale_neg, bits: int,
@@ -286,7 +309,8 @@ def score_linear_a_out_twin(x, target, w_q, scales_pos, scale_neg, bits: int,
         out = _mm(x_pos + x_neg, w_q.T)
         return -torch.sum(torch.square(target - out), dim=(1, 2))
 
-    return _map(chunk, scales_pos, E, (T * O + x.numel()) * 4 * mem_scale)
+    return dp_sum(_map(chunk, scales_pos, E,
+                       (T * O + x.numel()) * 4 * mem_scale), dp_mesh())
 
 
 def score_linear_a_out_adalog(x, target, w_q, shift, scales, qs, bits: int,
@@ -305,7 +329,8 @@ def score_linear_a_out_adalog(x, target, w_q, shift, scales, qs, bits: int,
         out = _mm(x_dq, w_q.T)
         return -torch.sum(torch.square(target - out), dim=(1, 2))
 
-    return _map(chunk, (scales, qs), E, (T * O + x.numel()) * 4 * mem_scale)
+    return dp_sum(_map(chunk, (scales, qs), E,
+                       (T * O + x.numel()) * 4 * mem_scale), dp_mesh())
 
 
 # ---------------------------------------------------------------------------
@@ -332,8 +357,9 @@ def score_matmul_opA(A, B_q, target, scales, zps, bits: int,
         out = _mm(uq_asym(A, s, z, bits), B_q)
         return _matmul_sim(torch.square(target - out), head_channel_wise)
 
-    return _map(chunk, (scales, zps), E,
-                (target.numel() + A.numel()) * 4 * mem_scale)
+    return dp_sum(_map(chunk, (scales, zps), E,
+                       (target.numel() + A.numel()) * 4 * mem_scale),
+                  dp_mesh())
 
 
 def score_matmul_opB(A_q, B, target, scales, zps, bits: int,
@@ -345,8 +371,9 @@ def score_matmul_opB(A_q, B, target, scales, zps, bits: int,
         out = _mm(A_q, uq_asym(B, s, z, bits))
         return _matmul_sim(torch.square(target - out), head_channel_wise)
 
-    return _map(chunk, (scales, zps), E,
-                (target.numel() + B.numel()) * 4 * mem_scale)
+    return dp_sum(_map(chunk, (scales, zps), E,
+                       (target.numel() + B.numel()) * 4 * mem_scale),
+                  dp_mesh())
 
 
 def _matmul_sim_gram(sse, denom, head_channel_wise: bool):
@@ -360,7 +387,8 @@ def _matmul_sim_gram(sse, denom, head_channel_wise: bool):
 
 def matmul_gram_stats_opA(B_q, target):
     """(G_B, M) for the Gram-form A-candidate matmul scoring:
-    G_B = B_q B_qᵀ (N, H, C, C), M = target·B_qᵀ (N, H, S, C)."""
+    G_B = B_q B_qᵀ (N, H, C, C), M = target·B_qᵀ (N, H, S, C): per image,
+    no sum over N."""
     return (torch.einsum("nhcs,nhds->nhcd", B_q, B_q),
             torch.einsum("nhst,nhct->nhsc", target, B_q))
 
@@ -381,13 +409,15 @@ def score_matmul_opA_gram(A, G_B, M, target_s2: int, scales, zps, bits: int,
                - 2.0 * torch.sum(A_dq * M, dim=(3, 4)))       # (c, N, H)
         return _matmul_sim_gram(sse, denom, head_channel_wise)
 
-    return _map(chunk, (scales, zps), E,
-                (A.numel() + N * H * C * C) * 4 * mem_scale)
+    return dp_sum(_map(chunk, (scales, zps), E,
+                       (A.numel() + N * H * C * C) * 4 * mem_scale),
+                  dp_mesh())
 
 
 def matmul_gram_stats_opB(A_q, target):
     """(G_A, M2) for the Gram-form B-candidate matmul scoring:
-    G_A = A_qᵀ A_q (N, H, C, C), M2 = A_qᵀ·target (N, H, C, S2)."""
+    G_A = A_qᵀ A_q (N, H, C, C), M2 = A_qᵀ·target (N, H, C, S2): per image,
+    no sum over N."""
     return (torch.einsum("nhsc,nhsd->nhcd", A_q, A_q),
             torch.einsum("nhsc,nhst->nhct", A_q, target))
 
@@ -408,8 +438,9 @@ def score_matmul_opB_gram(B, G_A, M2, target_s: int, scales, zps, bits: int,
                - 2.0 * torch.sum(B_dq * M2, dim=(3, 4)))      # (c, N, H)
         return _matmul_sim_gram(sse, denom, head_channel_wise)
 
-    return _map(chunk, (scales, zps), E,
-                (B.numel() + N * H * C * S2) * 4 * mem_scale)
+    return dp_sum(_map(chunk, (scales, zps), E,
+                       (B.numel() + N * H * C * S2) * 4 * mem_scale),
+                  dp_mesh())
 
 
 def score_postsoftmax_base(A, B_q, target, qs, bits: int,
@@ -424,7 +455,9 @@ def score_postsoftmax_base(A, B_q, target, qs, bits: int,
         out = _mm(A_dq, B_q)
         return _matmul_sim(torch.square(target - out), head_channel_wise=False)
 
-    return _map(chunk, qs, E, (target.numel() + A.numel()) * 4 * mem_scale)
+    return dp_sum(_map(chunk, qs, E,
+                       (target.numel() + A.numel()) * 4 * mem_scale),
+                  dp_mesh())
 
 
 # ---------------------------------------------------------------------------
@@ -460,8 +493,9 @@ def score_conv_w_out(x, target, w_flat, conv_dims, scales, zps, bits: int,
             # mean over the spatial dims, sum over the batch
             return -torch.sum(torch.mean(err2, dim=2), dim=1)
 
-        return _map(chunk, (scales, zps), E,
-                    (target.numel() + w_flat.numel()) * 4 * mem_scale)
+        return dp_sum(_map(chunk, (scales, zps), E,
+                           (target.numel() + w_flat.numel()) * 4 * mem_scale),
+                      dp_mesh())
 
     import torch.nn.functional as F
 
@@ -480,5 +514,6 @@ def score_conv_w_out(x, target, w_flat, conv_dims, scales, zps, bits: int,
     def chunk(s, z):
         return torch.stack([one(s[i], z[i]) for i in range(s.shape[0])])
 
-    return _map(chunk, (scales, zps), E,
-                (target.numel() + w_flat.numel()) * 4 * mem_scale)
+    return dp_sum(_map(chunk, (scales, zps), E,
+                       (target.numel() + w_flat.numel()) * 4 * mem_scale),
+                  dp_mesh())

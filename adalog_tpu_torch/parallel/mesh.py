@@ -18,12 +18,25 @@ NCCL refuses two ranks on one card, so ranks that share a card name
 ``dp_shard_map`` has no counterpart: the port's forward already runs per
 rank, each on its own batch slice (``shard_batch``), and ``gather_batch``
 returns the whole batch's output to every rank.
+
+Calibration and reconstruction over a mesh hold each rank's ``dp_split`` of
+the images; where GSPMD turns a reduction over the sharded token or image
+axis into a psum, the port takes the local partial and ``dp_sum``s it. The
+searches keep the JAX package's signatures: the calibrator enters
+``dp_context(mesh)``, and the scorers and candidate grids read ``dp_mesh()``.
+``dp_sum`` and ``dp_max`` run inside ``torch.func.vmap`` (the batched site
+searches): their vmap rule reduces the stacked tensor, the same on every
+rank since every rank searches the same group. ``dp_order_stats`` gives the
+k-th smallest values along a sharded axis bit for bit as a sort of the whole
+axis on one device would.
 """
 
 from __future__ import annotations
 
+import contextvars
 import os
 import time
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Any, Optional
 
@@ -140,6 +153,208 @@ def shard_batch(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
         raise ValueError(f"a batch of {n} does not split over dp={mesh.dp}")
     b = n // mesh.dp
     return x[mesh.dp_index * b:(mesh.dp_index + 1) * b]
+
+
+def require_group(mesh: Mesh, what: str) -> Mesh:
+    """``mesh`` itself, after checking that torch.distributed has a process
+    group: a mesh without one raises, so that no path calibrates on one
+    rank alone."""
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(f"{what}: mesh= needs an initialized process "
+                           "group; " + _launch_hint(getattr(mesh, "dp", 2)))
+    return mesh
+
+
+def dp_split(x, mesh: Mesh, dim: int = 0):
+    """This rank's slice of ``x`` along ``dim`` over dp, as
+    ``torch.tensor_split`` cuts it (the first n % dp ranks hold one more).
+    Every reduction over the sharded axis is a sum with a global
+    normaliser, so an uneven split is exact."""
+    require_group(mesh, "dp_split")
+    return torch.tensor_split(torch.as_tensor(x), mesh.dp, dim)[mesh.dp_index]
+
+
+def dp_rows(sizes, mesh: Mesh) -> torch.Tensor:
+    """The global row indices this rank holds, in its local order, when each
+    of a list of batches of ``sizes`` rows is ``dp_split`` and the slices
+    are concatenated."""
+    out, start = [], 0
+    for n in sizes:
+        out.append(dp_split(torch.arange(start, start + n), mesh))
+        start += n
+    return torch.cat(out)
+
+
+_DP: contextvars.ContextVar = contextvars.ContextVar("adalog_dp_mesh",
+                                                     default=None)
+# dp_count's results inside the innermost dp_context, by local size
+_DP_COUNTS: contextvars.ContextVar = contextvars.ContextVar(
+    "adalog_dp_counts", default=None)
+
+
+@contextmanager
+def dp_context(mesh: Optional[Mesh]):
+    """Inside the block, the calibration searches reduce their token and
+    image sums over ``mesh``'s dp group (``dp_mesh``); a mesh of dp 1 or
+    None reduces nothing. ``dp_count`` keeps its results for the block."""
+    if mesh is not None:
+        require_group(mesh, "dp_context")
+    tok = _DP.set(mesh if mesh is not None and mesh.dp > 1 else None)
+    tok_counts = _DP_COUNTS.set({})
+    try:
+        yield
+    finally:
+        _DP_COUNTS.reset(tok_counts)
+        _DP.reset(tok)
+
+
+def dp_mesh() -> Optional[Mesh]:
+    """The mesh of the innermost ``dp_context`` (None outside one)."""
+    return _DP.get()
+
+
+class _AllReduce(torch.autograd.Function):
+    """An all_reduce over a group that returns a new tensor; its vmap rule
+    reduces the whole stacked tensor (every rank stacks the same sites)."""
+
+    @staticmethod
+    def forward(x, group, op):
+        y = x.clone()
+        dist.all_reduce(y, op=op, group=group)
+        return y
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, x, group, op):
+        return _AllReduce.apply(x, group, op), in_dims[0]
+
+
+def dp_sum(t: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """The sum of ``t`` over the dp group; ``t`` itself with no mesh or
+    dp 1."""
+    if mesh is None or mesh.dp == 1:
+        return t
+    return _AllReduce.apply(t, mesh.dp_group, dist.ReduceOp.SUM)
+
+
+def dp_max(t: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """The elementwise max of ``t`` over the dp group."""
+    if mesh is None or mesh.dp == 1:
+        return t
+    return _AllReduce.apply(t, mesh.dp_group, dist.ReduceOp.MAX)
+
+
+def dp_count(n: int, mesh: Optional[Mesh]) -> int:
+    """The global size of an axis of which this rank holds ``n``. Inside a
+    ``dp_context`` over ``mesh`` the result is kept by ``n``, so that only
+    the first call for a size makes the all_reduce. This is the same on
+    every rank: a sharded axis always holds the rank's images times a
+    per-image size, so two sizes are equal on one rank where they are on
+    all."""
+    if mesh is None or mesh.dp == 1:
+        return n
+    counts = _DP_COUNTS.get() if mesh is _DP.get() else None
+    if counts is not None and n in counts:
+        return counts[n]
+    t = torch.tensor([n], dtype=torch.int64, device=mesh.device)
+    dist.all_reduce(t, group=mesh.dp_group)
+    if counts is not None:
+        counts[n] = int(t.item())
+        return counts[n]
+    return int(t.item())
+
+
+def dp_barrier(mesh: Optional[Mesh]):
+    """Return once every rank of the dp group has come here (an
+    all_reduce)."""
+    if mesh is None or mesh.dp == 1:
+        return
+    dist.all_reduce(torch.zeros(1, device=mesh.device), group=mesh.dp_group)
+
+
+class _OrderKey(torch.autograd.Function):
+    """float32 <-> int32 order keys (the map is its own inverse on the
+    bits). A Function so that its vmap rule reinterprets the stacked
+    tensor's bits: torch has no batching rule for a dtype view."""
+
+    @staticmethod
+    def forward(x, to_key):
+        k = x.contiguous()
+        k = k.view(torch.int32) if to_key else k
+        k = k ^ ((k >> 31) & 0x7FFFFFFF)
+        return k if to_key else k.view(torch.float32)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, x, to_key):
+        return _OrderKey.apply(x, to_key), in_dims[0]
+
+
+def order_key(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> int32 keys in the floats' total order (-0.0 before +0.0):
+    a sort of the keys is a sort of the values that depends on the values
+    only. ``from_order_key`` inverts it."""
+    return _OrderKey.apply(x, True)
+
+
+def from_order_key(k: torch.Tensor) -> torch.Tensor:
+    return _OrderKey.apply(k, False)
+
+
+def dp_order_stats(keys_sorted: torch.Tensor, ks: torch.Tensor,
+                   mesh: Optional[Mesh]) -> torch.Tensor:
+    """The ks-th smallest (0-based, (K,) int64) of the ``order_key`` keys
+    along the last dim of ``keys_sorted`` (sorted along it), that dim
+    sharded over dp: (..., K) int32 keys, equal to indexing the sorted
+    whole axis on one device. Without a mesh, that indexing. Over a mesh,
+    a binary search on the 32 bits of the key from the top: at each bit the
+    ranks count their keys at or below the candidate (``searchsorted`` on
+    the sorted slice) and ``dp_sum`` the counts, 32 all_reduces of (..., K)
+    counts."""
+    if mesh is None or mesh.dp == 1:
+        return keys_sorted[..., ks]
+    u = keys_sorted.to(torch.int64) + 2 ** 31          # unsigned, [0, 2^32)
+    want = ks.to(device=u.device, dtype=torch.int64)
+    prefix = torch.zeros(u.shape[:-1] + want.shape, dtype=torch.int64,
+                         device=u.device)
+    for b in range(31, -1, -1):
+        cand = prefix | ((1 << b) - 1)          # bit b clear, lower bits set
+        count = dp_sum(torch.searchsorted(u, cand.contiguous(), right=True),
+                       mesh)
+        # fewer than k + 1 keys at or below cand: the k-th has bit b set
+        prefix = prefix | ((count <= want).to(torch.int64) << b)
+    return (prefix - 2 ** 31).to(torch.int32)
+
+
+def dp_assert_replicated(tensors, mesh: Optional[Mesh], what: str):
+    """Raise unless every rank of the dp group holds bit-identical
+    ``tensors`` (a list): a digest of each tensor's bytes (their sum and
+    their position-weighted sum, int64) is all_reduced as max and as min,
+    and the two must agree."""
+    if mesh is None or mesh.dp == 1:
+        return
+    rows = []
+    for t in tensors:
+        b = t.detach().contiguous().reshape(-1).view(torch.uint8).to(
+            torch.int64)
+        w = torch.arange(1, b.numel() + 1, dtype=torch.int64,
+                         device=b.device)
+        rows.append(torch.stack([b.sum(), (b * w).sum()]).to(mesh.device))
+    d = torch.stack(rows) if rows else torch.zeros(
+        (0, 2), dtype=torch.int64, device=mesh.device)
+    hi, lo = d.clone(), d.clone()
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=mesh.dp_group)
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=mesh.dp_group)
+    bad = (hi != lo).any(dim=1).nonzero().reshape(-1).tolist()
+    if bad:
+        raise RuntimeError(f"{what}: the dp ranks disagree on {len(bad)} of "
+                           f"{len(rows)} tensors (first: #{bad[0]})")
 
 
 def gather_batch(y: torch.Tensor, mesh: Mesh) -> torch.Tensor:

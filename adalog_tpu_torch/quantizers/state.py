@@ -73,3 +73,10 @@ def map_tensors(fn, tree):
         return type(tree)(map_tensors(fn, v) for v in tree)
     return tree
 
+
+
+def tensor_leaves(tree) -> list:
+    """Every tensor of a tree, in ``map_tensors``' order."""
+    out = []
+    map_tensors(lambda t: out.append(t) or t, tree)
+    return out

@@ -20,6 +20,17 @@ JAX package trains at Precision.HIGHEST.
 Every block trains against pristine-model I/O, so the blocks are
 independent of each other: their order, and the grouping of same-shape
 blocks, change no result.
+
+Over a mesh (``mesh=``) the block I/O is data-parallel over the dp group,
+as the JAX package shards it over its 'dp' axis: each rank captures and
+keeps its ``dp_split`` of every batch, so its block-I/O memory falls by dp.
+Every rank draws the same global minibatch (the same seeded generator over
+the global row count) and trains on the drawn rows it holds; the
+reconstruction term divides by the global batch, the rounding penalty
+joins the loss of dp rank 0 alone, the gradients are summed over the dp
+group in one all_reduce (a rank that drew no row adds zeros), and Adam
+then steps the same on every rank. The
+result equals the single-device one up to the order of the float sums.
 """
 
 from __future__ import annotations
@@ -35,7 +46,9 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from adalog_tpu_torch.calib.calibrator import _resolve_device, _sync
+from adalog_tpu_torch.calib.calibrator import (
+    _rank_slice, _resolve_device, _sync,
+)
 from adalog_tpu_torch.calib.layout import tree_get, tree_set
 from adalog_tpu_torch.calib.reparam import _with
 from adalog_tpu_torch.models.layers import (
@@ -45,7 +58,10 @@ from adalog_tpu_torch.models.zoo import model_forward_fn
 from adalog_tpu_torch.quantizers.adaround import (
     adaround_hard_weight, adaround_init_alpha, adaround_soft_targets,
 )
-from adalog_tpu_torch.quantizers.state import map_tensors
+from adalog_tpu_torch.parallel.mesh import (
+    dp_assert_replicated, dp_barrier, dp_rows, dp_sum, require_group,
+)
+from adalog_tpu_torch.quantizers.state import map_tensors, tensor_leaves
 from adalog_tpu_torch.recon.blocks import BlockUnit, block_units
 from adalog_tpu_torch.utils.config import Config
 from adalog_tpu_torch.utils.resume import resume_append, resume_scan
@@ -60,12 +76,17 @@ A_LR = 4e-5                  # initial (cosine-decayed) rate of the act scales
 
 
 def capture_block_io(spec, params_full, batches: List[np.ndarray], skip=(),
-                     keep_on_device: bool = True):
+                     keep_on_device: bool = True, mesh=None):
     """One pass over the optimization set through the pristine model,
     keeping every block unit's (input, output) concatenated over the
     batches: on the model's device, or on the host with
     ``keep_on_device=False``. ``skip``: block names whose I/O is not kept
-    (a resume with most blocks done pays no memory for them)."""
+    (a resume with most blocks done pays no memory for them). With
+    ``mesh``, each rank keeps the rows of its ``dp_split`` of every batch
+    (``parallel.mesh.dp_rows`` names them)."""
+    if mesh is not None:
+        require_group(mesh, "capture_block_io")
+        batches = [_rank_slice(xb, mesh) for xb in batches]
     fwd = model_forward_fn(spec)
     skip = frozenset(skip)
     device = next(params_full.parameters()).device
@@ -95,17 +116,20 @@ def _b_temperature(t, iters: int):
                        * torch.clamp(1.0 - rel, min=0.0))
 
 
-def _rec_loss(pred, tgt, kind: str):
+def _rec_loss(pred, tgt, kind: str, n=None):
     """'kl': KL(softmax(tgt) || softmax(pred)) summed over the batch, over
     the batch size; else the squared error summed over axis 1, averaged,
-    over 10."""
+    over 10. ``n``: the batch size of the average when ``pred`` holds a
+    rank's part of a dp-split batch (None: pred's own)."""
     if kind == "kl":
         lp = torch.log_softmax(pred, dim=-1)
         t = torch.softmax(tgt, dim=-1)
         return (torch.sum(torch.special.xlogy(t, t))
-                - torch.sum(t * lp)) / pred.shape[0]
-    err = torch.square(pred - tgt)
-    return torch.mean(torch.sum(err, dim=1)) / 10.0
+                - torch.sum(t * lp)) / (pred.shape[0] if n is None else n)
+    err = torch.sum(torch.square(pred - tgt), dim=1)
+    if n is None:
+        return torch.mean(err) / 10.0
+    return torch.sum(err) / (n * math.prod(err.shape[1:])) / 10.0
 
 
 def _viewed_weight(p, site):
@@ -147,16 +171,22 @@ def _merge_trainables(qstate_block, trainables, quant_act: bool):
 
 def _block_loss(forward, block_params, qstate_block, trainables, xb, yb,
                 modes, count: int, iters: int, quant_act: bool,
-                rec_kind: str):
+                rec_kind: str, n=None, penalty: bool = True):
     """(loss, rec) of one step at the 1-based ``count``: the block's
     reconstruction error in training mode with soft rounding, plus the
     rounding penalty ROUND_WEIGHT * sum(1 - |2 s(alpha) - 1| ** b) once
     count >= WARMUP * iters (before that the penalty is 0, and is not
-    computed)."""
-    qs = _merge_trainables(qstate_block, trainables, quant_act)
-    pred = forward(block_params, qs, xb, modes, True, True)
-    rec = _rec_loss(pred, yb, rec_kind)
-    if count < WARMUP * iters:
+    computed). Over a mesh ``xb`` is this rank's part of the batch (rec is
+    0 where it has no row), ``n`` the global batch size (``_rec_loss``),
+    and ``penalty`` is true on dp rank 0 alone, so that the dp sum of the
+    ranks' gradients counts the penalty once."""
+    if xb.shape[0]:
+        qs = _merge_trainables(qstate_block, trainables, quant_act)
+        pred = forward(block_params, qs, xb, modes, True, True)
+        rec = _rec_loss(pred, yb, rec_kind, n)
+    else:
+        rec = torch.zeros((), device=xb.device)
+    if not penalty or count < WARMUP * iters:
         return rec, rec
     b = float(_b_temperature(float(count), iters))
     rnd = 0.0
@@ -234,25 +264,27 @@ class BlockReconstructor:
     same module. Both are copied to ``device`` (None is the first CUDA
     device, and raises when there is none; the tests pass 'cpu'), so the
     caller's modules are never changed. qstate: the calibrated state.
-    layout: ``calib.layout.quant_layout`` of the model. mesh (data-parallel
-    block I/O in the JAX package) is not ported. resume_path: frozen
-    results are appended to this framed log after each unit (the JAX
-    package's file format: a file written by either package resumes in the
-    other), so an interrupted run restarts at the last finished unit.
+    layout: ``calib.layout.quant_layout`` of the model. mesh: a
+    ``parallel.mesh.Mesh``: the block I/O and the minibatches are
+    data-parallel over its dp group (the module's docstring); raises
+    without a process group. resume_path: frozen results are appended to
+    this framed log after each unit (the JAX package's file format: a file
+    written by either package resumes in the other), so an interrupted run
+    restarts at the last finished unit; over a mesh rank 0 writes it and
+    every rank reads it.
 
     ``unit_stats[name]`` holds each trained unit's first and last
     reconstruction loss, its iterations, its seconds (synchronized) and, on
     CUDA, its peak device memory in bytes (the device's peak counter is
-    reset before each unit).
+    reset before each unit); over a mesh the losses are the dp group's and
+    the seconds and bytes this rank's.
     """
 
     def __init__(self, spec, params, params_full, qstate, layout,
                  cfg: Config, mesh=None, resume_path: str = None,
                  device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "block reconstruction over a device mesh is not ported to "
-                "PyTorch yet")
+        self.mesh = None if mesh is None else require_group(
+            mesh, "BlockReconstructor")
         self.device = _resolve_device(device, "BlockReconstructor",
                                       "reconstruct")
         self.spec = spec
@@ -266,6 +298,9 @@ class BlockReconstructor:
         self.cfg = cfg
         self.resume_path = resume_path
         self.unit_stats: Dict[str, dict] = {}
+        # over a mesh: the global indices of the rows this rank holds, and
+        # the global row count
+        self._rows, self._n_rows = None, 0
 
     # -- resume: ("recon", unit name, {"params": {site: LinearP | ConvP},
     #    "sites": {site: site state}}) records ----------------------------
@@ -291,6 +326,10 @@ class BlockReconstructor:
                 self.qstate[nm] = map_tensors(lambda t: t.to(self.device),
                                               site)
             done.add(name)
+        if self.mesh is not None:
+            # an all_reduce as a barrier: every rank has read the file
+            # before rank 0 appends to it
+            dp_barrier(self.mesh)
         if done:
             log.info("resumed %d reconstructed blocks from %s", len(done),
                      self.resume_path)
@@ -299,7 +338,8 @@ class BlockReconstructor:
     def _record_block(self, unit: BlockUnit):
         from adalog_tpu_torch.utils.interop import affine_node
 
-        if not self.resume_path:
+        if not self.resume_path or (self.mesh is not None
+                                    and self.mesh.rank != 0):
             return
         payload = {"params": {}, "sites": {}}
         for nm in unit.canon:
@@ -362,9 +402,11 @@ class BlockReconstructor:
         """``cfg.recon_iters`` steps on one unit; returns (trainables,
         first rec, last rec). Each step draws ``cfg.optim_batch_size`` of
         the unit's samples, ``randperm(n)[:batch]``, from a generator
-        seeded with ``seed``. The host reads the losses every
-        ``cfg.recon_seg_iters`` steps (the segment length of the JAX
-        package's device programs); the results do not depend on it."""
+        seeded with ``seed``; over a mesh n is the global row count and the
+        rank trains on the drawn rows it holds (``_local_draws``). The
+        host reads the losses every ``cfg.recon_seg_iters`` steps (the
+        segment length of the JAX package's device programs); the results
+        do not depend on it."""
         cfg = self.cfg
         iters, batch = cfg.recon_iters, cfg.optim_batch_size
         seg = max(1, min(iters, cfg.recon_seg_iters))
@@ -382,30 +424,70 @@ class BlockReconstructor:
         # copy from the host each step would make the host wait for the
         # device each step
         gen = torch.Generator().manual_seed(seed)
-        n = raw_in.shape[0]
+        n = raw_in.shape[0] if self.mesh is None else self._n_rows
         draws = torch.stack([torch.randperm(n, generator=gen)[:batch]
-                             for _ in range(iters)]).to(raw_in.device)
+                             for _ in range(iters)])
+        n_batch = None
+        if self.mesh is None:
+            draws = draws.to(raw_in.device)
+            bounds = None
+        else:
+            n_batch = draws.shape[1]
+            draws, bounds = self._local_draws(draws, raw_in.device)
+        leaves = w_leaves + a_leaves
+        lead = self.mesh is None or self.mesh.dp_index == 0
         rec0 = rec_last = None
         for t in range(iters):
-            xb = raw_in.index_select(0, draws[t]).to(self.device)
-            yb = raw_out.index_select(0, draws[t]).to(self.device)
+            idx = draws[t] if bounds is None else \
+                draws[bounds[t]:bounds[t + 1]]
+            xb = raw_in.index_select(0, idx).to(self.device)
+            yb = raw_out.index_select(0, idx).to(self.device)
             loss, rec = _block_loss(unit.forward, block_params, qstate_block,
                                     tr, xb, yb, modes, t + 1, iters,
-                                    quant_act, rec_kind)
-            grads = torch.autograd.grad(loss, w_leaves + a_leaves,
-                                        allow_unused=True)
+                                    quant_act, rec_kind, n_batch, lead)
+            # a rank that drew no row before the penalty starts has no
+            # graph: it adds zeros
+            grads = (torch.autograd.grad(loss, leaves, allow_unused=True)
+                     if loss.requires_grad else [None] * len(leaves))
+            if self.mesh is not None:
+                grads = self._dp_sum_grads(grads, leaves)
             opt_w.step(grads[:len(w_leaves)])
             opt_a.step(grads[len(w_leaves):])
+            last = t + 1 == iters
+            at_seg = (t + 1) % seg == 0 and not last
             rec_last = rec.detach()
+            if self.mesh is not None and (t == 0 or at_seg or last):
+                rec_last = dp_sum(rec_last, self.mesh)
             if rec0 is None:
                 rec0 = rec_last
-            if (t + 1) % seg == 0 and t + 1 < iters:
+            if at_seg:
                 log.debug("%s: step %d rec %.6f", unit.name, t + 1,
                           float(rec_last))
         detached = {"w": {k: v.detach() for k, v in tr["w"].items()},
                     "a": {k: {kk: vv.detach() for kk, vv in d.items()}
                           for k, d in tr["a"].items()}}
         return detached, float(rec0), float(rec_last)
+
+    def _local_draws(self, draws, device):
+        """The drawn rows (iters, batch) of global indices, mapped to this
+        rank's local rows and kept where it holds them: (the kept local
+        rows of every step in order, on ``device``; each step's bounds in
+        them, on the host)."""
+        local = torch.full((self._n_rows,), -1, dtype=torch.int64)
+        local[self._rows] = torch.arange(len(self._rows))
+        sel = local[draws]
+        mine = sel >= 0
+        bounds = [0] + torch.cumsum(mine.sum(1), 0).tolist()
+        return sel[mine].to(device), bounds
+
+    def _dp_sum_grads(self, grads, leaves):
+        """Every gradient summed over the dp group in one all_reduce; a
+        None (no path from this rank's loss) joins as zeros."""
+        flat = torch.cat([(torch.zeros_like(p) if g is None else g)
+                          .reshape(-1) for g, p in zip(grads, leaves)])
+        flat = dp_sum(flat, self.mesh)
+        return [part.reshape(p.shape) for part, p in
+                zip(flat.split([p.numel() for p in leaves]), leaves)]
 
     def _train_block_group(self, units, ios, quant_act: bool, seed: int = 0):
         """Train a group of same-shape blocks, one after the other. The JAX
@@ -472,7 +554,8 @@ class BlockReconstructor:
 
     def reconstruct(self, batches: List[np.ndarray], quant_act: bool = True):
         """Reconstruct every block unit; returns (model, qstate).
-        ``batches``: NHWC float32 images (numpy or tensors).
+        ``batches``: NHWC float32 images (numpy or tensors); over a mesh
+        every rank passes the same batches.
 
         Same-shape, non-head units form groups of up to
         ``cfg.recon_block_group``, derated so that one group's I/O plus its
@@ -481,7 +564,12 @@ class BlockReconstructor:
         sequence here). The block I/O stays on the device with
         ``cfg.keep_gpu``, else on the host."""
         with _exact_fp32(self.device):
-            return self._reconstruct(batches, quant_act)
+            self._reconstruct(batches, quant_act)
+        dp_assert_replicated(
+            list(self.params.state_dict().values()) + tensor_leaves(
+                [self.qstate[nm] for nm in sorted(self.qstate)]),
+            self.mesh, "reconstruction")
+        return self.params, self.qstate
 
     def _reconstruct(self, batches, quant_act):
         done = self._resume_apply()
@@ -492,8 +580,11 @@ class BlockReconstructor:
 
         t0 = time.perf_counter()
         io = capture_block_io(self.spec, self.params_full, batches,
-                              skip=done,
-                              keep_on_device=self.cfg.keep_gpu)
+                              skip=done, keep_on_device=self.cfg.keep_gpu,
+                              mesh=self.mesh)
+        sizes = [len(xb) for xb in batches]
+        if self.mesh is not None:
+            self._rows, self._n_rows = dp_rows(sizes, self.mesh), sum(sizes)
         _sync(self.device)
         log.info("block capture: %d units in %.1fs", len(io),
                  time.perf_counter() - t0)
@@ -503,13 +594,16 @@ class BlockReconstructor:
         units = [u for u in all_units if u.name in io]
 
         def per_block_bytes(u):
-            # a block's I/O + its params + AdaRound alphas (~weight-size)
-            # + 2x Adam moments
+            # a block's I/O (of every row, so that every rank of a mesh
+            # cuts the same groups) + its params + AdaRound alphas
+            # (~weight-size) + 2x Adam moments
             rin, rout = io[u.name]
             pb = sum(p.numel() * 4
                      for p in u.extract(self.params).parameters())
-            return (rin.numel() * rin.element_size()
-                    + rout.numel() * rout.element_size() + 4 * pb)
+            rows = rin.shape[0]
+            return (sum(sizes) * (rin.numel() * rin.element_size()
+                                  + rout.numel() * rout.element_size())
+                    // rows + 4 * pb)
 
         groups, singles = {}, []
         for u in units:

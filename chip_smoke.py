@@ -161,9 +161,25 @@ Phases, each a hard check (any failure raises and exits non-zero):
      gathered logits against the single-device predictor on the same card
      (max|diff| and top-1 agreement reported; test_tiny's within 2e-4, the
      JAX package's own tolerance) and its img/s, labelled as ranks sharing
-     one card through gloo, not a scaling number.
+     one card through gloo, not a scaling number;
+ 13. mesh calibration phase (run after phase 8): the calibration of phase
+     8 over dp=2 ranks on cuda:0 through gloo (QuantCalibrator(mesh=):
+     each rank captures its 16 images, every token sum an all_reduce, the
+     quantiles selected across the ranks), the two ranks' states asserted
+     bit-equal and held to phase 8's single-device state with its
+     compare_qstates gates (the count of integer picks that differ
+     printed); BRECQ over the same ranks (BlockReconstructor(mesh=)) at
+     the CLI phase's cut, CLI_RECON_ITERS steps a unit on CLI_OPTIM_SIZE
+     images, from phase 8's state before the fold, held to a single-device
+     reconstruction with the same draws (compare_recons); the mesh state
+     served on the dp=2 predictor, K1 12 and K4 49 launches a batch on
+     each rank asserted, all "mma", each rank's kernels held to their
+     plain versions on its slice (block checks); per rank the capture and
+     per-family seconds, wall-clock, peak device memory, the dp
+     all_reduces with their bytes and seconds, BRECQ's ms a step, labelled
+     as ranks sharing one card, not a scaling number.
 The last two lines are a JSON summary of the kernels (launches summed over
-the main paths of phases 6 to 12, every rank's; times of the fp32 kernel
+the main paths of phases 6 to 13, every rank's; times of the fp32 kernel
 phases; the bound
 from those phases' shapes; K1-K4's entries are the variant their paths
 launch, "mma", K5's "wgmma", with "mma"'s times beside it; K5's
@@ -2585,6 +2601,324 @@ def reconstruction_phase(torch, fq_attn, fq_gemm, device, ckpt_dir, start):
     return served
 
 
+# Mesh calibration phase: the calibration and reconstruction halves of the
+# main path over dp=2 ranks on the one card (gloo: NCCL refuses two ranks on
+# one device; the nccl path, a card a rank, is not run), CALIB_MODEL at full
+# depth and width with the calibration phase's weights and images at the
+# shipped configs/4bit.py numbers, held to the calibration phase's
+# single-device state with compare_qstates' gates; BRECQ over the same ranks
+# at the CLI phase's cut (CLI_RECON_ITERS steps a unit on CLI_OPTIM_SIZE
+# images) from the single-device state before the fold, held to a
+# single-device reconstruction with the same draws (compare_recons); then the
+# mesh-calibrated state served on the dp=2 predictor (MESH_LAUNCHES' dp=2
+# counts, every launch "mma", block checks on each rank's slice)
+MESH_CALIB_TIMEOUT = 900
+
+
+class _AllReduceLog:
+    """Counts this process's torch.distributed.all_reduce calls: number,
+    bytes and seconds inside them (a call returns with its result)."""
+
+    def __init__(self):
+        import torch.distributed as dist
+
+        self.dist, self.real = dist, dist.all_reduce
+        self.n = self.bytes = 0
+        self.seconds = 0.0
+
+        def counted(t, *a, **k):
+            t0 = time.perf_counter()
+            out = self.real(t, *a, **k)
+            self.seconds += time.perf_counter() - t0
+            self.n += 1
+            self.bytes += t.numel() * t.element_size()
+            return out
+
+        dist.all_reduce = counted
+
+    def read(self):
+        return dict(count=self.n, bytes=self.bytes, seconds=self.seconds)
+
+    def close(self):
+        self.dist.all_reduce = self.real
+
+
+def mesh_calib_rank(work, case):
+    """One rank of the mesh calibration phase (run by parallel.mesh.spawn):
+    calibrate over dp=2 (QuantCalibrator(mesh=)), save the rank's folded
+    state, reconstruct over dp=2 from the single-device state before the
+    fold (BlockReconstructor(mesh=)), then serve the mesh-calibrated state
+    saved by rank 0 through load_quantized over dp=2 with the counts set to
+    0 just before and read just after, and hold the kernels to their plain
+    versions on the rank's own slice. Writes the rank's seconds, peak
+    device memory, all_reduces, launches and block checks as JSON."""
+    import torch
+    import torch.distributed as dist
+
+    from adalog_tpu_torch.calib.calibrator import QuantCalibrator
+    from adalog_tpu_torch.calib.layout import quant_layout
+    from adalog_tpu_torch.models.zoo import build_model, model_spec
+    from adalog_tpu_torch.ops import fq_attn, fq_gemm
+    from adalog_tpu_torch.parallel.mesh import make_mesh
+    from adalog_tpu_torch.quantizers.state import tensor_leaves
+    from adalog_tpu_torch.recon.brecq import BlockReconstructor
+    from adalog_tpu_torch.serve import load_quantized, pin_fp32_matmul
+    from adalog_tpu_torch.utils.checkpoint import (
+        load_checkpoint, save_checkpoint,
+    )
+
+    pin_fp32_matmul()
+    device = torch.device(case["device"])
+    mesh = make_mesh(2, device=device, backend="gloo")
+    rank = mesh.rank
+    spec = model_spec(case["model"])
+    _, model = build_model(case["model"], seed=SEED)
+    model.load_state_dict(torch.load(os.path.join(work, "model.pt")))
+    model = model.to(device)
+    images = np.load(os.path.join(work, "images.npy"))
+    out = dict(rank=rank)
+
+    cfg = w4a4_config()
+    log = _AllReduceLog()
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    calib = QuantCalibrator(spec, model, cfg, mesh=mesh, device=device)
+    calib.calibrate([images])
+    params, qstate = calib.finish_calibration()
+    torch.cuda.synchronize(device)
+    out["calibration"] = dict(
+        wall_s=time.perf_counter() - t0, seconds=calib.seconds,
+        peak_bytes=torch.cuda.max_memory_allocated(device),
+        all_reduce=log.read())
+    log.close()
+    # the rank's folded state, leaf by leaf in a fixed order, for the
+    # parent's bit-for-bit comparison of the two ranks
+    leaves = tensor_leaves([qstate[nm] for nm in sorted(qstate)])
+    torch.save([t.cpu() for t in leaves],
+               os.path.join(work, f"qstate_r{rank}.pt"))
+    if rank == 0:
+        save_checkpoint(os.path.join(work, "mesh_calibrated.ckpt"), params,
+                        qstate, {"model": case["model"],
+                                 "state": "FPCS calibration over dp=2"})
+    del calib, params, qstate
+    torch.cuda.empty_cache()
+
+    p0, q0, _ = load_checkpoint(os.path.join(work, "unfolded.ckpt"),
+                                spec.cfg)
+    rcfg = recon_config(recon_iters=CLI_RECON_ITERS,
+                        optim_size=CLI_OPTIM_SIZE)
+    batches = list(np.load(os.path.join(work, "recon_images.npy")))
+    log = _AllReduceLog()
+    t0 = time.perf_counter()
+    recon = BlockReconstructor(spec, p0, model, q0, quant_layout(spec, rcfg),
+                               rcfg, mesh=mesh, device=device)
+    p1, q1 = recon.reconstruct(batches, quant_act=True)
+    torch.cuda.synchronize(device)
+    steps = sum(st["iters"] for st in recon.unit_stats.values())
+    trained = sum(st["seconds"] for st in recon.unit_stats.values())
+    # the reconstructor resets the peak counter before each unit
+    out["reconstruction"] = dict(
+        wall_s=time.perf_counter() - t0, ms_per_step=1e3 * trained / steps,
+        peak_bytes=max(st["peak_bytes"] or 0
+                       for st in recon.unit_stats.values()),
+        units=recon.unit_stats, all_reduce=log.read())
+    log.close()
+    if rank == 0:
+        save_checkpoint(os.path.join(work, "mesh_reconstructed.ckpt"), p1,
+                        q1)
+    del recon, p0, q0, p1, q1, model
+    torch.cuda.empty_cache()
+
+    dist.barrier()                # rank 0 has written the calibrated state
+    ckpt = os.path.join(work, "mesh_calibrated.ckpt")
+    predict, spec, model, qstate = load_quantized(
+        case["model"], ckpt, device=device, backend="gloo", mesh_devices=2,
+        mesh_tp=1, config=w4a4_config(use_pallas_gemm=True))
+    serve_batches = np.load(os.path.join(work, "serve_batches.npy"))
+    predict(serve_batches[0])                         # warm-up
+    torch.cuda.synchronize(device)
+    zero_launches(fq_attn, fq_gemm)
+    t0 = time.perf_counter()
+    ys = [predict(x) for x in serve_batches]
+    torch.cuda.synchronize(device)
+    out["serve"] = dict(
+        seconds=time.perf_counter() - t0,
+        launches=read_launches(fq_attn, fq_gemm),
+        variants={"K1": dict(fq_attn.fq_flash_attn.variant_launches),
+                  "K4": dict(fq_gemm.fq_gemm.variant_launches)})
+    if rank == 0:
+        np.save(os.path.join(work, "mesh_logits.npy"),
+                torch.cat(ys).float().cpu().numpy())
+    want = MESH_LAUNCHES[case["model"], 2, 1, False]
+    bcase = dict(device=case["device"], dp=2, tp=1, dtype="float32",
+                 int8=False)
+    out["serve"]["block"] = mesh_block_check(
+        torch, fq_attn, fq_gemm, bcase, spec, model, qstate,
+        serve_batches[0], want)
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def mesh_calibration_phase(torch, fq_attn, fq_gemm, device, ckpt_dir, start):
+    """Calibration and BRECQ over dp=2 ranks on the one card (mesh_calib_
+    rank), held to the calibration phase's single-device state (``start``)
+    and to a single-device reconstruction with the same draws; the ranks'
+    states bit-equal; the served mesh state's launches on each rank
+    (MESH_LAUNCHES' dp=2 counts, every launch "mma") and block checks.
+    Prints per rank the capture and per-family seconds, wall-clock, peak
+    device memory, the dp all_reduces with their bytes and seconds, and
+    BRECQ's ms a step, beside the card's name and power limit. Returns
+    ({kernel: launches summed over both ranks}, {kernel: largest block
+    max|diff|})."""
+    import shutil
+    import types
+
+    from adalog_tpu_torch.parallel.mesh import spawn
+    from adalog_tpu_torch.utils.checkpoint import (
+        load_checkpoint, save_checkpoint,
+    )
+
+    spec = start["spec"]
+    cfg = spec.cfg
+    line = card_line()
+    work = os.path.join(ckpt_dir, "mesh_calibration")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    torch.save(start["model"].state_dict(), os.path.join(work, "model.pt"))
+    np.save(os.path.join(work, "images.npy"),
+            calibration_images(cfg, CALIB_SIZE, SEED + 7))
+    save_checkpoint(os.path.join(work, "unfolded.ckpt"), start["params"],
+                    start["qstate"])
+    recon_images = calibration_images(cfg, CLI_OPTIM_SIZE, SEED + 31)
+    recon_batches = [recon_images[i:i + BATCH]
+                     for i in range(0, CLI_OPTIM_SIZE, BATCH)]
+    np.save(os.path.join(work, "recon_images.npy"), np.stack(recon_batches))
+    serve_batches = [calibration_images(cfg, BATCH, SEED + 9 + i)
+                     for i in range(N_BATCHES)]
+    np.save(os.path.join(work, "serve_batches.npy"), np.stack(serve_batches))
+    print(f"mesh calibration: {CALIB_MODEL} over dp=2 ranks on cuda:0 "
+          f"through gloo (NCCL refuses two ranks on one card; the nccl "
+          f"path, a card a rank, is not run), {CALIB_SIZE} images at "
+          f"configs/4bit.py's numbers; BRECQ at {CLI_RECON_ITERS} steps a unit "
+          f"on {CLI_OPTIM_SIZE} images; {line}")
+    case = dict(model=CALIB_MODEL, device=str(device))
+    t0 = time.perf_counter()
+    spawn(mesh_calib_rank, 2, (work, case), backend="gloo",
+          init_file=os.path.join(work, "rendezvous"),
+          timeout=MESH_CALIB_TIMEOUT)
+    print(f"mesh calibration: 2 ranks ran in {time.perf_counter() - t0:.1f} "
+          "s (spawn, CUDA start, calibration, reconstruction, serving and "
+          "block checks)")
+    ranks = []
+    for rank in range(2):
+        with open(os.path.join(work, f"rank{rank}.json")) as f:
+            ranks.append(json.load(f))
+
+    q0, q1 = (torch.load(os.path.join(work, f"qstate_r{r}.pt"))
+              for r in range(2))
+    check(len(q0) == len(q1) and all(torch.equal(a, b)
+                                     for a, b in zip(q0, q1)),
+          "mesh calibration: the two ranks' states differ")
+    print(f"mesh calibration: the two ranks' states bit-equal ({len(q0)} "
+          "tensors)")
+    _, q_mesh, _ = load_checkpoint(
+        os.path.join(work, "mesh_calibrated.ckpt"), cfg)
+    n = compare_qstates(torch, q_mesh, start["served"][1])
+    print(f"mesh calibration vs the single-device calibration on the same "
+          f"card: {n['picks']} integer picks, {n['adjacent']} differ "
+          f"(adjacent; share {n['adjacent'] / max(1, n['picks']):.4f}, "
+          f"allowed {ADJACENT_SHARE}); {n['scales']} scales of agreeing "
+          f"sites, {n['moved']} past rtol {CALIB_SCALE_RTOL} (allowed share "
+          f"{MOVED_SHARE}), worst rel {n['worst_rel']:.3e}")
+    check(n["adjacent"] <= ADJACENT_SHARE * n["picks"],
+          f"mesh vs single: {n['adjacent']} adjacent picks")
+    check(n["moved"] <= MOVED_SHARE * n["scales"],
+          f"mesh vs single: {n['moved']} scales past tolerance")
+
+    p_mesh, q_mesh_r, _ = load_checkpoint(
+        os.path.join(work, "mesh_reconstructed.ckpt"), cfg)
+    t1 = time.perf_counter()
+    single = reconstruct_on(torch, spec, start["params"], start["model"],
+                            start["qstate"], start["calib"].layout,
+                            recon_batches, device, CLI_RECON_ITERS)
+    t_single = time.perf_counter() - t1
+    mesh_stats = types.SimpleNamespace(
+        unit_stats=ranks[0]["reconstruction"]["units"])
+    # the card's run first: compare_recons moves the first to the host
+    flips, total, move, rec_rel, kl = compare_recons(
+        torch, single[:3], (p_mesh, q_mesh_r, mesh_stats),
+        start["calib"].layout)
+    single_ms = 1e3 * sum(st["seconds"] for st in single[2].unit_stats.values()
+                          ) / sum(st["iters"]
+                                  for st in single[2].unit_stats.values())
+    print(f"mesh reconstruction vs a single-device reconstruction with the "
+          f"same draws ({single[3]:.2f} s, {single_ms:.3f} ms a step): "
+          f"{flips} of {total} hard decisions flipped (allowed share "
+          f"{RECON_FLIP_SHARE}); activation scales apart by {move:.3e} of "
+          f"{RECON_CHECK_ITERS} * A_LR (allowed {RECON_SCALE_SHARE}); recs "
+          f"worst rel {rec_rel:.3e} (allowed {RECON_REC_RTOL}), head KL worst "
+          f"abs {kl:.3e} (allowed {RECON_KL_ATOL})")
+    check(flips <= RECON_FLIP_SHARE * total, f"mesh recon: {flips} flips")
+    check(move <= RECON_SCALE_SHARE, f"mesh recon: scales apart {move}")
+    check(rec_rel <= RECON_REC_RTOL and kl <= RECON_KL_ATOL,
+          f"mesh recon: recs apart {rec_rel}, {kl}")
+    del single, p_mesh, q_mesh_r
+    torch.cuda.empty_cache()
+
+    per_batch = MESH_LAUNCHES[CALIB_MODEL, 2, 1, False]
+    want = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
+    want.update({k: n * N_BATCHES for k, n in per_batch.items()})
+    launches = {k: 0 for k in want}
+    worst = {"K1": 0.0, "K4": 0.0}
+    for rank, r in enumerate(ranks):
+        c, rc, s = r["calibration"], r["reconstruction"], r["serve"]
+        ar, rar = c["all_reduce"], rc["all_reduce"]
+        print(f"mesh calibration rank {rank}: wall {c['wall_s']:.2f} s "
+              f"(capture {c['seconds']['capture']:.2f} s; searches "
+              + ", ".join(f"{k} {v:.2f} s" for k, v in c["seconds"].items()
+                          if k != "capture")
+              + f"); peak device memory {c['peak_bytes'] / 2**30:.2f} GiB; "
+              f"{ar['count']} dp all_reduces, {ar['bytes'] / 2**20:.2f} MiB, "
+              f"{ar['seconds']:.2f} s inside them; reconstruction wall "
+              f"{rc['wall_s']:.2f} s, {rc['ms_per_step']:.3f} ms a step, "
+              f"peak {rc['peak_bytes'] / 2**30:.2f} GiB (the largest "
+              f"unit's), {rar['count']} all_reduces, "
+              f"{rar['bytes'] / 2**20:.2f} MiB, {rar['seconds']:.2f} s inside "
+              "them (a call waits for the device's queued work and for the "
+              "other rank; 2 ranks sharing one card through host-memory "
+              f"collectives, not a scaling number); {line}")
+        print(f"mesh calibration rank {rank} served: launches "
+              f"{s['launches']} for {N_BATCHES} batches of {BATCH} (want "
+              f"{want}); by variant K1 {s['variants']['K1']}, K4 "
+              f"{s['variants']['K4']}; {BATCH * N_BATCHES / s['seconds']:.1f} "
+              "img/s")
+        check(s["launches"] == want,
+              f"mesh calibration rank {rank}: launches {s['launches']}")
+        for k in ("K1", "K4"):
+            check(s["variants"][k]["fma"] == 0,
+                  f"mesh calibration rank {rank}: {k} took variant 'fma'")
+        for k, (d, share) in s["block"].items():
+            print(f"block check mesh calibration rank {rank}: {k} vs plain "
+                  f"on the rank's own inputs: max|diff|={d:.3e} "
+                  f"share_past_tol={share:.3e} (allowed share {FLIP_SHARE})")
+            check(share <= FLIP_SHARE, f"mesh calibration rank {rank} {k} "
+                  f"block check share {share}")
+            check(k != "K4" or d <= FLIP_MAX,
+                  f"mesh calibration rank {rank} K4 max|diff| {d}")
+            worst[k] = max(worst[k], d)
+        for k, n in s["launches"].items():
+            launches[k] += n
+    y = torch.from_numpy(np.load(os.path.join(work, "mesh_logits.npy")))
+    check_logits(torch, y, spec, BATCH * N_BATCHES, "mesh calibration")
+    print(json.dumps({"mesh_calibration": {
+        "model": CALIB_MODEL, "card": line, "dp": 2,
+        "ranks": ranks,
+        "single_recon_s": t_single, "single_recon_ms_per_step": single_ms}}))
+    shutil.rmtree(work, ignore_errors=True)
+    return launches, worst
+
+
 # CLI phase: the reference-compatible CLI (adalog_tpu_torch/cli.py, what
 # `python -m adalog_tpu_torch.cli` runs) driven on an on-disk ImageFolder of
 # CLI_CLASSES classes x CLI_PER_CLASS JPEGs a split, at odd sizes, written
@@ -3259,6 +3593,10 @@ def main(argv):
     served, start = calibration_phase(torch, fq_attn, fq_gemm, device,
                                       ckpt_dir)
     add(*served)
+    # the same calibration and reconstruction over dp=2 ranks on the card,
+    # the mesh-calibrated model served on the dp=2 predictor
+    add(*mesh_calibration_phase(torch, fq_attn, fq_gemm, device, ckpt_dir,
+                                start))
     # the int8 path: K5's cases, then the calibrated deit_small and the
     # smoke swin_tiny served with eval_int8, diagnostics and export
     k5, got, errs = int8_phase(torch, fq_attn, fq_gemm, device, ckpt_dir,

@@ -497,15 +497,16 @@ def test_bf16_capture_calibrates_close(tiny, calibrated):
 
 def test_device_and_mesh(tiny, monkeypatch):
     """The calibrator runs on CUDA unless asked for the CPU: with no CUDA
-    device the default raises; a mesh is not ported and raises."""
+    device the default raises; a mesh without a process group raises (no
+    rank calibrates alone; tests/test_torch_calib_mesh.py runs meshes)."""
     model, _ = tiny
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         QuantCalibrator(SPEC, model, Config(**SMALL))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="process group"):
         QuantCalibrator(SPEC, model, Config(**SMALL), device="cpu",
                         mesh=object())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="process group"):
         C.capture_all_sites(SPEC, model, [_images(5)], mesh=object())
 
 

@@ -9,6 +9,8 @@ import sys
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the rank entry points of the mesh tests live beside the tests
+PATH = os.pathsep.join([ROOT, os.path.join(ROOT, "tests")])
 
 GUARD = """
 import sys
@@ -39,17 +41,40 @@ print("imported", sys.argv[1])
     "adalog_tpu_torch.utils.profiling", "adalog_tpu_torch.utils.checkpoint",
     "adalog_tpu_torch.ops.int8_linear", "adalog_tpu_torch.utils.diagnostics",
     "adalog_tpu_torch.utils.export", "adalog_tpu_torch.parallel.mesh",
-    "adalog_tpu_torch.parallel.tp", "chip_smoke"])
+    "adalog_tpu_torch.parallel.tp", "adalog_tpu_torch.quantizers.state",
+    "torch_calib_mesh_ranks", "torch_parallel_ranks", "chip_smoke"])
 def test_module_imports_no_jax(module):
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    env = dict(os.environ, PYTHONPATH=PATH)
     out = subprocess.run([sys.executable, "-c", GUARD, module], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert f"imported {module}" in out.stdout
 
 
+DP_HELPERS = """
+import sys
+exec(sys.argv[2])
+from adalog_tpu_torch.parallel.mesh import (
+    dp_assert_replicated, dp_barrier, dp_context, dp_count, dp_max, dp_mesh,
+    dp_order_stats, dp_rows, dp_split, dp_sum, from_order_key, order_key,
+    require_group)
+print("imported the dp helpers")
+"""
+
+
+def test_mesh_dp_helpers_import_no_jax():
+    """The dp helpers of calibration over a mesh, behind the guard."""
+    env = dict(os.environ, PYTHONPATH=PATH)
+    guard = GUARD.split("import importlib")[0]
+    out = subprocess.run([sys.executable, "-c", DP_HELPERS, "", guard],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "imported the dp helpers" in out.stdout
+
+
 def test_guard_catches_jax():
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    env = dict(os.environ, PYTHONPATH=PATH)
     out = subprocess.run([sys.executable, "-c", GUARD,
                           "adalog_tpu.calib.search"], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
@@ -88,7 +113,7 @@ def test_round1_pickle_loads_without_the_jax_package(tmp_path):
             "version": 1, "params": params, "qstate": qstate, "meta": {}}), f)
     with open(path, "rb") as f:
         assert b"adalog_tpu.models.vit" in f.read()
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    env = dict(os.environ, PYTHONPATH=PATH)
     script = GUARD.replace("importlib.import_module(sys.argv[1])\n"
                            "print(\"imported\", sys.argv[1])\n", "") \
         + LOAD_ROUND1

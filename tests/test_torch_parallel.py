@@ -469,12 +469,12 @@ def test_cli_mesh_eval_matches_single_device(served, tmp_path, monkeypatch):
 @pytest.mark.parametrize("flags", [["--calibrate"], ["--optimize"]])
 def test_cli_mesh_calibration_is_the_next_slice(tmp_path, monkeypatch,
                                                 flags):
-    """Calibration and reconstruction over a mesh are not ported: a run
-    that asks for them over 4 ranks says so before it starts."""
+    """Calibration and reconstruction over a mesh are ported: a run that
+    asks for them over 4 ranks gets the dp mesh of all 4 (they run dp over
+    every rank; tests/test_torch_calib_mesh.py runs them)."""
     args = argparse.ArgumentParser(
         parents=[cli.get_args_parser()]).parse_args(
             ["--model", "test_tiny", "--device", "cpu", "--synthetic-data",
              "--mesh-devices", "4", "--output-dir", str(tmp_path)] + flags)
     monkeypatch.setenv("WORLD_SIZE", "4")        # as torchrun sets it
-    with pytest.raises(NotImplementedError, match="next slice"):
-        cli.check_mesh(args)
+    assert cli.check_mesh(args) == (4, 1)

@@ -815,7 +815,8 @@ def test_entry_points():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             T.BlockReconstructor(spec, model, model, {}, lay, cfg)
-    with pytest.raises(NotImplementedError):
+    # a mesh without a process group raises: no rank reconstructs alone
+    with pytest.raises(RuntimeError, match="process group"):
         T.BlockReconstructor(spec, model, model, {}, lay, cfg, mesh=object(),
                              device="cpu")
 
