@@ -21,11 +21,12 @@ unchanged submodules with the calibrator's earlier ones.
 Over a mesh (``mesh=``, a ``parallel.mesh.Mesh`` in every rank of its
 process group) the calibration is data-parallel over the dp group, as the
 JAX package's is over its 'dp' axis: each rank captures and keeps only its
-``dp_split`` of every batch, the searches run inside ``dp_context`` (every
-sum over tokens or images a partial plus an all_reduce, the quantiles
-selected across the ranks), and every rank ends with the same model and
-state, bit for bit, which ``calibrate`` asserts. The result equals the
-single-device one up to the order of the float sums.
+slices of the batches (``dp_batches``), the searches run inside
+``dp_context`` (every sum over tokens or images a partial plus an
+all_reduce, the quantiles selected across the ranks), and every rank ends
+with the same model and state, bit for bit, which ``calibrate`` asserts.
+The result equals the single-device one up to the order of the float
+sums.
 """
 
 from __future__ import annotations
@@ -52,7 +53,7 @@ from adalog_tpu_torch.models.layers import ConvSite, LinearSite, MatMulSite
 from adalog_tpu_torch.models.zoo import model_forward_fn
 from adalog_tpu_torch.ops import scoring
 from adalog_tpu_torch.parallel.mesh import (
-    dp_assert_replicated, dp_barrier, dp_context, dp_max, dp_split,
+    dp_assert_replicated, dp_barrier, dp_batches, dp_context, dp_max,
     require_group,
 )
 from adalog_tpu_torch.quantizers.state import (
@@ -102,12 +103,13 @@ def capture_all_sites(spec, params, batches: List[np.ndarray],
     decision is made against the smaller bytes; the searches upcast to fp32.
     When one batch's taps exceed a quarter of the budget, they are taken in
     groups of sites (a forward a group; each forward keeps only its group).
-    With ``mesh`` each rank runs the forward on its ``dp_split`` of every
-    batch and keeps its rows of the taps; the budget, spill and dtypes
-    apply per rank. Every rank must get an image of every batch."""
+    With ``mesh`` each rank runs the forward on its slices of the batches
+    (``parallel.mesh.dp_batches``; a batch that gives the rank no image is
+    skipped) and keeps its rows of the taps; the budget, spill and dtypes
+    apply per rank."""
     if mesh is not None:
         require_group(mesh, "capture_all_sites")
-        batches = [_rank_slice(xb, mesh) for xb in batches]
+        batches = dp_batches(batches, mesh)
     device = _model_device(params)
     fwd = model_forward_fn(spec)
     shapes = tap_shapes(spec, params, tuple(np.shape(batches[0])))
@@ -166,17 +168,6 @@ def capture_all_sites(spec, params, batches: List[np.ndarray],
         for pb in per_batch_taps:
             del pb[nm]
     return out
-
-
-def _rank_slice(xb, mesh):
-    """This rank's dp slice of a batch, which may not be empty: a forward
-    on no image is no forward."""
-    n = np.shape(xb)[0]
-    if n < mesh.dp:
-        raise ValueError(f"a batch of {n} images leaves ranks of dp="
-                         f"{mesh.dp} without one; use batches of at least "
-                         f"{mesh.dp}")
-    return dp_split(xb, mesh)
 
 
 def _flat2d(x):

@@ -21,6 +21,7 @@ bit for bit as one device would.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from adalog_tpu_torch.ops.scoring import tdiv
@@ -39,18 +40,18 @@ def _order_stats(x, idx, mesh):
 
 def quantile(x, qs, dim=None, mesh=None):
     """``jnp.quantile(x, qs, axis=dim)`` (method 'linear') for a float32
-    tensor x and a 1-D float32 tensor qs, bit for bit: the values sorted
-    along ``dim`` (all of x when None); t = qs * (n - 1) in float32, lo =
-    floor(t), hi = ceil(t), w = t - lo, each index clamped to n - 1 in
-    float32 (past 2^24 elements that may round up, and then reads the last
-    value, as XLA's gather clamps); then v[lo] * (1 - w) + v[hi] * w with
-    one of the two products fused into the add, as XLA's CPU code does: the
-    hi product for a full reduction (a 1-D result), the lo product along an
-    axis (an exact float64 product and sum stand for the fused
-    multiply-add). The sort puts -0.0 before +0.0 where jnp.quantile's
-    keeps the two in input order, so the results can differ in the sign of
-    a zero only. With ``mesh``, ``dim`` (all of x when None) is sharded
-    over its dp group and n is its global size.
+    tensor x and a 1-D float32 tensor qs, as the JAX package's searches
+    compute it (qs constants of the jitted program), bit for bit: the
+    values sorted along ``dim`` (all of x when None); t = qs * (n - 1) in
+    float32, lo = floor(t), hi = ceil(t), w = t - lo, each index clamped to
+    n - 1 in float32 (past 2^24 elements that may round up, and then reads
+    the last value, as XLA's gather clamps); then v[lo] * (1 - w) + v[hi] *
+    w with the lo product fused into the add, as XLA's CPU code does once
+    it has folded the constant index arithmetic (an exact float64 product
+    and sum stand for the fused multiply-add). The sort puts -0.0 before
+    +0.0 where jnp.quantile's keeps the two in input order, so the results
+    can differ in the sign of a zero only. With ``mesh``, ``dim`` (all of x
+    when None) is sharded over its dp group and n is its global size.
     Returns (len(qs), *x.shape without dim)."""
     if dim is None:
         x, dim = x.reshape(-1), 0
@@ -74,10 +75,8 @@ def quantile(x, qs, dim=None, mesh=None):
     shape = (-1,) + (1,) * (v_lo.dim() - 1)
     lo_term = (v_lo.double(), w_lo.reshape(shape).double())
     hi_term = (v_hi.double(), w_hi.reshape(shape).double())
-    fused, other = (hi_term, lo_term) if v_lo.dim() == 1 else \
-        (lo_term, hi_term)
-    rounded = (other[0] * other[1]).float().double()
-    return (fused[0] * fused[1] + rounded).float()
+    rounded = (hi_term[0] * hi_term[1]).float().double()
+    return (lo_term[0] * lo_term[1] + rounded).float()
 
 
 def _upper_lower(x, pct, dim=None, mesh=None):
@@ -89,6 +88,23 @@ def _upper_lower(x, pct, dim=None, mesh=None):
 
 def _pct(l, r, device):
     return torch.tensor([l, r], dtype=torch.float32, device=device)
+
+
+def xla_fma(a, b, c):
+    """a * b + c rounded once, as XLA's CPU code computes a product that
+    feeds an add (the two contract into a fused multiply-add): the float64
+    product of two float32 values is exact, the float64 sum is rounded to
+    float32 (a double rounding that can differ from one true fused
+    multiply-add only where the float64 sum falls on a float32 tie)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def xla_div(a, d):
+    """a / d for a Python number d as XLA compiles it: a product with the
+    float32 reciprocal of the constant (not an IEEE division: at d = 7, 15
+    or 63 the two differ in the last bit of a fraction of the values)."""
+    r = np.float32(1.0) / np.float32(d)
+    return a * torch.tensor(r, dtype=torch.float32, device=a.device)
 
 
 def _linspace01(n, device):
@@ -108,22 +124,35 @@ def _zp_grid(bits: int, num_zp: int, device) -> torch.Tensor:
                         device=device)
 
 
-def _grid(delta_min, delta_max, bits, num_zp, num_scale, clip=False):
+def _grid(delta_min, delta_max, bits, num_zp, num_scale, clip=False,
+          self_delta=False):
     """(scales2d, zps2d) of shape (num_zp * num_scale, U) from the (1, U)
-    percentile ranges."""
+    percentile ranges, with the JAX package's arithmetic: (delta_min +
+    linspace * (delta_max - delta_min)) / (2N - 1) as ``xla_fma`` then
+    ``xla_div``. ``self_delta`` adds a third output, the FPCS step
+    scales[1] - scales[0] as XLA computes it where the grid and the step
+    fuse into one kernel (the weight self-searches): the product of the
+    second point and the reciprocal contracted into the subtraction."""
     N = 2 ** (bits - 1)
     dev = delta_min.device
-    splits = _linspace01(num_scale, dev)[:, None] * (delta_max - delta_min)
-    scales = tdiv(delta_min + splits, 2 * N - 1).repeat(num_zp, 1)
+    a = xla_fma(_linspace01(num_scale, dev)[:, None],
+                delta_max - delta_min, delta_min).repeat(num_zp, 1)
+    scales = xla_div(a, 2 * N - 1)
     if clip:
         scales = torch.clamp(scales, min=1e-4)
     zps = torch.repeat_interleave(_zp_grid(bits, num_zp, dev),
-                                  num_scale)[:, None]
-    return scales, zps.expand(scales.shape)
+                                  num_scale)[:, None].expand(scales.shape)
+    if not self_delta:
+        return scales, zps
+    r = torch.tensor(np.float32(1.0) / np.float32(2 * N - 1),
+                     dtype=torch.float32, device=dev)
+    return scales, zps, xla_fma(a[1], r, -scales[0])
 
 
-def weight_candidates(w_v, bits: int, eq_n: int, l=0.9, r=1.0):
-    """w_v: (V, R, I) -> scales2d/zps2d (eq_n, V*R) canonical unit layout."""
+def weight_candidates(w_v, bits: int, eq_n: int, l=0.9, r=1.0,
+                      self_delta=False):
+    """w_v: (V, R, I) -> scales2d/zps2d (eq_n, V*R) canonical unit layout
+    (and the self-search's first FPCS step with ``self_delta``, ``_grid``)."""
     N = 2 ** (bits - 1)
     num_zp = min(16, N, eq_n)
     num_scale = eq_n // num_zp
@@ -132,7 +161,8 @@ def weight_candidates(w_v, bits: int, eq_n: int, l=0.9, r=1.0):
     uppers, lowers = _upper_lower(w_v, pct, dim=-1)   # (2, V, R) each
     delta_min = (uppers[0] - lowers[0]).reshape(1, V * R)
     delta_max = (uppers[1] - lowers[1]).reshape(1, V * R)
-    return _grid(delta_min, delta_max, bits, num_zp, num_scale)
+    return _grid(delta_min, delta_max, bits, num_zp, num_scale,
+                 self_delta=self_delta)
 
 
 def act_candidates(x2d, bits: int, eq_n: int, *, channel_wise: bool,
@@ -198,6 +228,15 @@ def postgelu_scale_candidates(x2d, shift, eq_n: int, l=0.9, r=1.0):
     ud = positive_percentile(x2d.reshape(-1), _pct(l, r, x2d.device),
                              dp_mesh())
     ud = ud + shift
-    t = tdiv(torch.arange(eq_n, dtype=torch.float32, device=x2d.device),
-             eq_n - 1)
-    return ud, (ud[0] + (ud[1] - ud[0]) * t)[:, None]
+    return ud, interpolate(ud, eq_n)[:, None]
+
+
+def interpolate(ud, n):
+    """ud[0] + (ud[1] - ud[0]) * (arange(n) / (n - 1)) as the JAX package
+    computes it in some of its programs (test_tiny's calibrations): the
+    constant fraction by IEEE division (XLA folds it), the rest one
+    ``xla_fma``. Other programs fold the fraction otherwise, and then a
+    few points lie an ulp away (tests/test_torch_bits.py holds them to a
+    few ulps)."""
+    t = tdiv(torch.arange(n, dtype=torch.float32, device=ud.device), n - 1)
+    return xla_fma(ud[1] - ud[0], t, ud[0])

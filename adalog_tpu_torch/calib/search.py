@@ -55,13 +55,16 @@ def _topk_gather(sims, scales, zps, k):
 
 
 def fpcs(score2d, scales, zps, *, eq_n: int, steps: int, width: int = 16,
-         clamp_min=None):
+         clamp_min=None, delta=None):
     """Run the FPCS schedule; returns (best_scale (U,), best_zp (U,)).
 
     steps=1 is a single scoring pass over the initial grid (the reference's
     fpcs=False path). Refine grid: offsets (linspace(0, 1, cnt) - 0.5) times
-    the current delta, the delta shrinking by (cnt - 0.5) each step."""
-    delta = scales[1] - scales[0]                 # (U,) adjacent-scale step
+    the current delta, the delta shrinking by (cnt - 0.5) each step. The
+    first delta is scales[1] - scales[0] unless the caller gives it
+    (``candidates._grid``'s ``self_delta``)."""
+    if delta is None:
+        delta = scales[1] - scales[0]             # (U,) adjacent-scale step
     cnt = eq_n // width
     if steps > 1 and cnt < 2:
         # faithful to the reference, but degenerate: with one child per
@@ -80,14 +83,16 @@ def fpcs(score2d, scales, zps, *, eq_n: int, steps: int, width: int = 16,
     k_s, k_z = _topk_gather(sims, scales, zps, width)
     offs = (C._linspace01(cnt, scales.device) - 0.5)[None, :, None]
     for _ in range(steps - 1):
-        cands_s = (k_s[:, None, :] + offs * delta).reshape(eq_n, -1)
+        # k + offs * delta and delta / (cnt - 0.5) in the JAX package's
+        # arithmetic (candidates.xla_fma, xla_div)
+        cands_s = C.xla_fma(offs, delta, k_s[:, None, :]).reshape(eq_n, -1)
         if clamp_min is not None:
             cands_s = torch.clamp(cands_s, min=clamp_min)
         cands_z = torch.repeat_interleave(k_z, cnt, dim=0)
         sims = score2d(cands_s, cands_z)
         k_s, k_z = _topk_gather(sims, cands_s, cands_z, width)
         best_s, best_z = _topk_gather(sims, cands_s, cands_z, 1)
-        delta = tdiv(delta, cnt - 0.5)
+        delta = C.xla_div(delta, cnt - 0.5)
     return best_s[0], best_z[0]
 
 
@@ -125,11 +130,11 @@ def _weight_search(w_v, w_bits, eq_n, st, mem_scale):
     def exp_w(s2d, z2d):
         return s2d.reshape(-1, V, R, 1), z2d.reshape(-1, V, R, 1)
 
-    ws0, wz0 = C.weight_candidates(w_v, w_bits, eq_n)
+    ws0, wz0, delta = C.weight_candidates(w_v, w_bits, eq_n, self_delta=True)
     w_s, w_z = fpcs(
         lambda s, z: S.score_weight_self(w_v, *exp_w(s, z), w_bits,
                                          mem_scale).reshape(eq_n, V * R),
-        ws0, wz0, eq_n=eq_n, steps=st)
+        ws0, wz0, eq_n=eq_n, steps=st, delta=delta)
     return ws0, wz0, exp_w, w_s, w_z
 
 
@@ -282,8 +287,7 @@ def _postgelu_adalog_impl(x, y, w, b, shift, *, w_bits: int,
     a_s = scale_grid[-2]                                    # (1,)
     q = torch.tensor(37.0, device=dev)
     q_grid = torch.arange(10, 10 + eq_n, dtype=torch.float32, device=dev)
-    scale16 = ud[0] + (ud[1] - ud[0]) * tdiv(
-        torch.arange(16, dtype=torch.float32, device=dev), 15.0)
+    scale16 = C.interpolate(ud, 16)
 
     def score(s, qq, ms=mem_scale):
         return S.score_linear_a_out_adalog(x, tgt, w_q2, shift, s, qq, a_bits,
@@ -596,14 +600,14 @@ def _conv_impl(x, y, w, b, *, w_bits: int, eq_n: int, steps: int,
 
     pct = C._pct(0.9, 1.0, w.device)
     uppers, lowers = C._upper_lower(w_flat, pct, dim=-1)
-    ws0, wz0 = C._grid((uppers[0] - lowers[0])[None, :],
-                       (uppers[1] - lowers[1])[None, :], w_bits, num_zp,
-                       num_scale)
+    ws0, wz0, delta = C._grid((uppers[0] - lowers[0])[None, :],
+                              (uppers[1] - lowers[1])[None, :], w_bits,
+                              num_zp, num_scale, self_delta=True)
     w_s, w_z = fpcs(
         lambda s, z: S.score_conv_w_out(
             x, tgt, w_flat, conv_dims, s[:, :, None], z[:, :, None], w_bits,
             mem_scale),
-        ws0, wz0, eq_n=eq_n, steps=_steps(use_fpcs, steps))
+        ws0, wz0, eq_n=eq_n, steps=_steps(use_fpcs, steps), delta=delta)
     return w_s[:, None], w_z[:, None]
 
 

@@ -19,9 +19,10 @@ NCCL refuses two ranks on one card, so ranks that share a card name
 rank, each on its own batch slice (``shard_batch``), and ``gather_batch``
 returns the whole batch's output to every rank.
 
-Calibration and reconstruction over a mesh hold each rank's ``dp_split`` of
-the images; where GSPMD turns a reduction over the sharded token or image
-axis into a psum, the port takes the local partial and ``dp_sum``s it. The
+Calibration and reconstruction over a mesh hold each rank's slices of the
+images (``dp_batches``: a round robin, so batches smaller than dp work);
+where GSPMD turns a reduction over the sharded token or image axis into a
+psum, the port takes the local partial and ``dp_sum``s it. The
 searches keep the JAX package's signatures: the calibrator enters
 ``dp_context(mesh)``, and the scorers and candidate grids read ``dp_mesh()``.
 ``dp_sum`` and ``dp_max`` run inside ``torch.func.vmap`` (the batched site
@@ -40,6 +41,7 @@ from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Any, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -165,22 +167,49 @@ def require_group(mesh: Mesh, what: str) -> Mesh:
     return mesh
 
 
-def dp_split(x, mesh: Mesh, dim: int = 0):
-    """This rank's slice of ``x`` along ``dim`` over dp, as
-    ``torch.tensor_split`` cuts it (the first n % dp ranks hold one more).
-    Every reduction over the sharded axis is a sum with a global
-    normaliser, so an uneven split is exact."""
-    require_group(mesh, "dp_split")
-    return torch.tensor_split(torch.as_tensor(x), mesh.dp, dim)[mesh.dp_index]
+def _batch_cuts(sizes, dp: int):
+    """Each batch's cut into dp contiguous slices, in rank order: a batch of
+    n images gives every rank n // dp, and the n % dp left over go one each
+    to the ranks that follow those of the batches before (a round robin
+    over the images of all the batches). A batch dp divides is cut as
+    ``torch.tensor_split`` cuts it; so is the first. A batch smaller than
+    dp leaves ranks without an image. Returns [(dp + 1) offsets]."""
+    cuts, seen = [], 0
+    for n in sizes:
+        base, extra = divmod(n, dp)
+        counts = [base + ((r - seen) % dp < extra) for r in range(dp)]
+        cuts.append([sum(counts[:r]) for r in range(dp + 1)])
+        seen += n
+    return cuts
+
+
+def dp_batches(batches, mesh: Mesh):
+    """This rank's slices of a list of batches (``_batch_cuts``), the empty
+    ones left out: a rank skips the forward of a batch that gives it no
+    image. Raises on every rank, and so before any collective, when the
+    batches leave some rank without an image at all."""
+    require_group(mesh, "dp_batches")
+    cuts = _batch_cuts([np.shape(xb)[0] for xb in batches], mesh.dp)
+    empty = [r for r in range(mesh.dp) if all(c[r] == c[r + 1]
+                                               for c in cuts)]
+    if empty:
+        raise ValueError(
+            f"{sum(np.shape(xb)[0] for xb in batches)} images leave dp "
+            f"ranks {empty} of dp={mesh.dp} without one; use at least "
+            f"{mesh.dp} images")
+    i = mesh.dp_index
+    return [xb[c[i]:c[i + 1]] for xb, c in zip(batches, cuts)
+            if c[i + 1] > c[i]]
 
 
 def dp_rows(sizes, mesh: Mesh) -> torch.Tensor:
-    """The global row indices this rank holds, in its local order, when each
-    of a list of batches of ``sizes`` rows is ``dp_split`` and the slices
-    are concatenated."""
+    """The global row indices this rank holds, in its local order, when a
+    list of batches of ``sizes`` rows is cut by ``dp_batches`` and the
+    slices are concatenated."""
     out, start = [], 0
-    for n in sizes:
-        out.append(dp_split(torch.arange(start, start + n), mesh))
+    i = mesh.dp_index
+    for n, c in zip(sizes, _batch_cuts(sizes, mesh.dp)):
+        out.append(torch.arange(start + c[i], start + c[i + 1]))
         start += n
     return torch.cat(out)
 
@@ -251,9 +280,10 @@ def dp_count(n: int, mesh: Optional[Mesh]) -> int:
     """The global size of an axis of which this rank holds ``n``. Inside a
     ``dp_context`` over ``mesh`` the result is kept by ``n``, so that only
     the first call for a size makes the all_reduce. This is the same on
-    every rank: a sharded axis always holds the rank's images times a
-    per-image size, so two sizes are equal on one rank where they are on
-    all."""
+    every rank: a sharded axis always holds the rank's images (of all the
+    batches, a number fixed for the calibration and never 0, which
+    ``dp_batches`` sees to) times a per-image size, so two sizes are equal
+    on one rank where they are on all."""
     if mesh is None or mesh.dp == 1:
         return n
     counts = _DP_COUNTS.get() if mesh is _DP.get() else None

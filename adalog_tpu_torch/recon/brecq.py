@@ -23,7 +23,8 @@ blocks, change no result.
 
 Over a mesh (``mesh=``) the block I/O is data-parallel over the dp group,
 as the JAX package shards it over its 'dp' axis: each rank captures and
-keeps its ``dp_split`` of every batch, so its block-I/O memory falls by dp.
+keeps its slices of the batches (``dp_batches``), so its block-I/O memory
+falls by dp.
 Every rank draws the same global minibatch (the same seeded generator over
 the global row count) and trains on the drawn rows it holds; the
 reconstruction term divides by the global batch, the rounding penalty
@@ -46,9 +47,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from adalog_tpu_torch.calib.calibrator import (
-    _rank_slice, _resolve_device, _sync,
-)
+from adalog_tpu_torch.calib.calibrator import _resolve_device, _sync
 from adalog_tpu_torch.calib.layout import tree_get, tree_set
 from adalog_tpu_torch.calib.reparam import _with
 from adalog_tpu_torch.models.layers import (
@@ -59,7 +58,8 @@ from adalog_tpu_torch.quantizers.adaround import (
     adaround_hard_weight, adaround_init_alpha, adaround_soft_targets,
 )
 from adalog_tpu_torch.parallel.mesh import (
-    dp_assert_replicated, dp_barrier, dp_rows, dp_sum, require_group,
+    dp_assert_replicated, dp_barrier, dp_batches, dp_rows, dp_sum,
+    require_group,
 )
 from adalog_tpu_torch.quantizers.state import map_tensors, tensor_leaves
 from adalog_tpu_torch.recon.blocks import BlockUnit, block_units
@@ -82,11 +82,12 @@ def capture_block_io(spec, params_full, batches: List[np.ndarray], skip=(),
     batches: on the model's device, or on the host with
     ``keep_on_device=False``. ``skip``: block names whose I/O is not kept
     (a resume with most blocks done pays no memory for them). With
-    ``mesh``, each rank keeps the rows of its ``dp_split`` of every batch
-    (``parallel.mesh.dp_rows`` names them)."""
+    ``mesh``, each rank keeps the rows of its slices of the batches
+    (``parallel.mesh.dp_batches``, which skips a batch that gives the rank
+    no image; ``dp_rows`` names the rows)."""
     if mesh is not None:
         require_group(mesh, "capture_block_io")
-        batches = [_rank_slice(xb, mesh) for xb in batches]
+        batches = dp_batches(batches, mesh)
     fwd = model_forward_fn(spec)
     skip = frozenset(skip)
     device = next(params_full.parameters()).device

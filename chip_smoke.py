@@ -177,9 +177,27 @@ Phases, each a hard check (any failure raises and exits non-zero):
      plain versions on its slice (block checks); per rank the capture and
      per-family seconds, wall-clock, peak device memory, the dp
      all_reduces with their bytes and seconds, BRECQ's ms a step, labelled
-     as ranks sharing one card, not a scaling number.
+     as ranks sharing one card, not a scaling number;
+ 14. zoo phase (run after phase 7): every other zoo shape served as in
+     phase 6, at full depth and width, batch 32, with its smoke state:
+     deit_tiny (3 heads) and deit_base (K 768 and 3072, fc2's 768 columns
+     over two of K4's 384-column blocks), K1 12 and K4 49 a batch;
+     vit_large (24 blocks, 16 heads, fc2 4096 -> 1024 with a ragged last
+     block), K1 24 and K4 97; swin_base and swin_base_384 (S=144 windows,
+     4-32 heads), K1 24 and K4 100; block checks on every block, every K1
+     and K4 launch "mma"; then K2 and K3 at vit_large and swin_base_384 as
+     in phase 7;
+ 15. bits phase (run after phase 13): deit_small calibrated on the card at
+     the shipped configs/3bit.py and configs/6bit.py (cut to BITS_DEPTH
+     blocks, PERF.md section 4), timed, every site at the config's widths
+     and every AdaLog base an integer fq_gemm.prepare takes, its held-out
+     logit MSE to the raw model printed beside phase 8's W4A4; served as in
+     phase 6 (every K1 and K4 launch "mma") and with eval_int8 as in phase
+     9 (K5 at every uniform Linear site, all "wgmma"); and test_tiny
+     calibrated at each width on the card and on the CPU, held with phase
+     8's compare_qstates gates.
 The last two lines are a JSON summary of the kernels (launches summed over
-the main paths of phases 6 to 13, every rank's; times of the fp32 kernel
+the main paths of phases 6 to 15, every rank's; times of the fp32 kernel
 phases; the bound
 from those phases' shapes; K1-K4's entries are the variant their paths
 launch, "mma", K5's "wgmma", with "mma"'s times beside it; K5's
@@ -202,6 +220,7 @@ step, the device's busy share, GEMMs against the rest.
 """
 
 import copy
+import functools
 import json
 import os
 import statistics
@@ -284,10 +303,12 @@ GEMM_RTOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
 # whole quantization noise. The kernel is instead held to its plain version
 # on the real q/kT/v of every block of the served model (block check).
 
-def w4a4_config(**kw):
+def quant_config(bits=4, **kw):
+    """A Config at w, a, s and head-input bits ``bits`` (the patch
+    embedding's input stays at 8), the shipped configs' search numbers."""
     from adalog_tpu_torch.utils.config import Config
 
-    return Config(w_bit=4, a_bit=4, s_bit=4, qhead_a_bit=4, **kw)
+    return Config(w_bit=bits, a_bit=bits, s_bit=bits, qhead_a_bit=bits, **kw)
 
 
 def check(cond, msg):
@@ -295,7 +316,10 @@ def check(cond, msg):
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
+@functools.lru_cache(maxsize=1)
 def card_line():
+    """The card's name and power limit, as nvidia-smi gives them (read
+    once)."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -1173,17 +1197,17 @@ def swin_weights(cfg, seed):
     return sd
 
 
-def smoke_qstate(torch, spec, model, images, device, post="adalog"):
-    """A SMOKE quantizer state, not an FPCS calibration: init_qstate with
-    activation scales and zero points set by min/max from one raw capture
-    pass (per head at the attention matmuls) and the AdaLog bases of the
-    post-GeLU and post-softmax sites set to SMOKE_LOG_Q. ``post`` is the
-    configuration's post_softmax_quantizer."""
+def smoke_qstate(torch, spec, model, images, device, post="adalog", bits=4):
+    """A SMOKE quantizer state, not an FPCS calibration: init_qstate at
+    ``bits`` with activation scales and zero points set by min/max from one
+    raw capture pass (per head at the attention matmuls) and the AdaLog
+    bases of the post-GeLU and post-softmax sites set to SMOKE_LOG_Q.
+    ``post`` is the configuration's post_softmax_quantizer."""
     from adalog_tpu_torch.calib.init_state import init_qstate
     from adalog_tpu_torch.models.layers import LinearSite, MatMulSite
     from adalog_tpu_torch.models.zoo import model_forward_fn
 
-    qstate = init_qstate(spec, w4a4_config(post_softmax_quantizer=post),
+    qstate = init_qstate(spec, quant_config(bits, post_softmax_quantizer=post),
                          model)
     with torch.no_grad():
         _, taps = model_forward_fn(spec)(spec.cfg, model, images.to(device),
@@ -1243,7 +1267,7 @@ def attention_bias(spec, model, path, stage, blk, dtype):
 
 
 def block_check(torch, fq_attn, fq_gemm, spec, model, qstate, x, dt,
-                require_mma=True, n_linear=None, skip=()):
+                require_mma=True, n_linear=None, skip=(), bits=4):
     """Hold K1 against its plain version on the q/kT/v (and, for Swin, the
     rel-pos bias and shift mask) that every block of the quantized model
     gives it for images x (as the wrapper routes it: variant "mma",
@@ -1260,10 +1284,11 @@ def block_check(torch, fq_attn, fq_gemm, spec, model, qstate, x, dt,
     from adalog_tpu_torch.models.zoo import model_forward_fn
     from adalog_tpu_torch.ops import weight_prep
 
-    wprep = weight_prep.prepare(spec, model, qstate, w4a4_config())
+    cfg = quant_config(bits)
+    wprep = weight_prep.prepare(spec, model, qstate, cfg)
     # as make_predictor builds it: fp32 sites carry their weight codes
     table = fq_gemm.prepare(
-        qstate, weight_prep.weight_codes(spec, model, qstate, w4a4_config())
+        qstate, weight_prep.weight_codes(spec, model, qstate, cfg)
         if dt == "float32" else None, skip=skip)
     if n_linear is None:
         n_linear = MODELS[spec.name]["K4"]
@@ -1310,7 +1335,8 @@ def block_check(torch, fq_attn, fq_gemm, spec, model, qstate, x, dt,
     if any(fma):
         print(f"block check {spec.name} {dt}: variant 'fma' launches K1 "
               f"{fma[0]}, K4 {fma[1]}; why: "
-              f"{fma_reasons(torch, fq_attn, fq_gemm, spec, model, qstate, dt)}")
+              f"{fma_reasons(torch, fq_attn, fq_gemm, spec, model, qstate,
+                             dt, bits)}")
     check(not require_mma or fma[0] == 0,
           f"{spec.name} {dt}: a block's K1 call took variant 'fma'")
     check(not require_mma or fma[1] == 0,
@@ -1318,7 +1344,7 @@ def block_check(torch, fq_attn, fq_gemm, spec, model, qstate, x, dt,
     return worst
 
 
-def fma_reasons(torch, fq_attn, fq_gemm, spec, model, qstate, dt):
+def fma_reasons(torch, fq_attn, fq_gemm, spec, model, qstate, dt, bits=4):
     """{site: why variant "mma" refuses it} for every attention (K1) and
     Linear (K4) site of a served model in dtype ``dt``."""
     from adalog_tpu_torch.ops import weight_prep
@@ -1335,7 +1361,7 @@ def fma_reasons(torch, fq_attn, fq_gemm, spec, model, qstate, dt):
         reason = fq_attn.mma_refusal(S, D, dtype, bits, exact)
         if reason is not None:
             why[p] = reason
-    codes = weight_prep.weight_codes(spec, model, qstate, w4a4_config()) \
+    codes = weight_prep.weight_codes(spec, model, qstate, quant_config(bits)) \
         if dt == "float32" else None
     for name, site in fq_gemm.prepare(qstate, codes).items():
         reason = fq_gemm.mma_refusal(
@@ -1352,9 +1378,25 @@ SETTINGS = (("attention kernel", True, False),
             ("plain", False, False))
 # launches a batch with the kernels on: K1 once a block (deit_small 12;
 # swin_tiny 2 + 2 + 6 + 2), K4 at every Linear site (deit_small 4 a block
-# and the head; swin_tiny 4 a block, 3 reductions and head.fc)
+# and the head; swin_tiny 4 a block, 3 reductions and head.fc); the zoo
+# phase's models beside them (vit_large 24 blocks; swin_base and
+# swin_base_384 2 + 2 + 18 + 2)
 MODELS = {"deit_small": {"K1": 12, "K4": 49},
-          "swin_tiny": {"K1": 12, "K4": 52}}
+          "swin_tiny": {"K1": 12, "K4": 52},
+          "deit_tiny": {"K1": 12, "K4": 49},
+          "deit_base": {"K1": 12, "K4": 49},
+          "vit_large": {"K1": 24, "K4": 97},
+          "swin_base": {"K1": 24, "K4": 100},
+          "swin_base_384": {"K1": 24, "K4": 100}}
+# the smoke models of the serving, fall-back and profile phases
+SMOKE_MODELS = ("deit_small", "swin_tiny")
+# the zoo phase: every other zoo shape at full depth and width (vit_tiny
+# and vit_base have deit_tiny's and deit_base's shapes, swin_small
+# swin_tiny's widths at swin_base's depths); K2 and K3 at the two with the
+# most blocks and the largest windows
+ZOO_MODELS = ("deit_tiny", "deit_base", "vit_large", "swin_base",
+              "swin_base_384")
+ZOO_FALLBACK = ("vit_large", "swin_base_384")
 # K5 launches a batch with eval_int8: every uniform Linear site (deit_small
 # qkv, proj and fc1 of each block and the head; swin_tiny the same, its 3
 # reductions and head.fc); the AdaLog fc2 sites stay on K4 (12 a batch)
@@ -1400,11 +1442,12 @@ def read_launches(fq_attn, fq_gemm):
     return {k: w.launches for k, w in wrappers(fq_attn, fq_gemm).items()}
 
 
-def smoke_model(torch, device, ckpt_dir, name="deit_small", post="adalog"):
+def smoke_model(torch, device, ckpt_dir, name="deit_small", post="adalog",
+                bits=4):
     """Model ``name`` at full depth and width with random weights from SEED
-    and its smoke state (post-softmax quantizer ``post``) with fc2 folded,
-    saved as a v2 .ckpt; returns (spec, model, qstate, ckpt path, N_BATCHES
-    numpy batches of BATCH images)."""
+    and its smoke state at ``bits`` (post-softmax quantizer ``post``) with
+    fc2 folded, saved as a v2 .ckpt; returns (spec, model, qstate, ckpt
+    path, N_BATCHES numpy batches of BATCH images)."""
     from adalog_tpu_torch.models.load import load_state_dict
     from adalog_tpu_torch.models.zoo import model_spec
     from adalog_tpu_torch.utils.checkpoint import save_checkpoint
@@ -1419,19 +1462,20 @@ def smoke_model(torch, device, ckpt_dir, name="deit_small", post="adalog"):
 
     weights = timm_weights if spec.family == "vit" else swin_weights
     model = load_state_dict(spec, weights(cfg, SEED)).to(device)
-    qstate = smoke_qstate(torch, spec, model, calib, device, post)
+    qstate = smoke_qstate(torch, spec, model, calib, device, post, bits)
     fold_fc2(torch, model, qstate)
     os.makedirs(ckpt_dir, exist_ok=True)
-    ckpt = os.path.join(ckpt_dir, f"{name}_smoke_w4a4_{post}.ckpt")
+    ckpt = os.path.join(ckpt_dir, f"{name}_smoke_w{bits}a{bits}_{post}.ckpt")
     save_checkpoint(ckpt, model, qstate, {"model": name,
                                           "state": "smoke, not FPCS"})
     return spec, model, qstate, ckpt, batches
 
 
 def predictors(ckpt, device, batch, name="deit_small", settings=SETTINGS,
-               **cfg_kw):
+               bits=4, **cfg_kw):
     """{(dtype, setting): predict} for every serving setting in float32 and
-    bfloat16, loaded through load_quantized and run once on ``batch``."""
+    bfloat16, loaded through load_quantized at ``bits`` and run once on
+    ``batch``."""
     from adalog_tpu_torch.serve import load_quantized
 
     preds = {}
@@ -1439,7 +1483,7 @@ def predictors(ckpt, device, batch, name="deit_small", settings=SETTINGS,
         for setting, attn, gemm in settings:
             predict, *_ = load_quantized(
                 name, ckpt, device=device, eval_dtype=dt, use_pallas=attn,
-                config=w4a4_config(use_pallas_gemm=gemm, **cfg_kw))
+                config=quant_config(bits, use_pallas_gemm=gemm, **cfg_kw))
             predict(batch)                           # warm-up
             preds[dt, setting] = predict
     return preds
@@ -1471,7 +1515,7 @@ def serving_phase(torch, fq_attn, fq_gemm, device, ckpt_dir,
 
 
 def serve_checked(torch, fq_attn, fq_gemm, device, spec, model, qstate, ckpt,
-                  batches, tag=None, require_mma=True):
+                  batches, tag=None, require_mma=True, bits=4):
     """Block checks on the model's own tensors in both dtypes, then the
     state in ``ckpt`` served through load_quantized in every setting and
     dtype, launch counts asserted (every launch a kernel); with
@@ -1491,7 +1535,7 @@ def serve_checked(torch, fq_attn, fq_gemm, device, spec, model, qstate, ckpt,
                       ("bfloat16", torch.bfloat16)):
         m = copy.deepcopy(model).to(dtype)
         res = block_check(torch, fq_attn, fq_gemm, spec, m, qstate,
-                          x0.to(dtype), dt, require_mma)
+                          x0.to(dtype), dt, require_mma, bits=bits)
         for k, what in (("K1", f"the q/kT/v of all {n_attn} blocks"),
                         ("K4", f"the inputs of all {n_linear} Linear sites")):
             d, share = res[k]
@@ -1505,12 +1549,12 @@ def serve_checked(torch, fq_attn, fq_gemm, device, spec, model, qstate, ckpt,
                   f"{tag} {dt} {k} block check max|diff| {d}")
             worst[k] = max(worst[k], d)
     reasons = {dt: fma_reasons(torch, fq_attn, fq_gemm, spec, copy.deepcopy(
-        model).to(getattr(torch, dt)), qstate, dt)
+        model).to(getattr(torch, dt)), qstate, dt, bits)
         for dt in ("float32", "bfloat16")}
     del model, qstate, m
     torch.cuda.empty_cache()
 
-    preds = predictors(ckpt, device, batches[0], name)
+    preds = predictors(ckpt, device, batches[0], name, bits=bits)
     os.remove(ckpt)
     torch.cuda.synchronize()
 
@@ -1553,7 +1597,8 @@ def serve_checked(torch, fq_attn, fq_gemm, device, spec, model, qstate, ckpt,
             y, ips = served[dt, setting]
             check_logits(torch, y, spec, BATCH * N_BATCHES,
                          f"{tag} {dt} {setting}")
-            print(f"serving {tag} {dt}, {setting}: {ips:.1f} img/s")
+            print(f"serving {tag} {dt}, {setting}: {ips:.1f} img/s; "
+                  f"{card_line()}")
         for a, b in ((1, 0), (1, 2), (0, 2)):
             (ya, _), (yb, _) = served[dt, SETTINGS[a][0]], \
                 served[dt, SETTINGS[b][0]]
@@ -1723,12 +1768,12 @@ def fallback_phase(torch, fq_attn, fq_gemm, device, ckpt_dir, name):
         y, ips = serve(torch, preds[dt, SETTINGS[0][0]], batches)
         check_logits(torch, y, spec, BATCH * N_BATCHES, f"{name} {dt} log2")
         print(f"serving {name} {dt}, log2 post-softmax quantizer, K3 on "
-              f"matmul1: {ips:.1f} img/s")
+              f"matmul1: {ips:.1f} img/s; {card_line()}")
     drove("log2, load_quantized", {"K2": 0, "K3": n_attn * N_BATCHES * 2})
     return total, worst
 
 
-# Calibration phase: the shipped configs/4bit.py numbers (w4a4_config's
+# Calibration phase: the shipped configs/4bit.py numbers (quant_config's
 # defaults: calib_size 32, eq_n 128, steps 6, search_round 3, FPCS,
 # LayerNorm reparam, AdaLog post-softmax and post-GeLU, head-wise matmuls,
 # qconv_a_bit 8, qhead_a_bit 4) on CALIB_MODEL at full depth and width
@@ -1798,15 +1843,15 @@ def compare_qstates(torch, got, want):
     return n
 
 
-def calibrate_on(torch, spec, model, images, device):
-    """One calibration through QuantCalibrator at w4a4_config on
-    ``device``: (model, qstate, calibrator, wall seconds, synchronized,
-    (model, qstate) before the post-GeLU fold, as a reconstruction starts
-    from them)."""
+def calibrate_on(torch, spec, model, images, device, cfg=None):
+    """One calibration through QuantCalibrator at ``cfg`` (quant_config()
+    when None) on ``device``: (model, qstate, calibrator, wall seconds,
+    synchronized, (model, qstate) before the post-GeLU fold, as a
+    reconstruction starts from them)."""
     from adalog_tpu_torch.calib.calibrator import QuantCalibrator
 
     t0 = time.perf_counter()
-    calib = QuantCalibrator(spec, model, w4a4_config(), device=device)
+    calib = QuantCalibrator(spec, model, cfg or quant_config(), device=device)
     unfolded = calib.calibrate([images])
     params, qstate = calib.finish_calibration()
     if device.type == "cuda":
@@ -1938,6 +1983,194 @@ def calibration_phase(torch, fq_attn, fq_gemm, device, ckpt_dir):
     return served, start
 
 
+# Bits phase: the shipped configs/3bit.py and configs/6bit.py (calib_size
+# 32, eq_n 128, steps 6, search_round 3; qconv_a_bit 8, qhead_a_bit the
+# width) on CALIB_MODEL at full width, cut to BITS_DEPTH blocks so that the
+# whole script stays near 900 s (PERF.md section 4), with configs/4bit.py
+# calibrated at the same depth as the widths' baseline; CHECK_MODEL on the
+# card and on the CPU, held with compare_qstates
+BITS_CONFIGS = {3: "3bit.py", 6: "6bit.py"}
+BITS_BASELINE = "4bit.py"
+BITS_DEPTH = 4
+
+
+def cut_spec(name, depth):
+    """The spec of ViT ``name`` with its first ``depth`` blocks, entered in
+    the zoo as '<name>_d<depth>' (so load_quantized builds it) with its
+    launch counts beside MODELS' and INT8_MODELS'; ``name``'s own spec at
+    its full depth."""
+    import dataclasses
+
+    from adalog_tpu_torch.models import zoo
+
+    spec = zoo.model_spec(name)
+    if depth == spec.cfg.depth:
+        return spec
+    cut = dataclasses.replace(spec, name=f"{name}_d{depth}",
+                              cfg=dataclasses.replace(spec.cfg, depth=depth))
+    zoo.MODEL_ZOO[cut.name] = cut
+    MODELS[cut.name] = {"K1": depth, "K4": 4 * depth + 1}
+    INT8_MODELS[cut.name] = 3 * depth + 1
+    return cut
+
+
+def check_bits(qstate, bits):
+    """Every site carries the configuration's widths: w and a bits, s bits
+    on the attention matmuls' A operand, qhead_a_bit on the head, 8 on the
+    patch embedding's input."""
+    from adalog_tpu_torch.models.layers import MatMulSite
+
+    for name, site in qstate.items():
+        if isinstance(site, MatMulSite):
+            got, want = (site.Aq.bits, site.Bq.bits), (bits, bits)
+        else:
+            got = (site.wq.bits, site.aq.bits)
+            want = (bits, 8 if name.startswith("patch_embed") else bits)
+        check(got == want, f"{name}: bits {got}, want {want}")
+
+
+def bits_phase(torch, fq_attn, fq_gemm, device, ckpt_dir, start):
+    """CALIB_MODEL (the calibration phase's raw model and images) calibrated
+    on the card at each of BITS_CONFIGS, timed; the state checked (every
+    layout site, the widths, every AdaLog base an integer fq_gemm.prepare
+    takes), its held-out logit MSE to the raw model printed beside that of
+    BITS_BASELINE calibrated at the same depth, then saved and served
+    through load_quantized: block checks, fp32 and bf16 in every setting
+    (serve_checked: K1 12 and K4 49 a batch, every launch variant "mma",
+    the reason printed for any "fma"), the int8 block check (K5 against
+    the fake-quant path at the width's codes) and eval_int8 (serve_int8:
+    K5 37 a batch, all "wgmma"); then CHECK_MODEL calibrated at the same
+    configuration on the card and on the CPU, held with compare_qstates.
+    Returns ({kernel: launches of the served paths}, {kernel: largest
+    block-check max|diff|})."""
+    from collections import Counter
+
+    from adalog_tpu_torch.models.zoo import build_model, model_forward_fn
+    from adalog_tpu_torch.models.zoo import model_spec
+    from adalog_tpu_torch.utils.checkpoint import save_checkpoint
+    from adalog_tpu_torch.utils.config import load_config
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    full = start["spec"]
+    spec = cut_spec(full.name, BITS_DEPTH)
+    model = start["model"]
+    if spec is not full:
+        from adalog_tpu_torch.models.load import load_state_dict
+
+        model = load_state_dict(spec, {
+            k: v for k, v in timm_weights(full.cfg, SEED).items()
+            if not k.startswith("blocks.") or
+            int(k.split(".")[1]) < BITS_DEPTH}).to(device)
+    cfg = spec.cfg
+    images = calibration_images(cfg, CALIB_SIZE, SEED + 7)
+    x = torch.from_numpy(start["held_out"]).to(device)
+    batches = [calibration_images(cfg, BATCH, SEED + 9 + i)
+               for i in range(N_BATCHES)]
+    fwd = model_forward_fn(spec)
+    with torch.no_grad():
+        y_raw = fwd(cfg, model, x)
+
+    def logit_mse(params, qstate):
+        with torch.no_grad():
+            return torch.mean((fwd(cfg, params, x, qstate, {"*": "quant"})
+                               - y_raw) ** 2).item()
+
+    line = card_line()
+    launches = {k: 0 for k in ("K1", "K2", "K3", "K4", "K5")}
+    worst = {"K1": 0.0, "K4": 0.0, "K5": 0.0}
+    base_cfg = load_config(os.path.join(root, "configs", BITS_BASELINE))
+    params, qstate, _, wall, _ = calibrate_on(torch, spec, model, images,
+                                              device, base_cfg)
+    mse_base = logit_mse(params, qstate)
+    print(f"calibration {spec.name} W{base_cfg.a_bit}A{base_cfg.a_bit} "
+          f"(configs/{BITS_BASELINE}, the widths' baseline): wall "
+          f"{wall:.2f} s; logit MSE to the raw model on {CALIB_SIZE} "
+          f"held-out images {mse_base:.6e}; {line}")
+    check(np.isfinite(mse_base), f"{spec.name} baseline: MSE {mse_base}")
+    del params, qstate
+    spec_t = model_spec(CHECK_MODEL)
+    _, tiny = build_model(CHECK_MODEL, seed=SEED)
+    imgs_t = calibration_images(spec_t.cfg, CALIB_SIZE, SEED + 13)
+    for bits, path in BITS_CONFIGS.items():
+        qcfg = load_config(os.path.join(root, "configs", path))
+        check((qcfg.w_bit, qcfg.a_bit, qcfg.s_bit, qcfg.qhead_a_bit) ==
+              (bits,) * 4, f"configs/{path}: widths")
+        tag = f"{spec.name} W{bits}A{bits}"
+        torch.cuda.reset_peak_memory_stats(device)
+        params, qstate, calib, wall, _ = calibrate_on(
+            torch, spec, model, images, device, qcfg)
+        peak = torch.cuda.max_memory_allocated(device)
+        print(f"calibration {tag} (configs/{path}: calib_size "
+              f"{qcfg.calib_size}, eq_n {qcfg.eq_n}, steps {qcfg.steps}, "
+              f"search_round {qcfg.search_round}): wall {wall:.2f} s "
+              f"(capture {calib.seconds['capture']:.2f} s; searches "
+              + ", ".join(f"{k} {v:.2f} s" for k, v in calib.seconds.items()
+                          if k != "capture")
+              + f"); peak device memory {peak / 2**30:.2f} GiB; {line}")
+        bases = check_calibrated(torch, fq_gemm, calib, qstate)
+        check_bits(qstate, bits)
+        mse = logit_mse(params, qstate)
+        check(np.isfinite(mse), f"{tag}: logit MSE {mse}")
+        print(f"calibration {tag}: {len(qstate)} sites calibrated; AdaLog "
+              f"bases {sorted(Counter(bases).items())}; logit MSE to the raw "
+              f"model on {CALIB_SIZE} held-out images {mse:.6e} (configs/"
+              f"{BITS_BASELINE} at the same depth {mse_base:.6e})")
+        print(json.dumps({"calibration": {
+            "model": spec.name, "config": f"configs/{path}", "card": line,
+            "wall_s": wall, "seconds": calib.seconds, "peak_bytes": peak,
+            "sites": len(qstate), "mse_calibrated": mse,
+            "mse_baseline": mse_base}}))
+
+        os.makedirs(ckpt_dir, exist_ok=True)
+        ckpt = os.path.join(ckpt_dir, f"{spec.name}_calibrated_w{bits}a"
+                            f"{bits}.ckpt")
+        meta = {"model": spec.name, "state": "FPCS calibration, random "
+                f"weights, configs/{path}"}
+        save_checkpoint(ckpt, params, qstate, meta)
+        got, errs = serve_checked(torch, fq_attn, fq_gemm, device, spec,
+                                  params, qstate, ckpt, batches,
+                                  tag=f"{tag} calibrated", bits=bits)
+        n, d, share = int8_block_check(torch, spec, params, qstate, x,
+                                       cfg=qcfg)
+        print(f"block check {tag} int8 float32: K5 bit for bit as its "
+              f"plain version, and vs the fake-quant path, "
+              f"on the inputs of all {n} int8 sites, batch {len(x)}: "
+              f"max|diff|={d:.3e} share_past_tol={share:.3e} (atol={ATOL} "
+              f"rtol={INT8_BLOCK_RTOL}; allowed share {FLIP_SHARE}, max "
+              f"{INT8_BLOCK_MAX})")
+        check(share <= FLIP_SHARE and d <= INT8_BLOCK_MAX,
+              f"{tag} int8 block check: max|diff| {d}, share {share}")
+        worst["K5"] = max(worst["K5"], d)
+        save_checkpoint(ckpt, params, qstate, meta)
+        got5 = serve_int8(torch, fq_attn, fq_gemm, device, spec, ckpt,
+                          batches, f"{tag} calibrated int8", bits)
+        for k in launches:
+            launches[k] += got[k] + got5[k]
+        for k, d in errs.items():
+            worst[k] = max(worst[k], d)
+        del params, qstate, calib
+        torch.cuda.empty_cache()
+
+        _, q_gpu, _, t_gpu, _ = calibrate_on(torch, spec_t, tiny, imgs_t,
+                                             device, qcfg)
+        _, q_cpu, _, t_cpu, _ = calibrate_on(torch, spec_t, tiny, imgs_t,
+                                             torch.device("cpu"), qcfg)
+        n = compare_qstates(torch, q_gpu, q_cpu)
+        print(f"calibration {CHECK_MODEL} W{bits}A{bits} card vs CPU (card "
+              f"{t_gpu:.2f} s, CPU {t_cpu:.2f} s): {n['picks']} integer "
+              f"picks, {n['adjacent']} adjacent (share "
+              f"{n['adjacent'] / max(1, n['picks']):.4f}, allowed "
+              f"{ADJACENT_SHARE}); {n['scales']} scales of agreeing sites, "
+              f"{n['moved']} past rtol {CALIB_SCALE_RTOL} (allowed share "
+              f"{MOVED_SHARE}), worst rel {n['worst_rel']:.3e}")
+        check(n["adjacent"] <= ADJACENT_SHARE * n["picks"],
+              f"W{bits}A{bits} card vs CPU: {n['adjacent']} adjacent picks")
+        check(n["moved"] <= MOVED_SHARE * n["scales"],
+              f"W{bits}A{bits} card vs CPU: {n['moved']} scales past "
+              "tolerance")
+    return launches, worst
+
+
 # int8 phase: K5 at its shapes, then the calibrated deit_small and the smoke
 # swin_tiny served with eval_int8, each int8 site held to the fake-quant
 # path, one per-site error report and one export round trip. The int8 sites'
@@ -1953,20 +2186,23 @@ EXPORT_ATOL = 1e-5
 DIAG_TOP = 5
 
 
-def int8_block_check(torch, spec, model, qstate, x, n_sites=None, skip=()):
+def int8_block_check(torch, spec, model, qstate, x, n_sites=None, skip=(),
+                     cfg=None):
     """Each int8 site of ``model`` (fp32) through K5, as the served path
     calls it (the table entry), against the fake-quant qlinear on the same
     inputs: every Linear site's input captured from the raw model on images
-    x. On a tp rank's slices the caller enters the row-parallel context and
-    names the row-parallel sites (``skip``) and the count of int8 sites
-    left (``n_sites``). Returns (sites, largest max|diff|, largest share
-    past tolerance)."""
+    x, each site's codes at its own width (``cfg``, quant_config() when
+    None, gives the layout); K5 must also equal its plain version on those
+    inputs bit for bit. On a tp rank's slices the caller enters the
+    row-parallel context and names the row-parallel sites (``skip``) and
+    the count of int8 sites left (``n_sites``). Returns (sites, largest
+    max|diff|, largest share past tolerance)."""
     from adalog_tpu_torch.calib.layout import quant_layout, tree_get
     from adalog_tpu_torch.models.layers import qlinear
     from adalog_tpu_torch.models.zoo import model_forward_fn
     from adalog_tpu_torch.ops import int8_linear
 
-    cfg = w4a4_config()
+    cfg = cfg or quant_config()
     layout = quant_layout(spec, cfg)
     table = int8_linear.prepare(spec, model, qstate, cfg, skip=skip)
     if n_sites is None:
@@ -1981,16 +2217,21 @@ def int8_block_check(torch, spec, model, qstate, x, n_sites=None, skip=()):
             xin = taps.pop(nm)[0]
             p = tree_get(model, layout[nm].param_path)
             xin2 = xin.reshape(-1, xin.shape[-1])
-            got = int8_linear.int8_gemm(xin2, hit.w_int, hit.a_params,
-                                        hit.scale_row, p.bias,
-                                        bits=qstate[nm].aq.bits)
+            args = (xin2, hit.w_int, hit.a_params, hit.scale_row, p.bias)
+            bits = qstate[nm].aq.bits
+            got = int8_linear.int8_gemm(*args, bits=bits)
+            n_plain = int((got != int8_linear.int8_gemm_plain(
+                *args, bits=bits)).sum())
+            check(n_plain == 0, f"{spec.name} {nm}: K5 differs from its "
+                  f"plain version in {n_plain} outputs at {bits} bits")
             want = qlinear(p, qstate[nm], xin2, mode="quant")
             d, share = compare(got, want, INT8_BLOCK_RTOL)
             worst, share_max = max(worst, d), max(share_max, share)
     return len(table), worst, share_max
 
 
-def serve_int8(torch, fq_attn, fq_gemm, device, spec, ckpt, batches, tag):
+def serve_int8(torch, fq_attn, fq_gemm, device, spec, ckpt, batches, tag,
+               bits=4):
     """The state in ``ckpt`` served through load_quantized with eval_int8
     in INT8_SETTINGS, fp32 and bf16, launch counts asserted (K1 and K5 every
     batch, K4 on the AdaLog fc2 sites with the GEMM switch); logits checked,
@@ -1998,7 +2239,7 @@ def serve_int8(torch, fq_attn, fq_gemm, device, spec, ckpt, batches, tag):
     setting, the main path."""
     name = spec.name
     preds = predictors(ckpt, device, batches[0], name, INT8_SETTINGS,
-                       eval_int8=True)
+                       bits=bits, eval_int8=True)
     os.remove(ckpt)
     torch.cuda.synchronize()
     n_attn, n_int8 = MODELS[name]["K1"], INT8_MODELS[name]
@@ -2022,7 +2263,8 @@ def serve_int8(torch, fq_attn, fq_gemm, device, spec, ckpt, batches, tag):
         for dt, (y, ips) in served.items():
             check_logits(torch, y, spec, BATCH * N_BATCHES,
                          f"{tag} {dt} {setting}")
-            print(f"serving {tag} {dt}, {setting}: {ips:.1f} img/s")
+            print(f"serving {tag} {dt}, {setting}: {ips:.1f} img/s; "
+                  f"{card_line()}")
         launches = got
     return launches
 
@@ -2059,7 +2301,8 @@ def int8_phase(torch, fq_attn, fq_gemm, device, ckpt_dir, start):
                                                            ckpt_dir, name)
             xb = torch.from_numpy(batches[0]).to(device)
         n, d, share = int8_block_check(torch, spec_m, model, qs, xb)
-        print(f"block check {name} int8 float32: K5 vs the fake-quant path "
+        print(f"block check {name} int8 float32: K5 bit for bit as its "
+              f"plain version, and vs the fake-quant path, "
               f"on the inputs of all {n} int8 sites, batch {BATCH}: "
               f"max|diff|={d:.3e} share_past_tol={share:.3e} (atol={ATOL} "
               f"rtol={INT8_BLOCK_RTOL}; allowed share {FLIP_SHARE}, max "
@@ -2095,7 +2338,7 @@ def int8_phase(torch, fq_attn, fq_gemm, device, ckpt_dir, start):
     blob = export_quantized(spec, params, qstate, BATCH, device=device)
     t_export = time.perf_counter() - t0
     y = load_exported(blob)(start["held_out"])
-    want = make_predictor(spec, params, qstate, cfg=w4a4_config(),
+    want = make_predictor(spec, params, qstate, cfg=quant_config(),
                           use_kernels=False, device=device)(x)
     torch.cuda.synchronize()
     diff = (y - want).abs().max().item()
@@ -2208,7 +2451,7 @@ def mesh_rank(work, cases):
             case["model"], case["ckpt"], device=case["device"],
             backend="gloo",
             eval_dtype=case["dtype"], mesh_devices=case["dp"] * case["tp"],
-            mesh_tp=case["tp"], config=w4a4_config(
+            mesh_tp=case["tp"], config=quant_config(
                 use_pallas_gemm=True, eval_int8=case["int8"]))
         batches = np.load(case["batches"])
         predict(batches[0])                           # warm-up
@@ -2330,7 +2573,7 @@ def mesh_phase(torch, fq_attn, fq_gemm, device, ckpt_dir, runs=MESH_RUNS):
             y = torch.from_numpy(np.load(os.path.join(work, f"{key}.npy")))
             predict, spec, *_ = load_quantized(
                 case["model"], case["ckpt"], device=device,
-                eval_dtype=case["dtype"], config=w4a4_config(
+                eval_dtype=case["dtype"], config=quant_config(
                     use_pallas_gemm=True, eval_int8=case["int8"]))
             batches = np.load(case["batches"])
             single = torch.cat([predict(x) for x in batches]).float().cpu()
@@ -2376,7 +2619,7 @@ RECON_KL_ATOL = 1e-5
 
 
 def recon_config(**kw):
-    return w4a4_config(optim_batch_size=BATCH, train_act=True, **kw)
+    return quant_config(optim_batch_size=BATCH, train_act=True, **kw)
 
 
 def frozen_off_grid(torch, model, qstate, layout):
@@ -2579,9 +2822,9 @@ def reconstruction_phase(torch, fq_attn, fq_gemm, device, ckpt_dir, start):
     _, tiny = build_model(CHECK_MODEL, seed=SEED)
     imgs = calibration_images(spec_t.cfg, RECON_CHECK_N, SEED + 23)
     cpu = torch.device("cpu")
-    p0, q0 = QuantCalibrator(spec_t, tiny, w4a4_config(),
+    p0, q0 = QuantCalibrator(spec_t, tiny, quant_config(),
                              device=cpu).calibrate([imgs])
-    layout = quant_layout(spec_t, w4a4_config())
+    layout = quant_layout(spec_t, quant_config())
     runs = [reconstruct_on(torch, spec_t, p0, tiny, q0, layout, [imgs], dev,
                            RECON_CHECK_ITERS) for dev in (device, cpu)]
     flips, total, move, rec_rel, kl = compare_recons(
@@ -2678,7 +2921,7 @@ def mesh_calib_rank(work, case):
     images = np.load(os.path.join(work, "images.npy"))
     out = dict(rank=rank)
 
-    cfg = w4a4_config()
+    cfg = quant_config()
     log = _AllReduceLog()
     torch.cuda.synchronize(device)
     torch.cuda.reset_peak_memory_stats(device)
@@ -2734,7 +2977,7 @@ def mesh_calib_rank(work, case):
     ckpt = os.path.join(work, "mesh_calibrated.ckpt")
     predict, spec, model, qstate = load_quantized(
         case["model"], ckpt, device=device, backend="gloo", mesh_devices=2,
-        mesh_tp=1, config=w4a4_config(use_pallas_gemm=True))
+        mesh_tp=1, config=quant_config(use_pallas_gemm=True))
     serve_batches = np.load(os.path.join(work, "serve_batches.npy"))
     predict(serve_batches[0])                         # warm-up
     torch.cuda.synchronize(device)
@@ -3295,7 +3538,7 @@ def reconstruction_profile(torch, device, ckpt_dir):
 
     spec, model, qstate, ckpt, batches = smoke_model(torch, device, ckpt_dir)
     os.remove(ckpt)
-    layout = quant_layout(spec, w4a4_config())
+    layout = quant_layout(spec, quant_config())
 
     def run():
         return reconstruct_on(torch, spec, model, model, qstate, layout,
@@ -3559,7 +3802,7 @@ def main(argv):
         matmul_phase_profile(torch, fq_attn, device)
         gemm_phase_profile(torch, fq_gemm, device)
         int8_phase_profile(torch, device)
-        for name in MODELS:
+        for name in SMOKE_MODELS:
             profile_phase(torch, device, ckpt_dir, name)
         calibration_profile(torch, device)
         reconstruction_profile(torch, device, ckpt_dir)
@@ -3582,9 +3825,19 @@ def main(argv):
         for k, d in errs.items():
             block_worst[k] = max(block_worst[k], d)
 
-    for name in MODELS:
+    for name in SMOKE_MODELS:
         add(*serving_phase(torch, fq_attn, fq_gemm, device, ckpt_dir, name))
         add(*fallback_phase(torch, fq_attn, fq_gemm, device, ckpt_dir, name))
+    # every other zoo shape served through K1 and K4, and K2 / K3 at the
+    # deepest ViT and the largest Swin windows
+    for phase, names in ((serving_phase, ZOO_MODELS),
+                         (fallback_phase, ZOO_FALLBACK)):
+        for name in names:
+            torch.cuda.reset_peak_memory_stats(device)
+            add(*phase(torch, fq_attn, fq_gemm, device, ckpt_dir, name))
+            print(f"{phase.__name__} {name}: peak device memory "
+                  f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} "
+                  f"GiB; {card_line()}")
     # serving over a mesh of ranks on the one card: K1, K4 and K5 on each
     # rank's batch, weight and head slices
     add(*mesh_phase(torch, fq_attn, fq_gemm, device, ckpt_dir))
@@ -3597,6 +3850,9 @@ def main(argv):
     # the mesh-calibrated model served on the dp=2 predictor
     add(*mesh_calibration_phase(torch, fq_attn, fq_gemm, device, ckpt_dir,
                                 start))
+    # the shipped W3A3 and W6A6 configurations: calibrated, served (K1, K4
+    # and K5) and held to the CPU's calibration on test_tiny
+    add(*bits_phase(torch, fq_attn, fq_gemm, device, ckpt_dir, start))
     # the int8 path: K5's cases, then the calibrated deit_small and the
     # smoke swin_tiny served with eval_int8, diagnostics and export
     k5, got, errs = int8_phase(torch, fq_attn, fq_gemm, device, ckpt_dir,

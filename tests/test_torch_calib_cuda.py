@@ -158,7 +158,7 @@ def test_tiny_calibration_card_against_cpu(cuda_device):
     x = chip_smoke.calibration_images(spec.cfg, 32, 3)
     states = {}
     for device in (None, "cpu"):
-        calib = QuantCalibrator(spec, model, chip_smoke.w4a4_config(),
+        calib = QuantCalibrator(spec, model, chip_smoke.quant_config(),
                                 device=device)
         assert calib.device.type == ("cuda" if device is None else "cpu")
         calib.calibrate([x])

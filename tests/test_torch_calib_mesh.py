@@ -87,7 +87,8 @@ TOL = dict(rtol=1e-4, atol=1e-5)
 CAPTURE_TOL = 2e-5
 SPAWN_TIMEOUT = 600
 SMALL = ranks.SMALL
-MODELS = {"tiny": "test_tiny", "swin": "test_tiny_swin"}
+MODELS = {"tiny": "test_tiny", "swin": "test_tiny_swin",
+          "single": "test_tiny"}
 # the mesh of JAX's calibration of each model, which every case holds to
 JAX_DP = {"tiny": 2, "swin": 4}
 GRAD_RTOL = 1e-6
@@ -96,6 +97,12 @@ ALPHA_ATOL = 1e-5
 REC_RTOL = 1e-4
 KL_ATOL = 1e-6
 N_VAL = 8
+# batches of one image at dp=2: every batch leaves a rank without an image
+N_SINGLE = 5
+
+
+def _single_batches(x):
+    return [x[i:i + 1] for i in range(N_SINGLE)]
 
 
 def _images(seed, n=8):
@@ -248,8 +255,8 @@ def _family_args(inputs, keys, axes, tokens, to):
 # the ranks, once per world size; the JAX side meanwhile
 # ---------------------------------------------------------------------------
 
-CAL_RUNS = [(f"{m}_g{g}", name, {"batch_sites": bool(g)})
-            for m, name in MODELS.items() for g in (1, 0)]
+CAL_RUNS = [(f"{m}_g{g}", MODELS[m], {"batch_sites": bool(g)})
+            for m in ("tiny", "swin") for g in (1, 0)]
 
 
 def _cli_argv(config, out, *flags):
@@ -272,7 +279,7 @@ def work(tmp_path_factory):
     ranks ran."""
     d = str(tmp_path_factory.mktemp("calib_mesh"))
     models = {}
-    for name in MODELS.values():
+    for name in set(MODELS.values()):
         jp = _np_tree(j_zoo.build_model(name, seed=0)[1])
         models[name] = (jp, from_jax(zoo.model_spec(name).cfg, jp)[0])
         torch.save(models[name][1].state_dict(), os.path.join(d, f"{name}.pt"))
@@ -299,6 +306,7 @@ def work(tmp_path_factory):
                     "capture_device_budget_bytes": 40_000,
                     "streaming_calib": "on"})])),
             ("resume", dict(model_name="test_tiny", cut=6)),
+            ("single_images", dict(n=N_SINGLE)),
             ("reconstruct", dict(cases=[("whole", 8), ("part", 2)])),
             ("cli", dict(argvs=[_cli_argv(config, os.path.join(d, k), *f)
                                 for k, (w, f) in CLI_RUNS.items() if w == 2],
@@ -356,6 +364,9 @@ def _jax_side(d, models, inputs, config):
         name = MODELS[m]
         jc = JQuantCalibrator(j_zoo.model_spec(name), models[name][0],
                               JConfig(**SMALL), mesh=j_make_mesh(dp))
+        if m == "single":
+            # JAX keeps a batch the mesh does not divide replicated
+            return m, _np_tree(jc.calibrate(_single_batches(x)))
         return m, _np_tree(jc.calibrate([x]))
 
     def reconstruct():
@@ -376,7 +387,7 @@ def _jax_side(d, models, inputs, config):
         return trained
 
     with ThreadPoolExecutor(4) as pool:
-        cal = pool.map(calibrate, list(JAX_DP.items()))
+        cal = pool.map(calibrate, list(JAX_DP.items()) + [("single", 2)])
         rec = pool.submit(reconstruct)
         fam = pool.map(family, FAMILY_CASES)
         cal, fam, jtrained = dict(cal), dict(fam), rec.result()
@@ -440,7 +451,7 @@ def test_signed_zero_cases_hold_both_zeros(work):
 @pytest.mark.parametrize("dp", [2, 4])
 @pytest.mark.parametrize("key", ["images", "images5"])
 def test_capture_holds_the_ranks_rows(work, dp, key):
-    """Each rank's taps: its dp_split of the batch, bit for bit as the
+    """Each rank's taps: its dp_batches slice of the batch, bit for bit as the
     forward on that slice; its rows of the whole batch's taps to
     CAPTURE_TOL."""
     x = work["inputs"][key]
@@ -520,13 +531,15 @@ def _quant_error(name, model, qstate, x):
         return float(torch.linalg.norm(y - fwd(spec.cfg, model, xt)))
 
 
-CAL_CASES = [(m, dp, g) for m in MODELS for dp in (2, 4) for g in (1, 0)]
+CAL_CASES = [(m, dp, g) for m in ("tiny", "swin") for dp in (2, 4)
+             for g in (1, 0)]
 
 
 @pytest.fixture(scope="module")
 def single_calibrations(work):
     out = {}
-    for m, name in MODELS.items():
+    for m in ("tiny", "swin"):
+        name = MODELS[m]
         for g in (1, 0):
             out[m, g] = C.QuantCalibrator(
                 zoo.model_spec(name), work["models"][name][1],
@@ -596,6 +609,90 @@ def test_mesh_resume_file_written_by_rank_0(work):
         for k, v in p.state_dict().items():
             np.testing.assert_allclose(pr.state_dict()[k].numpy(), v.numpy(),
                                        **TOL, err_msg=k)
+
+
+@pytest.mark.parametrize("sizes,dp", [
+    ([8], 2), ([5], 2), ([1] * 5, 2), ([3, 1, 2], 4), ([4, 4], 2),
+    ([2, 7, 1], 3)])
+def test_batch_cuts_balance_the_ranks(sizes, dp):
+    """dp_batches' cut: the first batch and every batch dp divides as
+    tensor_split cuts them; the ranks' image counts differ by at most one;
+    dp_rows names each rank's rows, all of them once."""
+    cuts = M._batch_cuts(sizes, dp)
+    for n, c in zip(sizes, cuts):
+        split = [len(t) for t in torch.tensor_split(torch.arange(n), dp)]
+        if n % dp == 0 or c is cuts[0]:
+            assert np.diff(c).tolist() == split
+    totals = [sum(c[r + 1] - c[r] for c in cuts) for r in range(dp)]
+    assert max(totals) - min(totals) <= 1 and sum(totals) == sum(sizes)
+    rows = []
+    for r in range(dp):
+        mesh = M.Mesh(dp, 1, r, 0, None, None, torch.device("cpu"), "gloo")
+        got = M.dp_rows(sizes, mesh)
+        assert len(got) == totals[r]
+        rows += got.tolist()
+    assert sorted(rows) == list(range(sum(sizes)))
+
+
+def test_single_image_batches_calibrate(work):
+    """Five batches of one image at dp=2: the ranks bit-equal, within the
+    calibration gate of JAX's mesh run (which keeps each batch replicated)
+    and of the single-device port on the same batches."""
+    name = "test_tiny"
+    states = [_ckpt(os.path.join(work["dir"], f"single_images_r{r}.ckpt"),
+                    name) for r in range(2)]
+    (p, q), (p1, q1) = states
+    for k, v in p.state_dict().items():
+        assert torch.equal(v, p1.state_dict()[k]), k
+    assert _diverging(q, q1)[0] == 0
+    batches = _single_batches(work["inputs"]["images"])
+    sp, sq = C.QuantCalibrator(zoo.model_spec(name),
+                               work["models"][name][1], Config(**SMALL),
+                               device="cpu").calibrate(batches)
+    jp, jq = work["jax_calibrations"]["single"]
+    _, jstate = from_jax(zoo.model_spec(name).cfg, jp, jq)
+    for want in (jstate, sq):
+        bad, total = _diverging(q, want)
+        assert bad <= max(2, total // 20), (bad, total)
+    x = np.concatenate(batches)
+    assert _quant_error(name, p, q, x) <= 1.05 * _quant_error(name, sp, sq,
+                                                               x)
+
+
+def test_single_image_batches_capture_block_io(work):
+    """capture_block_io over the same batches: each rank holds the rows
+    dp_rows names, bit for bit as the single-device capture of those
+    batches and within CAPTURE_TOL of JAX's."""
+    spec = zoo.model_spec("test_tiny")
+    batches = _single_batches(work["inputs"]["images"])
+    whole = B.capture_block_io(spec, work["models"]["test_tiny"][1], batches)
+    jio = J.capture_block_io(j_zoo.model_spec("test_tiny"),
+                             jax.tree_util.tree_map(
+                                 jnp.asarray, work["models"]["test_tiny"][0]),
+                             batches)
+    held = 0
+    for rank in range(2):
+        got = _rank_npz(work["dir"], "single_images_io", rank)
+        rows = M.dp_rows([1] * N_SINGLE, M.Mesh(2, 1, rank, 0, None, None,
+                                                torch.device("cpu"), "gloo"))
+        held += len(rows)
+        assert {k.rsplit(".", 1)[0] for k in got} == set(whole)
+        for nm, tup in whole.items():
+            for i, t in enumerate(tup):
+                g = got[f"{nm}.{i}"]
+                np.testing.assert_array_equal(g, t[rows].numpy())
+                np.testing.assert_allclose(g, np.asarray(jio[nm][i])[
+                    rows.numpy()], rtol=CAPTURE_TOL, atol=CAPTURE_TOL)
+    assert held == N_SINGLE
+
+
+def test_batches_leaving_a_rank_empty_raise(work):
+    """One batch of one image at dp=2 leaves rank 1 with none: both ranks
+    raise, before any collective (neither waits for the other)."""
+    for rank in range(2):
+        meta = json.load(open(os.path.join(
+            work["dir"], f"single_images_r{rank}.json")))
+        assert "without one" in meta["raised"], meta
 
 
 # ---------------------------------------------------------------------------
@@ -733,7 +830,7 @@ def test_mesh_without_a_process_group_raises():
     spec, model = zoo.build_model("test_tiny", seed=0)
     cfg = Config(**SMALL)
     for call in (
-            lambda: M.dp_split(torch.zeros(4), mesh),
+            lambda: M.dp_batches([torch.zeros(4)], mesh),
             lambda: M.dp_context(mesh).__enter__(),
             lambda: C.capture_all_sites(spec, model, [_images(0, 4)],
                                         mesh=mesh),

@@ -55,9 +55,9 @@ DP_HELPERS = """
 import sys
 exec(sys.argv[2])
 from adalog_tpu_torch.parallel.mesh import (
-    dp_assert_replicated, dp_barrier, dp_context, dp_count, dp_max, dp_mesh,
-    dp_order_stats, dp_rows, dp_split, dp_sum, from_order_key, order_key,
-    require_group)
+    dp_assert_replicated, dp_barrier, dp_batches, dp_context, dp_count,
+    dp_max, dp_mesh, dp_order_stats, dp_rows, dp_sum, from_order_key,
+    order_key, require_group)
 print("imported the dp helpers")
 """
 

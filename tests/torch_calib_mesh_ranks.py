@@ -74,17 +74,17 @@ def _flat(prefix, tree):
 
 def order_stats(work, mesh, cases):
     """Each case's sharded ``quantile`` / ``positive_percentile`` on this
-    rank's ``dp_split`` of the case's array (along its shard dim)."""
+    rank's ``torch.tensor_split`` slice of the case's array (along its
+    shard dim)."""
     from adalog_tpu_torch.calib.candidates import positive_percentile, quantile
-    from adalog_tpu_torch.parallel.mesh import dp_split
-
     if mesh is None:
         return
     inputs = np.load(os.path.join(work, "inputs.npz"))
     qs = torch.from_numpy(QS)
     out = {}
     for name, kind, shard, dim in cases:
-        x = dp_split(torch.from_numpy(inputs[name]), mesh, shard)
+        x = torch.tensor_split(torch.from_numpy(inputs[name]), mesh.dp,
+                               shard)[mesh.dp_index]
         if kind == "positive":
             got = positive_percentile(x.reshape(-1), qs, mesh)
         else:
@@ -116,7 +116,7 @@ def families(work, mesh, cases):
     rank's images of the test_tiny taps in ``inputs.npz``: (fn name, the
     tap keys of its tensor arguments, the image axis of each, kwargs)."""
     from adalog_tpu_torch.calib import search as S
-    from adalog_tpu_torch.parallel.mesh import dp_context, dp_split
+    from adalog_tpu_torch.parallel.mesh import dp_context
 
     inputs = np.load(os.path.join(work, "inputs.npz"))
     out = {}
@@ -129,7 +129,7 @@ def families(work, mesh, cases):
                     continue
                 a = torch.from_numpy(inputs[k])
                 if ax is not None:
-                    a = dp_split(a, mesh, ax)
+                    a = torch.tensor_split(a, mesh.dp, ax)[mesh.dp_index]
                     # the token forms: (.., N, S, C) -> (.., N * S, C)
                     if kw.get("_tokens"):
                         a = a.reshape(a.shape[:ax] + (-1, a.shape[-1]))
@@ -157,6 +157,38 @@ def calibrate(work, mesh, runs):
         c = C.QuantCalibrator(spec, m, cfg, mesh=mesh, device="cpu")
         p, q = c.calibrate([images])
         save_checkpoint(os.path.join(work, f"{tag}_r{rank}.ckpt"), p, q)
+
+
+def single_images(work, mesh, n):
+    """Batches of one image each over ``mesh`` (fewer images than dp in
+    every batch): a calibration of the first ``n`` images of ``images``
+    (this rank's checkpoint), its block I/O (this rank's rows, by unit),
+    and a calibration of one such batch alone, which leaves a rank with no
+    image and raises in every rank before any collective."""
+    from adalog_tpu_torch.calib import calibrator as C
+    from adalog_tpu_torch.recon import brecq as B
+    from adalog_tpu_torch.utils.checkpoint import save_checkpoint
+    from adalog_tpu_torch.utils.config import Config
+
+    images = np.load(os.path.join(work, "inputs.npz"))["images"]
+    batches = [images[i:i + 1] for i in range(n)]
+    rank = dist.get_rank()
+    spec, m = model(work, "test_tiny")
+    c = C.QuantCalibrator(spec, m, Config(**SMALL), mesh=mesh, device="cpu")
+    p, q = c.calibrate(batches)
+    save_checkpoint(os.path.join(work, f"single_images_r{rank}.ckpt"), p, q)
+    io = B.capture_block_io(spec, m, batches, mesh=mesh)
+    _save(work, "single_images_io",
+          **{f"{nm}.{i}": t.numpy() for nm, tup in io.items()
+             for i, t in enumerate(tup)})
+    try:
+        C.QuantCalibrator(spec, m, Config(**SMALL), mesh=mesh,
+                          device="cpu").calibrate(batches[:1])
+        raised = ""
+    except ValueError as e:
+        raised = str(e)
+    with open(os.path.join(work, f"single_images_r{rank}.json"), "w") as f:
+        json.dump({"raised": raised}, f)
 
 
 def resume(work, mesh, model_name, cut):
