@@ -13,13 +13,14 @@ calibrate / load groups, the timestamped run dir with collision retry
 overrides (test_quant.py:139-152) and the same orchestration (197-241).
 Additions of the JAX package kept: --synthetic-data, --checkpoint-path (timm
 weights), --eval-dtype, --no-augment-calib, --crop-pct, --resume, --profile
-(a torch.profiler trace of calibration). ``--device`` defaults to the first
-CUDA device, as the reference's did; model, calibrator, reconstructor and
-predictor all run there, and with no card the run raises unless
-``--device cpu`` is given. A config's ``eval_int8`` serves every validation
-through the int8 GEMM (ops/int8_linear.py); unlike the JAX package's
-process-global switch it reaches the predictors only, never calibration or
-reconstruction.
+(a torch.profiler trace of calibration, with the forward's named spans on:
+norm, linear, fq.act.*, attn, ...; utils/profiling.py). ``--device``
+defaults to the first CUDA device, as the reference's did; model,
+calibrator, reconstructor and predictor all run there, and with no card the
+run raises unless ``--device cpu`` is given. A config's ``eval_int8``
+serves every validation through the int8 GEMM (ops/int8_linear.py); unlike
+the JAX package's process-global switch it reaches the predictors only,
+never calibration or reconstruction.
 
 A multi-device run has one process per rank:
 
@@ -107,7 +108,9 @@ def get_args_parser():
                         "(timm resolve_data_config parity tuning)")
     p.add_argument("--profile", action="store_true",
                    help="trace calibration with torch.profiler into the run "
-                        "dir (trace/trace.json; Perfetto or TensorBoard)")
+                        "dir (trace/trace.json; Perfetto or TensorBoard), "
+                        "with the forward's named spans (norm, linear, "
+                        "fq.act.*, attn, ...) on")
     p.add_argument("--resume", type=str, default=None, metavar="PATH",
                    help="calibration / reconstruction resume file: an "
                         "interrupted run restarts where it left off (the "

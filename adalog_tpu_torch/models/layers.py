@@ -40,6 +40,17 @@ from adalog_tpu_torch.quantizers.apply import apply_quantizer, apply_weight_quan
 from adalog_tpu_torch.ops import (
     fq_attn, fq_gemm, int8_linear, weight_prep,
 )
+from adalog_tpu_torch.utils.profiling import span
+
+# the span of each activation quantizer kind (utils/profiling.py)
+_ACT_SPAN = {k: "fq.act." + k
+             for k in ("uniform", "twin", "log2", "logsqrt2", "adalog")}
+
+
+def _act_quant(qs, x, training):
+    """``apply_quantizer`` inside its span."""
+    with span(_ACT_SPAN.get(qs.kind, "fq.act")):
+        return apply_quantizer(qs, x, training=training)
 
 
 # ---------------------------------------------------------------------------
@@ -137,26 +148,31 @@ def qlinear(p: torch.nn.Linear, site, x, *, mode: str = "raw",
     if row is None and site is not None and mode == "quant" \
             and not training and int8_linear.enabled() \
             and int8_linear.supports(site, mode):
-        return int8_linear.int8_qlinear(p, site, x, name=name)
+        with span("linear.int8"):
+            return int8_linear.int8_qlinear(p, site, x, name=name)
     w = p.weight
     if site is not None and mode in ("quant", "w_only"):
         w = None
         if not training and not soft:
             w = weight_prep.lookup(name, p.weight.shape)
         if w is None:
-            w = quant_linear_weight(p, site, soft=soft, training=training)
+            with span("fq.weight"):
+                w = quant_linear_weight(p, site, soft=soft,
+                                        training=training)
     if site is not None and mode in ("quant", "a_only"):
         hit = fq_gemm.lookup(name) \
             if mode == "quant" and not training and row is None else None
         if hit is not None:
-            y = fq_gemm.run(hit, x.reshape(-1, x.shape[-1]), w, p.bias)
+            with span("linear.fq_gemm"):
+                y = fq_gemm.run(hit, x.reshape(-1, x.shape[-1]), w, p.bias)
             return y.reshape(*x.shape[:-1], w.shape[0])
-        x = apply_quantizer(site.aq, x, training=training)
-    if row is None:
-        return F.linear(x, w, p.bias)
-    y = F.linear(x, w)
-    dist.all_reduce(y, group=row)
-    return y if p.bias is None else y + p.bias
+        x = _act_quant(site.aq, x, training)
+    with span("linear"):
+        if row is None:
+            return F.linear(x, w, p.bias)
+        y = F.linear(x, w)
+        dist.all_reduce(y, group=row)
+        return y if p.bias is None else y + p.bias
 
 
 def conv_view(w: torch.Tensor) -> torch.Tensor:
@@ -197,15 +213,18 @@ def qconv2d(p: torch.nn.Conv2d, site, x, *, mode: str = "raw",
     convolution pins cuDNN for its backward too (``recon.brecq`` does)."""
     w = p.weight
     if site is not None and mode in ("quant", "w_only"):
-        w = quant_conv_weight(p, site, soft=soft, training=training)
+        with span("fq.weight"):
+            w = quant_conv_weight(p, site, soft=soft, training=training)
     if site is not None and mode in ("quant", "a_only") and site.aq.bits < 8:
-        x = apply_quantizer(site.aq, x, training=training)
+        x = _act_quant(site.aq, x, training)
     xc = x.permute(0, 3, 1, 2)
-    if x.device.type == "cuda" and x.dtype == torch.float32:
-        with _cudnn_full_fp32():
+    with span("conv"):
+        if x.device.type == "cuda" and x.dtype == torch.float32:
+            with _cudnn_full_fp32():
+                y = F.conv2d(xc, w, p.bias, stride=p.stride,
+                             padding=p.padding)
+        else:
             y = F.conv2d(xc, w, p.bias, stride=p.stride, padding=p.padding)
-    else:
-        y = F.conv2d(xc, w, p.bias, stride=p.stride, padding=p.padding)
     return y.permute(0, 2, 3, 1)
 
 
@@ -218,17 +237,19 @@ def qmatmul(site, A, B, *, mode: str = "raw", training: bool = False):
     if site is not None and mode == "quant":
         if not training and A.dim() == 4 and fq_attn.supports(site, mode):
             return fq_attn.run(site, A, B)
-        A = apply_quantizer(site.Aq, A, training=training)
-        B = apply_quantizer(site.Bq, B, training=training)
+        A = _act_quant(site.Aq, A, training)
+        B = _act_quant(site.Bq, B, training)
     return torch.matmul(A, B)
 
 
 def layer_norm(p: torch.nn.LayerNorm, x):
-    mu = x.mean(dim=-1, keepdim=True)
-    var = torch.square(x - mu).mean(dim=-1, keepdim=True)
-    return (x - mu) * torch.rsqrt(var + p.eps) * p.weight + p.bias
+    with span("norm"):
+        mu = x.mean(dim=-1, keepdim=True)
+        var = torch.square(x - mu).mean(dim=-1, keepdim=True)
+        return (x - mu) * torch.rsqrt(var + p.eps) * p.weight + p.bias
 
 
 def gelu(x):
     """Exact (erf) GeLU."""
-    return F.gelu(x, approximate="none")
+    with span("gelu"):
+        return F.gelu(x, approximate="none")

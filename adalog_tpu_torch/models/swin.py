@@ -38,6 +38,7 @@ from adalog_tpu_torch.models.layers import (
 )
 from adalog_tpu_torch.models.vit import mode_of, site_of, _tap
 from adalog_tpu_torch.ops import fq_attn
+from adalog_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -240,12 +241,13 @@ def block_shift_mask(cfg: SwinConfig, stage: int, blk: int, device, dtype):
 def add_window_bias(ap: WindowAttention, attn, mask):
     """(B_, heads, N, N) logits + rel-pos bias (+ shift mask over the nW
     windows of each image): what the softmax of a window attention takes."""
-    attn = attn + rel_pos_bias(ap)
-    if mask is not None:
-        nW, heads, N = mask.shape[0], attn.shape[1], attn.shape[-1]
-        attn = attn.reshape(-1, nW, heads, N, N) + mask[None, :, None]
-        attn = attn.reshape(-1, heads, N, N)
-    return attn
+    with span("swin.bias"):
+        attn = attn + rel_pos_bias(ap)
+        if mask is not None:
+            nW, heads, N = mask.shape[0], attn.shape[1], attn.shape[-1]
+            attn = attn.reshape(-1, nW, heads, N, N) + mask[None, :, None]
+            attn = attn.reshape(-1, heads, N, N)
+        return attn
 
 
 def flash_bias(ap: WindowAttention, mask) -> torch.Tensor:
@@ -254,11 +256,12 @@ def flash_bias(ap: WindowAttention, mask) -> torch.Tensor:
     sum flattened to (nW * heads, N, N), heads the fastest axis. The
     attention slices are flattened (B, nW, heads), so slice
     g = (b*nW + w)*heads + h reads row w*heads + h = g % P."""
-    bias = rel_pos_bias(ap)[0].float()
-    if mask is not None:
-        N = bias.shape[-1]
-        bias = (bias[None] + mask[:, None].float()).reshape(-1, N, N)
-    return bias
+    with span("swin.bias"):
+        bias = rel_pos_bias(ap)[0].float()
+        if mask is not None:
+            N = bias.shape[-1]
+            bias = (bias[None] + mask[:, None].float()).reshape(-1, N, N)
+        return bias
 
 
 def window_partition(x, ws: int):
@@ -296,41 +299,45 @@ def swin_window_attention(ap: WindowAttention, qstate, prefix: str, x, heads,
     qkv = qlinear(ap.qkv, site_of(qstate, nm), x, mode=mode_of(modes, nm),
                   training=training, soft=soft, name=nm)
     _tap(taps, nm, x, qkv)
-    heads = qkv.shape[-1] // (3 * hd)
-    qkv = qkv.reshape(B_, N, 3, heads, hd).permute(2, 0, 3, 1, 4)
-    q, k, v = qkv[0], qkv[1], qkv[2]
-    q = q * (hd ** -0.5)
+    with span("attn"):
+        heads = qkv.shape[-1] // (3 * hd)
+        qkv = qkv.reshape(B_, N, 3, heads, hd).permute(2, 0, 3, 1, 4)
+        q, k, v = qkv[0], qkv[1], qkv[2]
+        q = q * (hd ** -0.5)
 
-    nm = f"{prefix}.matmul1"
-    kT = k.transpose(-2, -1)
-    m1_site, m1_mode = site_of(qstate, nm), mode_of(modes, nm)
-    nm2 = f"{prefix}.matmul2"
-    m2_site, m2_mode = site_of(qstate, nm2), mode_of(modes, nm2)
+        nm = f"{prefix}.matmul1"
+        kT = k.transpose(-2, -1)
+        m1_site, m1_mode = site_of(qstate, nm), mode_of(modes, nm)
+        nm2 = f"{prefix}.matmul2"
+        m2_site, m2_mode = site_of(qstate, nm2), mode_of(modes, nm2)
 
-    out = attn = None
-    fused = taps is None and not training
-    if fused and fq_attn.supports_flash(m1_site, m2_site, m1_mode, m2_mode):
-        # the whole quantized window attention in one kernel; the rel-pos
-        # bias (+ shifted-window mask) folds into a (P, N, N) additive logit
-        # bias with period P over the flattened (B, nW, heads) slices
-        out = fq_attn.run_flash(m1_site, m2_site, q, kT, v, logit_scale=1.0,
-                                bias=flash_bias(ap, mask))
-    if out is None:
-        attn = qmatmul(m1_site, q, kT, mode=m1_mode, training=training)
-        _tap(taps, nm, q, kT, attn)
-        attn = add_window_bias(ap, attn, mask)
-        if fused and m2_site is not None \
-                and fq_attn.supports_softmax(m2_site, m2_mode):
-            # partial fast path: softmax, AdaLog and the product with uq(v)
-            # fused; the logits (carrying bias and mask) are still a
-            # device-memory operand
-            out = fq_attn.run_softmax(m2_site, attn, v)
-            attn = None
-    if attn is not None:
-        attn = torch.softmax(attn, dim=-1)
-        out = qmatmul(m2_site, attn, v, mode=m2_mode, training=training)
-        _tap(taps, nm2, attn, v, out)
-    out = out.transpose(1, 2).reshape(B_, N, heads * hd)
+        out = attn = None
+        fused = taps is None and not training
+        if fused and fq_attn.supports_flash(m1_site, m2_site, m1_mode,
+                                            m2_mode):
+            # the whole quantized window attention in one kernel; the
+            # rel-pos bias (+ shifted-window mask) folds into a (P, N, N)
+            # additive logit bias with period P over the flattened
+            # (B, nW, heads) slices
+            out = fq_attn.run_flash(m1_site, m2_site, q, kT, v,
+                                    logit_scale=1.0,
+                                    bias=flash_bias(ap, mask))
+        if out is None:
+            attn = qmatmul(m1_site, q, kT, mode=m1_mode, training=training)
+            _tap(taps, nm, q, kT, attn)
+            attn = add_window_bias(ap, attn, mask)
+            if fused and m2_site is not None \
+                    and fq_attn.supports_softmax(m2_site, m2_mode):
+                # partial fast path: softmax, AdaLog and the product with
+                # uq(v) fused; the logits (carrying bias and mask) are still
+                # a device-memory operand
+                out = fq_attn.run_softmax(m2_site, attn, v)
+                attn = None
+        if attn is not None:
+            attn = torch.softmax(attn, dim=-1)
+            out = qmatmul(m2_site, attn, v, mode=m2_mode, training=training)
+            _tap(taps, nm2, attn, v, out)
+        out = out.transpose(1, 2).reshape(B_, N, heads * hd)
 
     nm = f"{prefix}.proj"
     y = qlinear(ap.proj, site_of(qstate, nm), out, mode=mode_of(modes, nm),
@@ -349,17 +356,19 @@ def swin_block(cfg: SwinConfig, bp: SwinBlock, qstate, prefix: str,
 
     shortcut = x
     h = layer_norm(bp.norm1, x)
-    if shift:
-        h = torch.roll(h, (-shift, -shift), dims=(1, 2))
-    win = window_partition(h, ws)
-    # the mask in the compute dtype, so a bf16 forward stays bf16
-    mask = block_shift_mask(cfg, stage, blk, x.device, x.dtype)
+    with span("swin.window"):
+        if shift:
+            h = torch.roll(h, (-shift, -shift), dims=(1, 2))
+        win = window_partition(h, ws)
+        # the mask in the compute dtype, so a bf16 forward stays bf16
+        mask = block_shift_mask(cfg, stage, blk, x.device, x.dtype)
     win = swin_window_attention(bp.attn, qstate, f"{prefix}.attn", win, heads,
                                 mask, modes, taps, training=training,
                                 soft=soft)
-    h = window_reverse(win, ws, H, W)
-    if shift:
-        h = torch.roll(h, (shift, shift), dims=(1, 2))
+    with span("swin.window"):
+        h = window_reverse(win, ws, H, W)
+        if shift:
+            h = torch.roll(h, (shift, shift), dims=(1, 2))
     x = shortcut + h
 
     h = layer_norm(bp.norm2, x)
@@ -382,9 +391,10 @@ def patch_merging(pm: PatchMerging, qstate, prefix: str, x, modes, taps, *,
     The 2x2 neighbour concat order is timm 0.9.2's: channel blocks
     [x(0,0), x(1,0), x(0,1), x(1,1)] by (row, col) offsets."""
     B, H, W, C = x.shape
-    x = x.reshape(B, H // 2, 2, W // 2, 2, C)
-    x = x.permute(0, 1, 3, 4, 2, 5)                  # (B, H2, W2, sw, sh, C)
-    x = x.reshape(B, H // 2, W // 2, 4 * C)
+    with span("swin.window"):
+        x = x.reshape(B, H // 2, 2, W // 2, 2, C)
+        x = x.permute(0, 1, 3, 4, 2, 5)              # (B, H2, W2, sw, sh, C)
+        x = x.reshape(B, H // 2, W // 2, 4 * C)
     x = layer_norm(pm.norm, x)
     nm = f"{prefix}.reduction"
     y = qlinear(pm.reduction, site_of(qstate, nm), x, mode=mode_of(modes, nm),

@@ -23,6 +23,7 @@ from adalog_tpu_torch.models.layers import (
     qlinear, qconv2d, qmatmul, layer_norm, gelu,
 )
 from adalog_tpu_torch.ops import fq_attn
+from adalog_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -122,43 +123,45 @@ def vit_attention(cfg: ViTConfig, ap: Attention, qstate, prefix: str, x,
     qkv = qlinear(ap.qkv, site_of(qstate, nm), x, mode=mode_of(modes, nm),
                   training=training, soft=soft, name=nm)
     _tap(taps, nm, x, qkv)
-    H = qkv.shape[-1] // (3 * hd)
-    qkv = qkv.reshape(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
-    q, k, v = qkv[0], qkv[1], qkv[2]
-    q = q if ap.q_norm is None else layer_norm(ap.q_norm, q)
-    k = k if ap.k_norm is None else layer_norm(ap.k_norm, k)
+    with span("attn"):
+        H = qkv.shape[-1] // (3 * hd)
+        qkv = qkv.reshape(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
+        q, k, v = qkv[0], qkv[1], qkv[2]
+        q = q if ap.q_norm is None else layer_norm(ap.q_norm, q)
+        k = k if ap.k_norm is None else layer_norm(ap.k_norm, k)
 
-    nm = f"{prefix}.matmul1"
-    kT = k.transpose(-2, -1)
-    m1_site, m1_mode = site_of(qstate, nm), mode_of(modes, nm)
-    nm2 = f"{prefix}.matmul2"
-    m2_site, m2_mode = site_of(qstate, nm2), mode_of(modes, nm2)
+        nm = f"{prefix}.matmul1"
+        kT = k.transpose(-2, -1)
+        m1_site, m1_mode = site_of(qstate, nm), mode_of(modes, nm)
+        nm2 = f"{prefix}.matmul2"
+        m2_site, m2_mode = site_of(qstate, nm2), mode_of(modes, nm2)
 
-    out = attn = None
-    # no kernel in training (block reconstruction differentiates the plain
-    # ops)
-    fused = taps is None and not training
-    if fused and fq_attn.supports_flash(m1_site, m2_site, m1_mode, m2_mode):
-        # the whole quantized attention, uq(q) @ uq(kT) -> scale -> softmax
-        # -> AdaLog -> @ uq(v), in one kernel: the (B, H, N, N) logits never
-        # reach device memory
-        out = fq_attn.run_flash(m1_site, m2_site, q, kT, v,
-                                logit_scale=hd ** -0.5)
-    if out is None:
-        attn = qmatmul(m1_site, q, kT, mode=m1_mode, training=training)
-        _tap(taps, nm, q, kT, attn)
-        attn = attn * (hd ** -0.5)
-        if fused and m2_site is not None \
-                and fq_attn.supports_softmax(m2_site, m2_mode):
-            # partial fast path: softmax, AdaLog and the product with uq(v)
-            # fused; the logits are still a device-memory operand
-            out = fq_attn.run_softmax(m2_site, attn, v)
-            attn = None
-    if attn is not None:
-        attn = torch.softmax(attn, dim=-1)
-        out = qmatmul(m2_site, attn, v, mode=m2_mode, training=training)
-        _tap(taps, nm2, attn, v, out)
-    out = out.transpose(1, 2).reshape(B, N, H * hd)
+        out = attn = None
+        # no kernel in training (block reconstruction differentiates the
+        # plain ops)
+        fused = taps is None and not training
+        if fused and fq_attn.supports_flash(m1_site, m2_site, m1_mode,
+                                            m2_mode):
+            # the whole quantized attention, uq(q) @ uq(kT) -> scale ->
+            # softmax -> AdaLog -> @ uq(v), in one kernel: the (B, H, N, N)
+            # logits never reach device memory
+            out = fq_attn.run_flash(m1_site, m2_site, q, kT, v,
+                                    logit_scale=hd ** -0.5)
+        if out is None:
+            attn = qmatmul(m1_site, q, kT, mode=m1_mode, training=training)
+            _tap(taps, nm, q, kT, attn)
+            attn = attn * (hd ** -0.5)
+            if fused and m2_site is not None \
+                    and fq_attn.supports_softmax(m2_site, m2_mode):
+                # partial fast path: softmax, AdaLog and the product with
+                # uq(v) fused; the logits are still a device-memory operand
+                out = fq_attn.run_softmax(m2_site, attn, v)
+                attn = None
+        if attn is not None:
+            attn = torch.softmax(attn, dim=-1)
+            out = qmatmul(m2_site, attn, v, mode=m2_mode, training=training)
+            _tap(taps, nm2, attn, v, out)
+        out = out.transpose(1, 2).reshape(B, N, H * hd)
 
     nm = f"{prefix}.proj"
     y = qlinear(ap.proj, site_of(qstate, nm), out, mode=mode_of(modes, nm),

@@ -38,6 +38,8 @@ from typing import Optional
 
 import torch
 
+from adalog_tpu_torch.utils.profiling import span
+
 log = logging.getLogger("adalog_tpu_torch")
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -108,8 +110,10 @@ def local_forward(spec, params, qstate, *, eval_dtype: str = "float32",
         if use_kernels or use_gemm_kernels else None
 
     def forward(x):
-        x = torch.as_tensor(x).to(device=device, dtype=dtype)
-        with torch.inference_mode(), weight_prep.activate(wprep), \
+        with span("serve.h2d"):
+            x = torch.as_tensor(x).to(device=device, dtype=dtype)
+        with span("serve.forward"), torch.inference_mode(), \
+                weight_prep.activate(wprep), \
                 fq_attn.activate(use_kernels, exact_ints, attn_params), \
                 fq_gemm.activate(gemm_table), \
                 int8_linear.activate(int8_table), \
@@ -151,7 +155,13 @@ def make_predictor(spec, params, qstate, *, eval_dtype: str = "float32",
               use_gemm_kernels=use_gemm_kernels, use_int8=use_int8,
               device=device)
     if mesh is None:
-        return local_forward(spec, params, qstate, **kw)
+        run = local_forward(spec, params, qstate, **kw)
+
+        def predict(x):
+            with span("serve.predict"):
+                return run(x)
+
+        return predict
     from adalog_tpu_torch.parallel.mesh import gather_batch, shard_batch
 
     if device is not None and torch.device(device) != mesh.device:
@@ -168,12 +178,13 @@ def make_predictor(spec, params, qstate, *, eval_dtype: str = "float32",
         run = local_forward(spec, params, qstate, **kw)
 
     def predict(x):
-        x = torch.as_tensor(x)
-        n = x.shape[0]
-        pad = (-n) % mesh.dp
-        if pad:
-            x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
-        return gather_batch(run(shard_batch(x, mesh)), mesh)[:n]
+        with span("serve.predict"):
+            x = torch.as_tensor(x)
+            n = x.shape[0]
+            pad = (-n) % mesh.dp
+            if pad:
+                x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+            return gather_batch(run(shard_batch(x, mesh)), mesh)[:n]
 
     return predict
 

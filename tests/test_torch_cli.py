@@ -424,18 +424,36 @@ def test_run_is_the_module_entry_point(tiny, monkeypatch):
 
 
 def test_phase_timer_and_annotate(tmp_path):
-    timer = profiling.PhaseTimer()
-    for _ in range(2):
-        with timer.phase("outer"), profiling.annotate("region"):
+    """The span API that replaced the phase timer and ``annotate``: a span
+    is named in a trace only while ``spans`` is on, and ``device_trace``
+    turns them on for its extent."""
+    assert profiling.span("norm") is profiling.span("linear")   # no-op
+    with torch.profiler.profile() as prof:
+        with profiling.span("norm"):
             torch.ones(4).sum()
-    assert timer.counts["outer"] == 2 and timer.totals["outer"] > 0
-    assert "outer" in timer.report()
+        with profiling.spans(), profiling.span("linear"):
+            torch.ones(4).sum()
+    names = {e.name for e in prof.events()}
+    assert "linear" in names and "norm" not in names
     with profiling.device_trace(str(tmp_path / "t")):
-        with profiling.annotate("marked"):
+        with profiling.span("norm"):
             torch.ones(8).cumsum(0)
+    assert profiling.span("norm") is profiling.span("gelu")    # off again
     with open(tmp_path / "t" / "trace.json") as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
-    assert "marked" in names
+    assert "norm" in names
+
+
+def test_cli_profile_trace_holds_the_spans(tiny):
+    """``--profile`` turns the forward's spans on: the calibration's trace
+    names its LayerNorms and Linear products."""
+    tmp_path, config = tiny
+    cli.main(_args(tmp_path, config, calibrate=True, profile=True))
+    trace, = glob.glob(os.path.join(tmp_path, "out", "*", "trace",
+                                    "trace.json"))
+    with open(trace) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"norm", "linear", "gelu", "attn"} <= names
 
 
 def test_lazy_api_names():
