@@ -17,7 +17,8 @@ estimators so gradients reach the quantizers' scales, and dispatches no
 kernel: no int8 GEMM, no weight-prep table, no fused GEMM, no fused
 attention matmul.
 ``soft=True`` takes the soft AdaRound target of a weight quantizer that
-carries an ``alpha``, and reads no weight-prep table either.
+carries an ``alpha``, and reads no weight-prep or activation-quant table
+either.
 
 Under tensor parallelism (parallel/tp.py) the row-parallel Linear sites
 named by ``tp_row_context`` hold an input-feature slice of their weight:
@@ -38,7 +39,7 @@ import torch.nn.functional as F
 from adalog_tpu_torch.quantizers.state import QuantizerState, WeightQuantizerState
 from adalog_tpu_torch.quantizers.apply import apply_quantizer, apply_weight_quantizer
 from adalog_tpu_torch.ops import (
-    fq_attn, fq_gemm, int8_linear, weight_prep,
+    fq_act, fq_attn, fq_gemm, int8_linear, weight_prep,
 )
 from adalog_tpu_torch.utils.profiling import span
 
@@ -47,9 +48,14 @@ _ACT_SPAN = {k: "fq.act." + k
              for k in ("uniform", "twin", "log2", "logsqrt2", "adalog")}
 
 
-def _act_quant(qs, x, training):
-    """``apply_quantizer`` inside its span."""
+def _act_quant(qs, x, training, name=None):
+    """``apply_quantizer`` inside its span; outside training, the Linear
+    site ``name`` of the active ``ops.fq_act`` table runs through K6's
+    wrapper instead, in the same span."""
     with span(_ACT_SPAN.get(qs.kind, "fq.act")):
+        hit = None if training else fq_act.lookup(name, qs)
+        if hit is not None:
+            return fq_act.fq_act_quant(hit, x)
         return apply_quantizer(qs, x, training=training)
 
 
@@ -139,7 +145,9 @@ def qlinear(p: torch.nn.Linear, site, x, *, mode: str = "raw",
     mode), else it is quantized here. In quant mode, outside training, a
     site of the active ``ops.fq_gemm`` table runs through the fused kernel:
     the activation quantizer inside the GEMM, the bias added after the
-    product in the compute dtype.
+    product in the compute dtype. Otherwise, outside training and soft
+    mode, a site of the active ``ops.fq_act`` table fake-quantizes its
+    input in one pass (K6).
 
     A row-parallel site of the active ``tp_row_context`` takes neither the
     int8 nor the fused GEMM (as in the JAX package): its partial product is
@@ -166,7 +174,7 @@ def qlinear(p: torch.nn.Linear, site, x, *, mode: str = "raw",
             with span("linear.fq_gemm"):
                 y = fq_gemm.run(hit, x.reshape(-1, x.shape[-1]), w, p.bias)
             return y.reshape(*x.shape[:-1], w.shape[0])
-        x = _act_quant(site.aq, x, training)
+        x = _act_quant(site.aq, x, training, None if soft else name)
     with span("linear"):
         if row is None:
             return F.linear(x, w, p.bias)

@@ -5,7 +5,9 @@ over a mesh of ranks.
 ``adalog_tpu``), a round-1 pickle of ``adalog_tpu``, or a reference-format
 state dict (.pth/.pt/.bin, utils/ref_checkpoint.py) and returns ``predict(images) -> logits``: NHWC float32
 images in, float32 logits out. Fake-quantized Linear weights are prepared
-once at load time (ops/weight_prep.py); on a CUDA device the attention of
+once at load time (ops/weight_prep.py); on a CUDA device every Linear
+site's activation quantizer that ops/fq_act.py takes runs in one
+hand-written pass, the attention of
 every block (ViT/DeiT) or window (Swin) runs in the hand-written fused
 kernels (ops/fq_attn.py) unless the caller turns them off, and, when the
 caller turns it on (``Config``'s ``use_pallas_gemm``, off by default as in
@@ -69,7 +71,7 @@ def local_forward(spec, params, qstate, *, eval_dtype: str = "float32",
     from adalog_tpu_torch.models.layers import tp_row_context
     from adalog_tpu_torch.models.zoo import model_forward_fn
     from adalog_tpu_torch.ops import (
-        fq_attn, fq_gemm, int8_linear, weight_prep,
+        fq_act, fq_attn, fq_gemm, int8_linear, weight_prep,
     )
     from adalog_tpu_torch.quantizers.state import map_tensors
     from adalog_tpu_torch.utils.config import Config
@@ -101,6 +103,9 @@ def local_forward(spec, params, qstate, *, eval_dtype: str = "float32",
         codes = weight_prep.weight_codes(spec, model, qs, cfg) \
             if dtype == torch.float32 else None
         gemm_table = fq_gemm.prepare(qs, codes, skip=skip | row_sites)
+    # every other site's activation quantizer in one pass (K6) where its
+    # kind and parameters allow
+    act_table = fq_act.prepare(qs, skip=skip | set(gemm_table or ()))
     # read once here, so that no served call waits for the device to learn
     # which variant of the attention kernel its zero points allow
     exact_ints = fq_attn.integers_exact(qs) \
@@ -117,6 +122,7 @@ def local_forward(spec, params, qstate, *, eval_dtype: str = "float32",
                 fq_attn.activate(use_kernels, exact_ints, attn_params), \
                 fq_gemm.activate(gemm_table), \
                 int8_linear.activate(int8_table), \
+                fq_act.activate(act_table), \
                 tp_row_context(row_group, row_sites):
             return fwd(spec.cfg, model, x, qs, {"*": "quant"}).float()
 

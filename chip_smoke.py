@@ -5,10 +5,11 @@
 
 Phases, each a hard check (any failure raises and exits non-zero):
   1. the card's name and power limit (nvidia-smi); no CUDA device -> exit 1;
-  2. build the four kernel sources with nvcc, one process each, started
+  2. build the five kernel sources with nvcc, one process each, started
      together: K1 (csrc/fq_flash_attn.cu), K2 and K3
-     (csrc/fq_attn_matmul.cu), K4 (csrc/fq_gemm.cu) and K5
-     (csrc/int8_gemm.cu, variants "wgmma" and "mma"); each kernel's
+     (csrc/fq_attn_matmul.cu), K4 (csrc/fq_gemm.cu), K5
+     (csrc/int8_gemm.cu, variants "wgmma" and "mma") and K6
+     (csrc/fq_act.cu); each kernel's
      registers and static shared memory are printed, none may spill, and
      the compiler may not serialize a wgmma;
   3. K1 kernel phase: the fused attention kernel against its plain PyTorch
@@ -233,7 +234,7 @@ import numpy as np
 
 SEED = 0
 KERNELS = ("fq_flash_attn", "fq_attn_matmul", "fq_gemm",    # csrc/<name>.cu
-           "int8_gemm")
+           "int8_gemm", "fq_act")
 KERNEL_SHAPE = dict(G=384, S=197, D=64, P=6)     # deit_small, batch 64
 BATCH, N_BATCHES = 32, 4
 # K2 and K3 at the attention shapes of batch 32: (model, G, S, D)
@@ -1068,6 +1069,110 @@ def fmt_ms(ms):
     return "n/a" if ms is None else f"{ms:.4f}"
 
 
+# K6 at the served fake-quant Linear sites of the benchmark's cells, batch
+# 200: deit_small's fc2 (AdaLog of the GeLU output, shift folded) and qkv
+# input (uniform; proj's and fc1's have its shape), and swin_base's stage 1
+# fc2 (56x56 tokens a image, 4 x 128 wide): (site, T, K, kind)
+FQ_ACT_SHAPES = (("deit_small fc2", 39400, 1536, "adalog"),
+                 ("deit_small qkv", 39400, 384, "uniform"),
+                 ("swin_base stage 1 fc2", 627200, 512, "adalog"))
+
+
+def fq_act_inputs(torch, T, K, kind, seed, device, bits=4):
+    """(quantizer state, x (T, K) float32) of a served site, drawn on the
+    device from ``seed``: for "adalog" the GeLU of normal values and the
+    post-GeLU state with its shift folded (scale the largest x + shift,
+    base SMOKE_LOG_Q); for "uniform" normal values and a min/max
+    asymmetric state."""
+    from adalog_tpu_torch.quantizers.state import GELU_MIN, QuantizerState
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((T, K), generator=g, device=device)
+    one = functools.partial(torch.tensor, dtype=torch.float32, device=device)
+    if kind == "adalog":
+        x = torch.nn.functional.gelu(x)
+        shift = one([GELU_MIN])
+        qs = QuantizerState(scale=(x + shift).amax().reshape(1), shift=shift,
+                            log_q=one(SMOKE_LOG_Q),
+                            bias_reparamed=torch.ones((), dtype=torch.bool,
+                                                      device=device),
+                            kind="adalog", bits=bits, shifted=True)
+    else:
+        lo, hi = min(x.min().item(), 0.0), max(x.max().item(), 0.0)
+        scale = one([(hi - lo) / (2 ** bits - 1)])
+        qs = QuantizerState(scale=scale, zero_point=torch.round(-lo / scale),
+                            kind="uniform", bits=bits)
+    return qs, x
+
+
+def same_bits(torch, got, want):
+    """Outputs whose bits differ, NaN against NaN counted equal."""
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    differ = (got.view(ints[got.dtype]) != want.view(ints[want.dtype])) \
+        & ~(torch.isnan(got) & torch.isnan(want))
+    return int(differ.sum())
+
+
+def fq_act_case(torch, fq_act, qs, x, tag):
+    """K6 on one site against apply_quantizer bit for bit, in float32 and
+    bfloat16, and timed in float32. Returns {"max_abs_err": the largest
+    |K6 - apply_quantizer| over both dtypes (NaN against NaN counted 0),
+    "ms": one call a timing, "ms_back_to_back": ten in a row, "ms_graph":
+    ten replayed from a CUDA graph (the device alone), "plain_ms":
+    apply_quantizer, "bound_ms", "bound_by"}."""
+    from adalog_tpu_torch.models.layers import LinearSite
+    from adalog_tpu_torch.quantizers.apply import apply_quantizer
+
+    site = fq_act.prepare({tag: LinearSite(wq=None, aq=qs)})[tag]
+    T, K = x.shape
+    err = 0.0
+    for xt in (x, x.to(torch.bfloat16)):
+        before = fq_act.fq_act_quant.launches
+        got = fq_act.fq_act_quant(site, xt)
+        torch.cuda.synchronize()
+        check(fq_act.fq_act_quant.launches == before + 1,
+              f"[{tag}] the wrapper did not launch K6")
+        want = apply_quantizer(qs, xt)
+        n_diff = same_bits(torch, got, want)
+        d = (got.float() - want.float()).abs()
+        d = d.masked_fill(torch.isnan(got) & torch.isnan(want), 0.0)
+        d = d.max().item()
+        print(f"kernel K6 fq_act_quant [{tag}] {qs.kind} T={T} K={K} "
+              f"{str(xt.dtype).split('.')[-1]}: outputs differing from "
+              f"apply_quantizer {n_diff} (want 0), max|diff| {d}")
+        check(n_diff == 0, f"[{tag}] K6 differs from apply_quantizer in "
+              f"{n_diff} outputs")
+        err = max(err, d)
+        del got, want
+
+    def call():
+        return fq_act.fq_act_quant(site, x)
+
+    r = {"max_abs_err": err, "ms": cuda_ms(torch, call),
+         "ms_back_to_back": cuda_ms(torch, call, calls=10),
+         "ms_graph": cuda_graph_ms(torch, call),
+         "plain_ms": cuda_ms(torch, lambda: apply_quantizer(qs, x))}
+    r["bound_ms"], r["bound_by"] = bound_ms(2 * x.numel() * 4, 0,
+                                            torch.float32)
+    print(f"kernel K6 fq_act_quant [{tag}] T={T} K={K} float32: "
+          f"kernel_ms={r['ms']:.4f} back_to_back_ms="
+          f"{r['ms_back_to_back']:.4f} graph_ms={r['ms_graph']:.4f} "
+          f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+          f"({r['bound_by']}); {card_line()}")
+    return r
+
+
+def fq_act_kernel_phase(torch, fq_act, device):
+    """K6 at FQ_ACT_SHAPES (fq_act_case); returns {site: its result}."""
+    out = {}
+    for i, (site, T, K, kind) in enumerate(FQ_ACT_SHAPES):
+        qs, x = fq_act_inputs(torch, T, K, kind, SEED + 60 + i, device)
+        out[site] = fq_act_case(torch, fq_act, qs, x, site)
+        del x
+        torch.cuda.empty_cache()
+    return out
+
+
 def int8_kernel_phase(torch, device):
     """K5's variants against the plain version, bit for bit, at INT8_SHAPES
     in fp32 and bf16; every shape but the ragged ones must take "wgmma".
@@ -1408,11 +1513,11 @@ INT8_SETTINGS = (("int8 + attention kernel", True, False),
 
 
 def wrappers(fq_attn, fq_gemm):
-    from adalog_tpu_torch.ops import int8_linear
+    from adalog_tpu_torch.ops import fq_act, int8_linear
 
     return {"K1": fq_attn.fq_flash_attn, "K2": fq_attn.fq_softmax_attn_matmul,
             "K3": fq_attn.fq_attn_matmul, "K4": fq_gemm.fq_gemm,
-            "K5": int8_linear.int8_gemm}
+            "K5": int8_linear.int8_gemm, "K6": fq_act.fq_act_quant}
 
 
 def zero_launches(fq_attn, fq_gemm):
@@ -1561,9 +1666,12 @@ def serve_checked(torch, fq_attn, fq_gemm, device, spec, model, qstate, ckpt,
     # each setting is a path of its own, driven in both dtypes with the
     # launch counts set to 0 just before and read just after; the main path
     # is the second, attention + GEMM kernels
-    per_batch = {"attention kernel": (n_attn, 0),
-                 "attention + GEMM kernels": (n_attn, n_linear),
-                 "plain": (0, 0)}
+    # (K1, K4, K6) a batch; K6 takes every Linear site that K4 does not,
+    # whatever the setting ("plain" turns off the attention and GEMM
+    # kernels, which have a switch; K6 has none)
+    per_batch = {"attention kernel": (n_attn, 0, n_linear),
+                 "attention + GEMM kernels": (n_attn, n_linear, 0),
+                 "plain": (0, 0, n_linear)}
     served, launches = {}, {}
     for setting, *_ in SETTINGS:
         zero_launches(fq_attn, fq_gemm)
@@ -1571,11 +1679,12 @@ def serve_checked(torch, fq_attn, fq_gemm, device, spec, model, qstate, ckpt,
             served[dt, setting] = serve(torch, preds[dt, setting], batches)
         got = read_launches(fq_attn, fq_gemm)
         want = {"K1": per_batch[setting][0] * N_BATCHES * 2, "K2": 0, "K3": 0,
-                "K4": per_batch[setting][1] * N_BATCHES * 2, "K5": 0}
+                "K4": per_batch[setting][1] * N_BATCHES * 2, "K5": 0,
+                "K6": per_batch[setting][2] * N_BATCHES * 2}
         print(f"serving path {tag} '{setting}': launches {got} for 2 x "
               f"{N_BATCHES} batches of {BATCH} (want K1 "
-              f"{per_batch[setting][0]}, K4 {per_batch[setting][1]} per "
-              f"batch: {want}); by variant K1 "
+              f"{per_batch[setting][0]}, K4 {per_batch[setting][1]}, K6 "
+              f"{per_batch[setting][2]} per batch: {want}); by variant K1 "
               f"{fq_attn.fq_flash_attn.variant_launches}, K4 "
               f"{fq_gemm.fq_gemm.variant_launches}")
         check(got == want, f"{tag} '{setting}' launches {got} != {want}")
@@ -1713,7 +1822,7 @@ def fallback_phase(torch, fq_attn, fq_gemm, device, ckpt_dir, name):
         got = read_launches(fq_attn, fq_gemm)
         print(f"fall-back path {name} '{path}': launches {got} (want "
               f"{want})")
-        check(got == {"K1": 0, "K4": 0, "K5": 0, **want},
+        check(got == {"K1": 0, "K4": 0, "K5": 0, "K6": 0, **want},
               f"{name} '{path}' launches {got}")
         for k in total:
             by_variant = wrappers(fq_attn, fq_gemm)[k].variant_launches
@@ -1769,7 +1878,8 @@ def fallback_phase(torch, fq_attn, fq_gemm, device, ckpt_dir, name):
         check_logits(torch, y, spec, BATCH * N_BATCHES, f"{name} {dt} log2")
         print(f"serving {name} {dt}, log2 post-softmax quantizer, K3 on "
               f"matmul1: {ips:.1f} img/s; {card_line()}")
-    drove("log2, load_quantized", {"K2": 0, "K3": n_attn * N_BATCHES * 2})
+    drove("log2, load_quantized", {"K2": 0, "K3": n_attn * N_BATCHES * 2,
+                                   "K6": MODELS[name]["K4"] * N_BATCHES * 2})
     return total, worst
 
 
@@ -1911,9 +2021,14 @@ def calibration_phase(torch, fq_attn, fq_gemm, device, ckpt_dir):
     runs = []
     for run in ("cold", "warm"):
         torch.cuda.reset_peak_memory_stats(device)
+        zero_launches(fq_attn, fq_gemm)
         params, qstate, calib, wall, unfolded = calibrate_on(
             torch, spec, model, images, device)
         peak = torch.cuda.max_memory_allocated(device)
+        got = read_launches(fq_attn, fq_gemm)
+        print(f"calibration {CALIB_MODEL} ({run}): kernel launches {got} "
+              f"(want K6 0: calibration enters no K6 table)")
+        check(got["K6"] == 0, f"calibration launched K6 {got['K6']} times")
         runs.append(dict(wall_s=wall, peak_bytes=peak, seconds=calib.seconds))
         print(f"calibration {CALIB_MODEL} W4A4 ({run}): wall {wall:.2f} s "
               f"(capture {calib.seconds['capture']:.2f} s; searches "
@@ -2076,7 +2191,7 @@ def bits_phase(torch, fq_attn, fq_gemm, device, ckpt_dir, start):
                                - y_raw) ** 2).item()
 
     line = card_line()
-    launches = {k: 0 for k in ("K1", "K2", "K3", "K4", "K5")}
+    launches = {k: 0 for k in ("K1", "K2", "K3", "K4", "K5", "K6")}
     worst = {"K1": 0.0, "K4": 0.0, "K5": 0.0}
     base_cfg = load_config(os.path.join(root, "configs", BITS_BASELINE))
     params, qstate, _, wall, _ = calibrate_on(torch, spec, model, images,
@@ -2251,11 +2366,14 @@ def serve_int8(torch, fq_attn, fq_gemm, device, spec, ckpt, batches, tag,
                   for dt in ("float32", "bfloat16")}
         got = read_launches(fq_attn, fq_gemm)
         runs = N_BATCHES * 2
+        # the AdaLog fc2 sites take K4 with the GEMM switch, else K6
         want = {"K1": n_attn * runs, "K2": 0, "K3": 0,
-                "K4": n_fc2 * runs if gemm else 0, "K5": n_int8 * runs}
+                "K4": n_fc2 * runs if gemm else 0, "K5": n_int8 * runs,
+                "K6": 0 if gemm else n_fc2 * runs}
         print(f"serving path {tag} '{setting}': launches {got} for 2 x "
               f"{N_BATCHES} batches of {BATCH} (want K1 {n_attn}, K4 "
-              f"{n_fc2 if gemm else 0}, K5 {n_int8} per batch: {want})")
+              f"{n_fc2 if gemm else 0}, K5 {n_int8}, K6 "
+              f"{0 if gemm else n_fc2} per batch: {want})")
         check(got == want, f"{tag} '{setting}' launches {got} != {want}")
         print(f"serving path {tag} '{setting}': K5 by variant "
               f"{k5_variants()}")
@@ -2286,7 +2404,7 @@ def int8_phase(torch, fq_attn, fq_gemm, device, ckpt_dir, start):
     spec, (params, qstate) = start["spec"], start.pop("served")
     cfg = spec.cfg
     x = torch.from_numpy(start["held_out"]).to(device)
-    launches = {k: 0 for k in ("K1", "K2", "K3", "K4", "K5")}
+    launches = {k: 0 for k in ("K1", "K2", "K3", "K4", "K5", "K6")}
     block_worst = 0.0
     for name in ("deit_small", "swin_tiny"):
         if name == CALIB_MODEL:
@@ -2377,13 +2495,17 @@ MESH_RUNS = ((2, MESH_CASES), (4, (MESH_TINY,)))     # (ranks, cases)
 # and the head; swin_tiny tp=2: stage 0's 3 heads keep its two attentions
 # whole, so qkv, proj and fc1 there, qkv and fc1 in the 10 blocks of stages
 # 1-3, its 3 reductions and the head; test_tiny: qkv and fc1 of 2 blocks
-# and the head); with eval_int8 K5 at those sites instead (all uniform)
-MESH_LAUNCHES = {("deit_small", 1, 2, False): {"K1": 12, "K4": 25, "K5": 0},
-                 ("deit_small", 1, 2, True): {"K1": 12, "K4": 0, "K5": 25},
-                 ("deit_small", 2, 1, False): {"K1": 12, "K4": 49, "K5": 0},
-                 ("swin_tiny", 1, 2, False): {"K1": 12, "K4": 30, "K5": 0},
-                 ("test_tiny", 1, 2, False): {"K1": 2, "K4": 5, "K5": 0},
-                 ("test_tiny", 2, 2, False): {"K1": 2, "K4": 5, "K5": 0}}
+# and the head); with eval_int8 K5 at those sites instead (all uniform);
+# K6 at the row-parallel sites (deit_small: proj and fc2 of 12 blocks;
+# swin_tiny: stage 0's 2 fc2, proj and fc2 in the 10 blocks of stages 1-3;
+# test_tiny: proj and fc2 of 2 blocks)
+MESH_LAUNCHES = {
+    ("deit_small", 1, 2, False): {"K1": 12, "K4": 25, "K5": 0, "K6": 24},
+    ("deit_small", 1, 2, True): {"K1": 12, "K4": 0, "K5": 25, "K6": 24},
+    ("deit_small", 2, 1, False): {"K1": 12, "K4": 49, "K5": 0, "K6": 0},
+    ("swin_tiny", 1, 2, False): {"K1": 12, "K4": 30, "K5": 0, "K6": 22},
+    ("test_tiny", 1, 2, False): {"K1": 2, "K4": 5, "K5": 0, "K6": 4},
+    ("test_tiny", 2, 2, False): {"K1": 2, "K4": 5, "K5": 0, "K6": 4}}
 MESH_TIMEOUT = 600
 
 
@@ -2526,7 +2648,7 @@ def mesh_phase(torch, fq_attn, fq_gemm, device, ckpt_dir, runs=MESH_RUNS):
               f"{time.perf_counter() - t0:.1f} s (spawn, CUDA start, serving "
               "and block checks)")
 
-    launches = {k: 0 for k in ("K1", "K2", "K3", "K4", "K5")}
+    launches = {k: 0 for k in ("K1", "K2", "K3", "K4", "K5", "K6")}
     worst = {"K1": 0.0, "K4": 0.0, "K5": 0.0}
     for world, cs in runs:
         ranks = []
@@ -2538,7 +2660,7 @@ def mesh_phase(torch, fq_attn, fq_gemm, device, ckpt_dir, runs=MESH_RUNS):
             key = case["key"]
             per_batch = MESH_LAUNCHES[case["model"], case["dp"], case["tp"],
                                       case["int8"]]
-            want = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
+            want = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0}
             want.update({k: n * N_BATCHES for k, n in per_batch.items()})
             for rank, res in enumerate(ranks):
                 r = res[key]
@@ -3110,7 +3232,7 @@ def mesh_calibration_phase(torch, fq_attn, fq_gemm, device, ckpt_dir, start):
     torch.cuda.empty_cache()
 
     per_batch = MESH_LAUNCHES[CALIB_MODEL, 2, 1, False]
-    want = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
+    want = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0}
     want.update({k: n * N_BATCHES for k, n in per_batch.items()})
     launches = {k: 0 for k in want}
     worst = {"K1": 0.0, "K4": 0.0}
@@ -3349,12 +3471,15 @@ def cli_phase(torch, fq_attn, fq_gemm, device, ckpt_dir):
     val_batches = -(-CLI_CLASSES * CLI_PER_CLASS // BATCH)
     n_attn, n_linear = MODELS[CLI_MODEL]["K1"], MODELS[CLI_MODEL]["K4"]
     n_int8 = INT8_MODELS[CLI_MODEL]
-    stages, launches = {}, {k: 0 for k in ("K1", "K2", "K3", "K4", "K5")}
+    stages, launches = {}, {k: 0 for k in ("K1", "K2", "K3", "K4", "K5",
+                                              "K6")}
 
     def expect(got, batches, gemm, tag, int8=False):
         want = {"K1": n_attn * batches, "K2": 0, "K3": 0,
                 "K4": n_linear * batches if gemm else 0,
-                "K5": n_int8 * batches if int8 else 0}
+                "K5": n_int8 * batches if int8 else 0,
+                "K6": 0 if gemm else
+                (n_linear - (n_int8 if int8 else 0)) * batches}
         check(got == want, f"cli {tag}: launches {got} != {want}")
         check_k5_variants(want["K5"], f"cli {tag}")
         for k, n in got.items():
@@ -3775,7 +3900,7 @@ def main(argv):
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
 
-    from adalog_tpu_torch.ops import cuda_build, fq_attn, fq_gemm
+    from adalog_tpu_torch.ops import cuda_build, fq_act, fq_attn, fq_gemm
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNELS)) as pool:      # one nvcc each
@@ -3812,11 +3937,12 @@ def main(argv):
     (g_ms, gq_ms, gg_ms, gp_ms), g_worst = gemm_kernel_phase(torch, fq_gemm,
                                                              device)
     mm = matmul_kernel_phase(torch, fq_attn, device)
+    k6 = fq_act_kernel_phase(torch, fq_act, device)
     # the main paths, each driven with the counts at 0 just before and read
     # just after: serving each model with the attention and GEMM kernels
     # (K1, K4), the three configurations that reach K2 and K3, and the
     # calibrated deit_small served
-    launches = {k: 0 for k in ("K1", "K2", "K3", "K4", "K5")}
+    launches = {k: 0 for k in ("K1", "K2", "K3", "K4", "K5", "K6")}
     block_worst = {k: 0.0 for k in launches}
 
     def add(got, errs):
@@ -3926,7 +4052,18 @@ def main(argv):
               library_ms_graph=k5["library_ms_graph"],
               mma_ms=k5["mma"]["ms"],
               mma_ms_back_to_back=k5["mma"]["ms_back_to_back"],
-              mma_ms_graph=k5["mma"]["ms_graph"])]}))
+              mma_ms_graph=k5["mma"]["ms_graph"]),
+        # K6: times summed over FQ_ACT_SHAPES (fp32), as K4's; it replaces
+        # no TPU kernel (XLA fuses the quantizer) and no PyTorch call
+        # computes it in one
+        {"name": "fq_act_quant", "route": "cuda",
+         "source": "adalog_tpu_torch/csrc/fq_act.cu", "replaces": None,
+         "launches": launches["K6"],
+         "max_abs_err": max(r["max_abs_err"] for r in k6.values()),
+         **{key: sum(r[key] for r in k6.values())
+            for key in ("ms", "ms_back_to_back", "ms_graph", "plain_ms",
+                        "bound_ms")},
+         "bound_by": "bytes", "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
