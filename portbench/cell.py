@@ -5,6 +5,9 @@ adding a file (and its entry in BENCHMARK.json), never by editing code.
   BENCHMARK.json                 the cells, their configuration and traffic
                                  names, and the metrics each reports
   portbench/configs/<config>.json   the model's sizes and quantization
+  portbench/families/<family>.py    what the benchmark knows of the
+                                 configuration's model family
+                                 (``family``)
   portbench/traffic/<traffic>.json  the mix: the generator that reads it
                                  ("generator", a module of portbench)
                                  and its parameters
@@ -17,6 +20,7 @@ from __future__ import annotations
 import importlib.util
 import json
 import os
+import re
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -30,7 +34,10 @@ def _json(path):
 def load(workload, root=ROOT):
     """The cell named ``workload``: {'name', 'workload' (its BENCHMARK.json
     entry), 'arch', 'traffic', 'limits', 'end_to_end', 'per_layer'}, the
-    last two the BENCHMARK.json entries of the metrics the cell reports."""
+    last two the BENCHMARK.json entries of the metrics the cell reports.
+    'arch' is the configuration's file with the root it was found under
+    ('root'), where its family module is looked up; a family that has no
+    module raises here."""
     bench = _json(os.path.join(root, "BENCHMARK.json"))
     cells = {w["name"]: w for w in bench["workloads"]}
     if workload not in cells:
@@ -38,7 +45,9 @@ def load(workload, root=ROOT):
                        f"choices: {sorted(cells)}")
     w = cells[workload]
     configs = {c["name"]: c for c in bench["configs"]}
-    arch = _json(os.path.join(root, configs[w["config"]]["file"]))
+    arch = dict(_json(os.path.join(root, configs[w["config"]]["file"])),
+                root=root)
+    family_of(arch)
     base = os.path.join(root, "portbench")
     traffic = _json(os.path.join(base, "traffic", f"{w['traffic']}.json"))
     limits_path = os.path.join(base, "limits", f"{workload}.json")
@@ -62,3 +71,45 @@ def reader(name, root=ROOT):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+_FAMILIES = {}
+
+
+def family(name, root=ROOT):
+    """The module of ``portbench/families/<name>.py`` under ``root``, loaded
+    once a file. A family module imports torch, the standard library and
+    ``portbench.reference``, nothing of the program, and holds everything
+    the benchmark knows of one model family:
+
+      embed, units(arch), head   the reference's stages (``reference``)
+      leaves(arch), sites(arch)  the parameters in draw order, and the
+                                 quantization sites in forward order
+                                 (``state``); plan_<kind>(site, quant,
+                                 ranges, generator) fills the plan of a
+                                 site kind of its own
+      linear_shapes(arch, batch), attention_calls(arch, batch)
+                                 the shapes that ``counts`` reads
+      PROGRAM_MODULE, MODEL_CLASS, PROGRAM_KEYS, SEAMS, UNIT_SEAMS
+                                 the program's names, as plain data
+                                 (``program``)
+      TINY                       the sizes of its CPU stand-in (tests)
+    """
+    if not re.fullmatch(r"[A-Za-z0-9_]+", name):
+        raise ValueError(f"family {name!r}: not a module name")
+    path = os.path.join(root, "portbench", "families", f"{name}.py")
+    if path not in _FAMILIES:
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"family {name!r}: no module {path}")
+        spec = importlib.util.spec_from_file_location(
+            f"portbench_family_{name}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        _FAMILIES[path] = mod
+    return _FAMILIES[path]
+
+
+def family_of(arch):
+    """The family module of a configuration: under the root ``load`` found
+    it in, or this checkout's for a configuration read otherwise."""
+    return family(arch["family"], arch.get("root", ROOT))

@@ -6,10 +6,13 @@ pass counted from the configuration, whatever runs them.
 frozen copies of ``chip_smoke.py`` (lines 435-445, 469-481 and 977-984 at
 the commit that added this benchmark): each input and output counted once,
 operations at the rate of the unit that runs them. ``linear_shapes``,
-``attention_calls`` and ``forward_flops`` are the benchmark's own.
+``attention_calls`` and ``forward_flops`` are the benchmark's own, the
+first two each model family's (``portbench/families/<family>.py``).
 """
 
 from __future__ import annotations
+
+from portbench import cell
 
 # NVIDIA's published H100 SXM peaks (dense): device memory rate, fp32
 # outside the tensor cores, bf16 and int8 on the tensor cores
@@ -51,55 +54,18 @@ def int8_bound_ms(T, K, O, dtype):
 # Shapes of one forward, from the configuration
 # ---------------------------------------------------------------------------
 
-def _stages(arch):
-    """[(tokens a window or image S, width D, heads H, windows a image nW,
-    blocks, shifted blocks)] of each stage."""
-    if arch["family"] == "vit":
-        n = (arch["img_size"] // arch["patch_size"]) ** 2 + 1
-        return [(n, arch["embed_dim"], arch["num_heads"], 1, arch["depth"],
-                 0)]
-    out = []
-    res = arch["img_size"] // arch["patch_size"]
-    for i, depth in enumerate(arch["depths"]):
-        if i > 0:
-            res //= 2
-        ws = min(arch["window_size"], res)
-        shifted = 0 if res <= ws else depth // 2
-        out.append((ws * ws, arch["embed_dim"] * 2 ** i,
-                    arch["num_heads"][i], (res // ws) ** 2, depth, shifted))
-    return out
-
-
 def linear_shapes(arch, batch):
     """[(site kind, T, K, O)] of every Linear of one forward of ``batch``
-    images: kinds 'qkv', 'proj', 'fc1', 'fc2', 'reduction', 'head'."""
-    out = []
-    mlp = arch["mlp_ratio"]
-    for i, (S, D, H, nW, depth, _) in enumerate(_stages(arch)):
-        T = batch * S * nW
-        if arch["family"] == "swin" and i > 0:
-            out.append(("reduction", T, 2 * D, D))
-        for _ in range(depth):
-            out += [("qkv", T, D, 3 * D), ("proj", T, D, D),
-                    ("fc1", T, D, int(D * mlp)), ("fc2", T, int(D * mlp), D)]
-    D = _stages(arch)[-1][1]
-    return out + [("head", batch, D, arch["num_classes"])]
+    images, from the configuration's family module: kinds 'qkv', 'proj',
+    'fc1', 'fc2', 'reduction', 'head'."""
+    return cell.family_of(arch).linear_shapes(arch, batch)
 
 
 def attention_calls(arch, batch):
-    """[(G, S, D, P)] of the fused attention (K1) calls of one forward: G
-    slices of S tokens and head width D, P rows of additive logit bias (0:
-    none; Swin: the heads, or windows times heads in a shifted block)."""
-    out = []
-    for S, D, H, nW, depth, shifted in _stages(arch):
-        G = batch * nW * H
-        for j in range(depth):
-            if arch["family"] == "vit":
-                P = 0
-            else:
-                P = nW * H if (shifted and j % 2 == 1) else H
-            out.append((G, S, D // H, P))
-    return out
+    """[(G, S, D, P)] of the fused attention (K1) calls of one forward,
+    from the configuration's family module: G slices of S tokens and head
+    width D, P rows of additive logit bias (0: none)."""
+    return cell.family_of(arch).attention_calls(arch, batch)
 
 
 def forward_flops(arch):

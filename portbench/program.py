@@ -9,42 +9,34 @@ dataclasses, the post-GeLU bias fold, the checkpoint writer and
 ``load_quantized``. It also reads the kernel wrappers' launch counters.
 
 The comparison that decides ``correct`` records what the forward hands to
-and gets from its quantized sites through six functions that the forward
-looks up in its modules at each call (``SEAMS``). A program that stops
-calling one of them, by fusing across it or by capturing the forward in a
-graph, leaves sites unrecorded; ``missing`` then names the seam, and the
-run stops without a result.
+and gets from its quantized sites through the functions that the forward
+looks up in its modules at each call (the ``SEAMS`` of the configuration's
+family module, ``portbench/families/<family>.py``, which also names the
+program's model module and class and its config's fields, as plain
+data). A program that stops calling one of them, by fusing across it or
+by capturing the forward in a graph, leaves sites unrecorded; ``missing``
+then names the seam, and the run stops without a result.
 """
 
 from __future__ import annotations
 
 import contextlib
+import importlib
 import os
 import tempfile
 
 import torch
 
-from portbench import reference
-
-VIT_KEYS = {"img_size": "img_size", "patch_size": "patch_size",
-            "in_chans": "in_chans", "embed_dim": "dim", "depth": "depth",
-            "num_heads": "heads", "mlp_ratio": "mlp_ratio",
-            "num_classes": "num_classes"}
-SWIN_KEYS = {"img_size": "img_size", "patch_size": "patch_size",
-             "in_chans": "in_chans", "embed_dim": "embed_dim",
-             "depths": "depths", "num_heads": "heads",
-             "window_size": "window", "mlp_ratio": "mlp_ratio",
-             "num_classes": "num_classes"}
+from portbench import cell, reference
 
 
 def spec_for(arch):
     """The program's model spec of the configuration, checked size by size
-    against the configuration's file."""
+    against the configuration's file (the family's ``PROGRAM_KEYS``)."""
     from adalog_tpu_torch.models.zoo import model_spec
 
     spec = model_spec(arch["program_model"])
-    keys = VIT_KEYS if arch["family"] == "vit" else SWIN_KEYS
-    for ours, theirs in keys.items():
+    for ours, theirs in cell.family_of(arch).PROGRAM_KEYS.items():
         want, got = arch[ours], getattr(spec.cfg, theirs)
         if (tuple(want) if isinstance(want, list) else want) != got:
             raise ValueError(f"{arch['name']}: {ours} is {want} in the "
@@ -68,19 +60,19 @@ def port_config(arch):
                   eval_dtype=arch["eval_dtype"], **arch["serving"])
 
 
-def port_state(spec, cfg, weights, plan):
+def port_state(arch, spec, cfg, weights, plan):
     """(model, qstate) of the program, filled from the benchmark's weights
     and plan, with the post-GeLU shift folded into each fc2 bias as a
-    finished calibration leaves it."""
+    finished calibration leaves it. The model is the family's
+    ``MODEL_CLASS`` of its ``PROGRAM_MODULE``."""
     from adalog_tpu_torch.calib.init_state import init_qstate
     from adalog_tpu_torch.calib.reparam import fold_gelu_shift_into_bias
     from adalog_tpu_torch.models.layers import LinearSite, MatMulSite
-    from adalog_tpu_torch.models.swin import SwinTransformer
-    from adalog_tpu_torch.models.vit import VisionTransformer
     from adalog_tpu_torch.calib.layout import tree_get, tree_set
 
     dev = next(iter(weights.values())).device
-    cls = VisionTransformer if spec.family == "vit" else SwinTransformer
+    family = cell.family_of(arch)
+    cls = getattr(_program_module(family.PROGRAM_MODULE), family.MODEL_CLASS)
     model = cls(spec.cfg, device=dev)
     model.load_state_dict(weights, strict=True)
     qstate = init_qstate(spec, cfg, model)
@@ -130,7 +122,7 @@ def load(arch, weights, plan, device):
 
     spec = spec_for(arch)
     cfg = port_config(arch)
-    model, qstate = port_state(spec, cfg, weights, plan)
+    model, qstate = port_state(arch, spec, cfg, weights, plan)
     fd, path = tempfile.mkstemp(suffix=".ckpt", prefix="portbench_")
     os.close(fd)
     try:
@@ -160,17 +152,13 @@ def counters():
     return out
 
 
-# what the recorder wraps, by family: (module of adalog_tpu_torch, function)
-SEAMS = {"vit": [("models.vit", "qlinear"), ("models.vit", "qconv2d"),
-                 ("ops.fq_attn", "run_flash"), ("models.vit", "vit_block")],
-         "swin": [("models.swin", "qlinear"), ("models.swin", "qconv2d"),
-                  ("ops.fq_attn", "run_flash"),
-                  ("models.swin", "swin_block"),
-                  ("models.swin", "patch_merging")]}
+def _program_module(name):
+    """The module ``adalog_tpu_torch.<name>``."""
+    return importlib.import_module(f"adalog_tpu_torch.{name}")
 
 
 @contextlib.contextmanager
-def recorded(family, batch, rows, head):
+def recorded(arch, batch, rows, head):
     """Record, while the block is open, what the program's forward hands
     to and gets from each quantized Linear and the patch convolution for
     the images ``rows`` of a batch of ``batch`` (rows of dim 0 belong to
@@ -181,9 +169,10 @@ def recorded(family, batch, rows, head):
     {"sites": {name: (x, y)}, "attn": [(q, kT, v, out)], "last": out},
     the sites and last output of the sampled images and the attention of
     all, and {"sites": {head: (x, y)}, "last": out} of all. The program's
-    forwards look the ``SEAMS`` up in their modules at each call, so
-    ``predict`` runs them through the recorder unchanged."""
-    import importlib
+    forwards look the configuration's family's ``SEAMS`` up in their
+    modules at each call, so ``predict`` runs them through the recorder
+    unchanged; the family's ``UNIT_SEAMS`` give the last output."""
+    family = cell.family_of(arch)
 
     def take(t):
         return reference.image_rows(t, rows, batch).detach().clone()
@@ -225,9 +214,8 @@ def recorded(family, batch, rows, head):
         return run
 
     wraps = {"qlinear": qlinear, "qconv2d": qconv2d, "run_flash": run_flash,
-             "vit_block": unit, "swin_block": unit, "patch_merging": unit}
-    patches = [(importlib.import_module(f"adalog_tpu_torch.{m}"), name)
-               for m, name in SEAMS[family]]
+             **dict.fromkeys(family.UNIT_SEAMS, unit)}
+    patches = [(_program_module(m), name) for m, name in family.SEAMS]
     saved = [(m, name, getattr(m, name)) for m, name in patches]
     try:
         for m, name in patches:
@@ -240,11 +228,12 @@ def recorded(family, batch, rows, head):
             sampled["last"] = take(whole["last"])
 
 
-def missing(family, sites, sampled, whole):
+def missing(arch, sites, sampled, whole):
     """What a recording of ``recorded`` lacks, one line per seam that the
     forward went around, or [] where it holds every site. ``sites`` is
     ``state.sites`` of the configuration."""
-    mod = f"adalog_tpu_torch.models.{family}"
+    family = cell.family_of(arch)
+    mod = f"adalog_tpu_torch.{family.PROGRAM_MODULE}"
     head = next(n for n, kind, _ in sites if kind == "head")
     out = []
     if "patch_embed.proj" not in sampled["sites"]:
@@ -262,8 +251,6 @@ def missing(family, sites, sampled, whole):
                    f"{len(sampled['attn'])} fused attentions recorded, the "
                    f"forward makes {blocks}")
     if "last" not in whole:
-        units = "vit_block" if family == "vit" else \
-            "swin_block, patch_merging"
-        out.append(f"{mod}.{units}: the last block's output was not "
-                   "recorded")
+        out.append(f"{mod}.{', '.join(family.UNIT_SEAMS)}: the last "
+                   "block's output was not recorded")
     return out

@@ -1,6 +1,11 @@
-"""The plain reference: fake-quantized ViT/DeiT and Swin forwards in plain
-PyTorch, written from the published descriptions (timm's
-vision_transformer and swin_transformer, the AdaLog paper's quantizers).
+"""The plain reference: fake-quantized forwards in plain PyTorch, written
+from the published descriptions (the AdaLog paper's quantizers, and
+timm's models for the families). This module holds what every family
+shares: the quantizers, the sites (``_Run``: Linear, convolution, fused
+attention, each followed as set out below), LayerNorm and the GeLU MLP,
+and the forward through a family's stages; each model family's
+embedding, blocks and head are in ``portbench/families/<family>.py``,
+written on these.
 
 It imports torch alone, nothing of the program, and takes only what the
 benchmark made: the weights as a dict of tensors under timm's keys, and the
@@ -46,10 +51,10 @@ either way, and both are right.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 import torch.nn.functional as F
+
+from portbench import cell
 
 ADALOG_R = 37.0
 GELU_MIN = 0.16997124254703522      # |min over x of x * Phi(x)|
@@ -329,151 +334,33 @@ def mlp(run, prefix, x):
 
 
 # ---------------------------------------------------------------------------
-# ViT / DeiT
+# What the family modules share (portbench/families/)
 # ---------------------------------------------------------------------------
 
-def vit_embed(run, arch, x):
-    """Image -> tokens: patch convolution, class token, positions."""
-    D = arch["embed_dim"]
-    tok = run.conv("patch_embed.proj", x, "patch_embed.proj",
-                   arch["patch_size"])
-    B = tok.shape[0]
-    return torch.cat([run.t("cls_token").expand(B, 1, D),
-                      tok.reshape(B, -1, D)], 1) + run.t("pos_embed")
+STD = 0.02
 
 
-def vit_block(run, arch, h, p):
-    B, N, D = h.shape
-    H = arch["num_heads"]
-    hd = D // H
-    y = layer_norm(run, h, f"{p}.norm1", 1e-6)
-    qkv = run.linear(f"{p}.attn.qkv", y, f"{p}.attn.qkv")
-    q, k, v = qkv.reshape(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
-    o = run.attend(f"{p}.attn", q, k, v, logit_scale=hd ** -0.5)
-    o = o.transpose(1, 2).reshape(B, N, D)
-    h = h + run.linear(f"{p}.attn.proj", o, f"{p}.attn.proj")
-    return h + mlp(run, f"{p}.mlp", layer_norm(run, h, f"{p}.norm2", 1e-6))
+def linear_leaves(key, o, i, std=STD):
+    """The leaves (``state.make_weights``) of a Linear of ``o`` outputs and
+    ``i`` inputs."""
+    return [(f"{key}.weight", (o, i), std), (f"{key}.bias", (o,), STD)]
 
 
-def vit_head(run, arch, h):
-    return run.linear("head", layer_norm(run, h, "norm", 1e-6)[:, 0], "head")
+def norm_leaves(key, d):
+    # (key, shape, std, mean): LayerNorm weights about 1
+    return [(f"{key}.weight", (d,), STD, 1.0), (f"{key}.bias", (d,), STD)]
 
 
-def vit_units(arch):
-    return [(f"blocks.{i}", functools.partial(vit_block, p=f"blocks.{i}"))
-            for i in range(arch["depth"])]
-
-
-# ---------------------------------------------------------------------------
-# Swin
-# ---------------------------------------------------------------------------
-
-def rel_index(ws):
-    """timm's relative_position_index: (ws^2, ws^2) into the
-    ((2 ws - 1)^2, heads) table."""
-    c = torch.stack(torch.meshgrid(torch.arange(ws), torch.arange(ws),
-                                   indexing="ij")).flatten(1)
-    rel = (c[:, :, None] - c[:, None, :]).permute(1, 2, 0) + (ws - 1)
-    return rel[..., 0] * (2 * ws - 1) + rel[..., 1]
-
-
-def shift_mask(res, ws, shift):
-    """timm's attn_mask of a shifted block: (nW, N, N) of 0 and -100."""
-    img = torch.zeros(res, res)
-    cnt = 0
-    for hs in (slice(0, -ws), slice(-ws, -shift), slice(-shift, None)):
-        for wsl in (slice(0, -ws), slice(-ws, -shift), slice(-shift, None)):
-            img[hs, wsl] = cnt
-            cnt += 1
-    win = img.reshape(res // ws, ws, res // ws, ws).permute(0, 2, 1, 3) \
-        .reshape(-1, ws * ws)
-    diff = win[:, None, :] - win[:, :, None]
-    return torch.where(diff != 0, -100.0, 0.0)
-
-
-def windows(x, ws):
-    B, Hh, W, C = x.shape
-    return x.reshape(B, Hh // ws, ws, W // ws, ws, C).permute(
-        0, 1, 3, 2, 4, 5).reshape(-1, ws * ws, C)
-
-
-def unwindows(x, ws, Hh, W):
-    C = x.shape[-1]
-    B = x.shape[0] // ((Hh // ws) * (W // ws))
-    return x.reshape(B, Hh // ws, W // ws, ws, ws, C).permute(
-        0, 1, 3, 2, 4, 5).reshape(B, Hh, W, C)
-
-
-def swin_embed(run, arch, x):
-    h = run.conv("patch_embed.proj", x, "patch_embed.proj",
-                 arch["patch_size"])
-    return layer_norm(run, h, "patch_embed.norm", 1e-5)
-
-
-def swin_merge(run, arch, h, p):
-    """timm 0.9's PatchMerging: [x(0,0), x(1,0), x(0,1), x(1,1)] by (row,
-    column) offset, LayerNorm, the bias-free reduction."""
-    h = torch.cat([h[:, 0::2, 0::2], h[:, 1::2, 0::2],
-                   h[:, 0::2, 1::2], h[:, 1::2, 1::2]], -1)
-    return run.linear(f"{p}.reduction", layer_norm(run, h, f"{p}.norm", 1e-5),
-                      f"{p}.reduction", bias=False)
-
-
-def swin_block(run, arch, x, p, heads, ws, shift):
-    B, Hh, W, C = x.shape
-    hd = C // heads
-    y = layer_norm(run, x, f"{p}.norm1", 1e-5)
-    if shift:
-        y = torch.roll(y, (-shift, -shift), dims=(1, 2))
-    y = windows(y, ws)
-    Bw, N, _ = y.shape
-    qkv = run.linear(f"{p}.attn.qkv", y, f"{p}.attn.qkv")
-    q, k, v = qkv.reshape(Bw, N, 3, heads, hd).permute(2, 0, 3, 1, 4)
-    table = run.t(f"{p}.attn.relative_position_bias_table")
-    bias = table[rel_index(ws).reshape(-1).to(table.device)] \
-        .reshape(N, N, heads).permute(2, 0, 1)
-    mask = shift_mask(Hh, ws, shift).to(device=x.device, dtype=run.dtype) \
-        if shift else None
-
-    def add_bias(a):
-        a = a + bias[None]
-        if mask is None:
-            return a
-        nW = mask.shape[0]
-        return (a.reshape(-1, nW, heads, N, N) + mask[None, :, None]) \
-            .reshape(-1, heads, N, N)
-
-    o = run.attend(f"{p}.attn", q * hd ** -0.5, k, v, add_bias=add_bias)
-    o = run.linear(f"{p}.attn.proj", o.transpose(1, 2).reshape(Bw, N, C),
-                   f"{p}.attn.proj")
-    o = unwindows(o, ws, Hh, W)
-    if shift:
-        o = torch.roll(o, (shift, shift), dims=(1, 2))
-    x = x + o
-    return x + mlp(run, f"{p}.mlp", layer_norm(run, x, f"{p}.norm2", 1e-5))
-
-
-def swin_head(run, arch, h):
-    h = layer_norm(run, h, "norm", 1e-5)
-    return run.linear("head.fc", h.mean(dim=(1, 2)), "head.fc")
-
-
-def swin_units(arch):
-    out = []
-    res = arch["img_size"] // arch["patch_size"]
-    for i, depth in enumerate(arch["depths"]):
-        if i > 0:
-            p = f"layers.{i}.downsample"
-            out.append((p, functools.partial(swin_merge, p=p)))
-            res //= 2
-        ws = min(arch["window_size"], res)
-        for j in range(depth):
-            p = f"layers.{i}.blocks.{j}"
-            shift = 0 if res <= ws or j % 2 == 0 else ws // 2
-            out.append((p, functools.partial(
-                swin_block, p=p, heads=arch["num_heads"][i], ws=ws,
-                shift=shift)))
-    return out
+def block_sites(p):
+    """The sites (``state.sites``) of an attention block ``p`` whose qkv
+    and proj go through ``_Run.linear``, its attention through
+    ``_Run.attend`` and its MLP through ``mlp``."""
+    return [(f"{p}.attn.qkv", "linear", f"{p}.attn.qkv"),
+            (f"{p}.attn.matmul1", "matmul1", None),
+            (f"{p}.attn.matmul2", "matmul2", None),
+            (f"{p}.attn.proj", "linear", f"{p}.attn.proj"),
+            (f"{p}.mlp.fc1", "linear", f"{p}.mlp.fc1"),
+            (f"{p}.mlp.fc2", "postgelu", f"{p}.mlp.fc2")]
 
 
 # ---------------------------------------------------------------------------
@@ -481,13 +368,12 @@ def swin_units(arch):
 # ---------------------------------------------------------------------------
 
 def stages(arch):
-    """(embed, [(unit name, unit)], head) of the model: the embedding takes
-    the images, each unit (a block, or Swin's patch merging) and the head
-    take the output of the stage before. Unit names are the program's
-    block and merging prefixes, timm's module paths."""
-    if arch["family"] == "vit":
-        return vit_embed, vit_units(arch), vit_head
-    return swin_embed, swin_units(arch), swin_head
+    """(embed, [(unit name, unit)], head) of the model, from its family's
+    module: the embedding takes the images, each unit (a block, or a patch
+    merging) and the head take the output of the stage before. Unit names
+    are the program's block and merging prefixes, timm's module paths."""
+    family = cell.family_of(arch)
+    return family.embed, family.units(arch), family.head
 
 
 def runner(arch, plan, weights, dtype=torch.float64, ranges=None,

@@ -3,6 +3,8 @@
 The traffic file gives ``batch`` (images a call), ``distinct_batches``
 (how many different batches are drawn from the seed and cycled),
 ``calib_images`` (the raw capture that sets the activation ranges),
+``pinned_images`` (true: the batches are handed over in page-locked host
+memory, as a DataLoader with ``pin_memory=True`` hands them over),
 ``warmup_batches``, ``trace_batches`` (the profiled calls after the
 window of a ``--trace 1`` run), ``check_batches`` (how many of the
 window's batches the reference checks), ``check_images`` (how many images
@@ -49,7 +51,8 @@ def prepare(arch, traffic, seed, device):
     del calib
     step("plan")
     images = state.make_images(arch, seed, traffic["distinct_batches"],
-                               traffic["batch"], device)
+                               traffic["batch"], device,
+                               pinned=traffic.get("pinned_images", False))
     step("images")
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -66,14 +69,15 @@ def served_again(predict, x, arch, rows):
     seam of the recorder, naming it."""
     sites = state.sites(arch)
     head = next(n for n, kind, _ in sites if kind == "head")
-    with program.recorded(arch["family"], x.shape[0], rows, head) as rec:
+    with program.recorded(arch, x.shape[0], rows, head) as rec:
         predict(x)
-    lost = program.missing(arch["family"], sites, *rec)
+    lost = program.missing(arch, sites, *rec)
     if lost:
         raise RuntimeError(
             "portbench: the program's forward no longer passes through "
-            "the functions that the check records (portbench/program.py "
-            "SEAMS), so correct cannot be decided:\n  " + "\n  ".join(lost))
+            "the functions that the check records (the family's SEAMS in "
+            "portbench/families/), so correct cannot be decided:\n  "
+            + "\n  ".join(lost))
     return rec
 
 

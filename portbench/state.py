@@ -12,12 +12,14 @@ in the range that the port's W4A4 calibrations picked (11 to 26). The
 program gets the plan as its own quantizer state (``portbench.program``),
 the reference gets it as it is.
 
-The weight scales follow ``chip_smoke.py::timm_weights`` /
-``swin_weights`` (lines 1144-1198 and ``QKV_STD`` at 281 at the commit
-that added this benchmark: qkv widened so attention rows are peaked, as in
-a trained model), drawn on the device instead of by numpy, with small
-random biases and LayerNorm affines in place of zeros and ones, so that no
-term of a layer is zero by construction. The plan replaces
+Each model family lists its parameters and sites in its module
+(``portbench/families/<family>.py``). The weight scales follow
+``chip_smoke.py::timm_weights`` / ``swin_weights`` (lines 1144-1198 and
+``QKV_STD`` at 281 at the commit that added this benchmark: qkv widened
+so attention rows are peaked, as in a trained model), drawn on the
+device instead of by numpy, with small random biases and LayerNorm
+affines in place of zeros and ones, so that no term of a layer is zero
+by construction. The plan replaces
 ``chip_smoke.py::smoke_qstate`` (line 1200): its single AdaLog base 29 and
 its capture through the program's own forward.
 """
@@ -28,70 +30,15 @@ import math
 
 import torch
 
-from portbench import reference
+from portbench import cell, reference
 
-QKV_STD_VIT = 0.075     # chip_smoke.py:281, QKV_STD
-STD = 0.02
 ADALOG_Q = (11, 26)     # AdaLog bases of the port's W4A4 calibrations
 
 
-def _vit_leaves(a):
-    D, P, C = a["embed_dim"], a["patch_size"], a["in_chans"]
-    hid = int(D * a["mlp_ratio"])
-    n = (a["img_size"] // P) ** 2
-    out = [("patch_embed.proj.weight", (D, C, P, P), STD),
-           ("patch_embed.proj.bias", (D,), STD),
-           ("cls_token", (1, 1, D), STD), ("pos_embed", (1, n + 1, D), STD)]
-    for i in range(a["depth"]):
-        p = f"blocks.{i}"
-        out += _norm(f"{p}.norm1", D) + _norm(f"{p}.norm2", D)
-        out += _lin(f"{p}.attn.qkv", 3 * D, D, QKV_STD_VIT)
-        out += _lin(f"{p}.attn.proj", D, D) + _lin(f"{p}.mlp.fc1", hid, D)
-        out += _lin(f"{p}.mlp.fc2", D, hid)
-    return out + _norm("norm", D) + _lin("head", a["num_classes"], D)
-
-
-def _swin_leaves(a):
-    E, P, C = a["embed_dim"], a["patch_size"], a["in_chans"]
-    out = [("patch_embed.proj.weight", (E, C, P, P), STD),
-           ("patch_embed.proj.bias", (E,), STD)]
-    out += _norm("patch_embed.norm", E)
-    res = a["img_size"] // P
-    for i, depth in enumerate(a["depths"]):
-        D = E * 2 ** i
-        if i > 0:
-            p = f"layers.{i}.downsample"
-            out += _norm(f"{p}.norm", 2 * D)
-            out += [(f"{p}.reduction.weight", (D, 2 * D), STD)]
-            res //= 2
-        ws, H = min(a["window_size"], res), a["num_heads"][i]
-        for j in range(depth):
-            p = f"layers.{i}.blocks.{j}"
-            out += _norm(f"{p}.norm1", D) + _norm(f"{p}.norm2", D)
-            # logits of a std of about 2, so attention rows are peaked
-            out += _lin(f"{p}.attn.qkv", 3 * D, D, math.sqrt(2.0 / D))
-            out += [(f"{p}.attn.relative_position_bias_table",
-                     ((2 * ws - 1) ** 2, H), STD)]
-            out += _lin(f"{p}.attn.proj", D, D)
-            out += _lin(f"{p}.mlp.fc1", int(D * a["mlp_ratio"]), D)
-            out += _lin(f"{p}.mlp.fc2", D, int(D * a["mlp_ratio"]))
-    D = E * 2 ** (len(a["depths"]) - 1)
-    return out + _norm("norm", D) + _lin("head.fc", a["num_classes"], D)
-
-
-def _lin(key, o, i, std=STD):
-    return [(f"{key}.weight", (o, i), std), (f"{key}.bias", (o,), STD)]
-
-
-def _norm(key, d):
-    # (key, shape, std, mean): LayerNorm weights about 1
-    return [(f"{key}.weight", (d,), STD, 1.0), (f"{key}.bias", (d,), STD)]
-
-
 def leaves(arch):
-    """[(timm key, shape, std[, mean])] of every parameter."""
-    return _vit_leaves(arch) if arch["family"] == "vit" \
-        else _swin_leaves(arch)
+    """[(timm key, shape, std[, mean])] of every parameter, from the
+    configuration's family module."""
+    return cell.family_of(arch).leaves(arch)
 
 
 def make_weights(arch, seed, device):
@@ -110,14 +57,20 @@ def make_weights(arch, seed, device):
     return out
 
 
-def make_images(arch, seed, n_batches, batch, device, salt=0):
+def make_images(arch, seed, n_batches, batch, device, salt=0,
+                pinned=False):
     """``n_batches`` NHWC float32 batches, drawn on the device and handed
     over on the host, as a loader hands them over; ``salt`` draws another
-    set from the same seed."""
+    set from the same seed. ``pinned`` hands them over in page-locked
+    memory, as a DataLoader with ``pin_memory=True`` does, where the
+    device is a card."""
     g = torch.Generator(device=device).manual_seed(seed + ((salt + 1) << 40))
     s, c = arch["img_size"], arch["in_chans"]
     x = torch.randn((n_batches, batch, s, s, c), generator=g, device=device)
-    return [b.cpu() for b in x.unbind(0)]
+    if not (pinned and device.type == "cuda"):
+        return [b.cpu() for b in x.unbind(0)]
+    return [torch.empty(b.shape, pin_memory=True).copy_(b)
+            for b in x.unbind(0)]
 
 
 def _minmax(lo, hi, bits):
@@ -139,39 +92,24 @@ def _weight_minmax(w, bits):
 
 
 def sites(arch):
-    """[(site, kind, weight key)]: kind 'conv', 'linear', 'head', 'postgelu',
-    'matmul1' or 'matmul2', in forward order."""
-    out = [("patch_embed.proj", "conv", "patch_embed.proj")]
-
-    def block(p):
-        return [(f"{p}.attn.qkv", "linear", f"{p}.attn.qkv"),
-                (f"{p}.attn.matmul1", "matmul1", None),
-                (f"{p}.attn.matmul2", "matmul2", None),
-                (f"{p}.attn.proj", "linear", f"{p}.attn.proj"),
-                (f"{p}.mlp.fc1", "linear", f"{p}.mlp.fc1"),
-                (f"{p}.mlp.fc2", "postgelu", f"{p}.mlp.fc2")]
-
-    if arch["family"] == "vit":
-        for i in range(arch["depth"]):
-            out += block(f"blocks.{i}")
-        return out + [("head", "head", "head")]
-    for i, depth in enumerate(arch["depths"]):
-        if i > 0:
-            p = f"layers.{i}.downsample.reduction"
-            out.append((p, "linear", p))
-        for j in range(depth):
-            out += block(f"layers.{i}.blocks.{j}")
-    return out + [("head.fc", "head", "head.fc")]
+    """[(site, kind, weight key)] in forward order, from the configuration's
+    family module: kind 'conv', 'linear', 'head', 'postgelu', 'matmul1',
+    'matmul2', or a kind of the family's own that its plan_<kind>
+    fills."""
+    return cell.family_of(arch).sites(arch)
 
 
 def make_plan(arch, weights, calib_images, seed):
     """{site: {name: float32 tensor, 'a_bits': int}} from min/max over the
-    reference's raw forward of ``calib_images`` (on the weights' device)."""
+    reference's raw forward of ``calib_images`` (on the weights' device).
+    A site of a kind of the family's own is filled by the family module's
+    ``plan_<kind>(site's plan, quant, site's ranges, generator)``."""
     q = arch["quant"]
     ranges = {}
     reference.forward(arch, weights, None, calib_images,
                       dtype=torch.float64, ranges=ranges)
     g = torch.Generator().manual_seed(seed + 1)
+    family = cell.family_of(arch)
     plan = {}
     for name, kind, wkey in sites(arch):
         s = {}
@@ -191,6 +129,8 @@ def make_plan(arch, weights, calib_images, seed):
             s["B_scale"], s["B_zp"] = _minmax(*r["B"], q["a_bit"])
         elif kind == "matmul2":
             s["B_scale"], s["B_zp"] = _minmax(*r["B"], q["a_bit"])
+        elif kind != "conv":
+            getattr(family, f"plan_{kind}")(s, q, r, g)
         if kind in ("postgelu", "matmul2"):
             lo, hi = ADALOG_Q
             s["log_q"] = torch.randint(lo, hi + 1, (), generator=g) \

@@ -1,18 +1,19 @@
 """Every cell, run on its tiny stand-in on the CPU through the plain
-versions of the kernels, prints the contract's result; a cell or metric
-added as files alone is found; nothing of JAX is imported, and the
-reference imports nothing of the program."""
+versions of the kernels, prints the contract's result; a cell, metric or
+model family added as files alone is found; nothing of JAX is imported,
+and the reference and the families import nothing of the program."""
 
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 
 import pytest
 import torch
 
-from conftest import ROOT, make_tiny_root
+from conftest import ROOT, make_tiny_root, tiny_name
 from portbench import cell as cells, run
 
 KEYS = {"correct", "attempted", "failed", "metrics", "device", "check"}
@@ -61,7 +62,8 @@ def test_cell_added_as_files(tmp_path, cpu_threads):
     make_tiny_root(root)
     bench = json.load(open(os.path.join(root, "BENCHMARK.json")))
     src = os.path.join(root, "portbench")
-    arch = json.load(open(os.path.join(src, "configs", "tiny_vit.json")))
+    arch = json.load(open(os.path.join(
+        src, "configs", f"{tiny_name('deit_small_w4a4')}.json")))
     arch.update(name="tiny_vit_b", depth=2)
     json.dump(arch, open(os.path.join(src, "configs", "tiny_vit_b.json"),
                          "w"))
@@ -100,6 +102,72 @@ def test_cell_added_as_files(tmp_path, cpu_threads):
     assert set(res["metrics"]) == {"serve_img_s", "setup_s"}
 
 
+COUNTED = """
+
+# counts the images this copy of the family embeds, so a run shows it
+# went through this file
+EMBEDDED = []
+_embed = embed
+
+
+def embed(run, arch, x):
+    EMBEDDED.append(x.shape[0])
+    return _embed(run, arch, x)
+"""
+
+
+@pytest.mark.parametrize("family", ["vit_twin", "no_such_family"])
+def test_family_added_as_files(tmp_path, cpu_threads, family):
+    """A configuration of a family that no configuration of BENCHMARK.json
+    uses, with its module, cell, traffic and limits added as files and its
+    entries added to BENCHMARK.json, runs ``correct``; one whose family
+    has no module is refused, naming the file looked for."""
+    root = str(tmp_path)
+    make_tiny_root(root)
+    bench = json.load(open(os.path.join(root, "BENCHMARK.json")))
+    src = os.path.join(root, "portbench")
+    module = os.path.join(src, "families", f"{family}.py")
+    if family != "no_such_family":
+        with open(module, "w") as f:
+            f.write(open(os.path.join(ROOT, "portbench", "families",
+                                      "vit.py")).read() + COUNTED)
+    real = json.load(open(os.path.join(ROOT, "portbench", "configs",
+                                       "deit_small_w4a4.json")))
+    arch = dict(cells.family("vit").TINY, name="tiny_twin", source="test",
+                family=family, quant=real["quant"],
+                eval_dtype=real["eval_dtype"], serving=real["serving"],
+                reduced=[])
+    json.dump(arch, open(os.path.join(src, "configs", "tiny_twin.json"),
+                         "w"))
+    t = json.load(open(os.path.join(src, "traffic", "serve_b200.json")))
+    json.dump(dict(t, batch=4), open(os.path.join(
+        src, "traffic", "serve_b4.json"), "w"))
+    json.dump({"site_rel_err_max": 5e-5, "attention_rel_err_max": 1e-4},
+              open(os.path.join(src, "limits", "tiny_twin.serve_b4.json"),
+                   "w"))
+    bench["configs"].append({"name": "tiny_twin", "source": "test",
+                             "file": "portbench/configs/tiny_twin.json",
+                             "reduced": [], "why": "test"})
+    bench["workloads"].append({"name": "tiny_twin.serve_b4",
+                               "config": "tiny_twin", "traffic": "serve_b4",
+                               "chips": 1, "why": "test"})
+    for m in bench["end_to_end"]:
+        if m["name"] == "serve_img_s":
+            m["workloads"].append("tiny_twin.serve_b4")
+    json.dump(bench, open(os.path.join(root, "BENCHMARK.json"), "w"))
+    if family == "no_such_family":
+        with pytest.raises(FileNotFoundError, match=re.escape(module)):
+            cells.load("tiny_twin.serve_b4", root)
+        return
+    cell = cells.load("tiny_twin.serve_b4", root)
+    res, checks = result_line(cell, 0)
+    assert res["correct"] is True and res["failed"] == 0
+    assert set(res["metrics"]) == {"serve_img_s", "setup_s"}
+    assert [c.split()[1] for c in checks] == list(res["check"])
+    twin = cells.family(family, root)
+    assert twin.__file__ == module and twin.EMBEDDED
+
+
 BLOCKER = """
 import importlib.abc, sys
 class Block(importlib.abc.MetaPathFinder):
@@ -116,11 +184,17 @@ def _run(code, tiny):
                           capture_output=True, text=True, timeout=300)
 
 
+FAMILIES = sorted(f[:-3] for f in os.listdir(os.path.join(
+    ROOT, "portbench", "families")) if f.endswith(".py"))
+
+
 def test_run_imports_no_jax(tiny_root):
     root, names = tiny_root
     code = BLOCKER.format(names={"jax", "jaxlib", "flax", "adalog_tpu"}) + f"""
 import torch
 from portbench import cell, run
+for name in {FAMILIES!r}:
+    cell.family(name, {root!r})
 c = cell.load({names['swin_base_w4a4.serve_b200']!r}, {root!r})
 r = run.execute(c, 3, 0.2, 1, torch.device("cpu"))
 assert r["correct"], r
@@ -141,12 +215,17 @@ def test_reference_imports_nothing_of_the_program(tiny_root):
     code = BLOCKER.format(names=blocked) + f"""
 import json, torch
 from portbench import check, counts, reference, state, trace, cell
-arch = cell.load({names['swin_base_w4a4.serve_b200']!r}, {root!r})["arch"]
-w = state.make_weights(arch, 5, torch.device("cpu"))
-x = state.make_images(arch, 5, 1, 4, torch.device("cpu"))[0]
-plan = state.make_plan(arch, w, x, 5)
-y = reference.forward(arch, w, plan, x)
-assert y.shape == (4, 10) and torch.isfinite(y).all()
+for name in {FAMILIES!r}:
+    cell.family(name, {root!r})
+for c in ({names['deit_small_w4a4.serve_b200']!r},
+          {names['swin_base_w4a4.serve_b200']!r}):
+    arch = cell.load(c, {root!r})["arch"]
+    w = state.make_weights(arch, 5, torch.device("cpu"))
+    x = state.make_images(arch, 5, 1, 4, torch.device("cpu"))[0]
+    plan = state.make_plan(arch, w, x, 5)
+    y = reference.forward(arch, w, plan, x)
+    assert y.shape == (4, 10) and torch.isfinite(y).all()
+    assert counts.forward_flops(arch) > 0
 print("ok")
 """
     p = _run(code, root)

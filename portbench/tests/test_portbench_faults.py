@@ -118,12 +118,17 @@ def test_bypassed_seam_stops_the_run(tiny_root, cpu_threads, monkeypatch):
 
 
 def test_broken_quantizer_fails(tiny_root, cpu_threads, monkeypatch):
-    """Every fake-quantized activation off by a ten-thousandth."""
+    """Every fake-quantized activation off by a ten-thousandth: those of
+    the Linear sites, which go through ``fq_act.fq_act_quant`` (K6 on the
+    card, ``apply_quantizer`` bound in ``ops.fq_act`` here), and the
+    others."""
     from adalog_tpu_torch.models import layers
+    from adalog_tpu_torch.ops import fq_act
 
     apply = layers.apply_quantizer
-    monkeypatch.setattr(layers, "apply_quantizer",
-                        lambda *a, **k: apply(*a, **k) * 1.0001)
+    for mod in (layers, fq_act):
+        monkeypatch.setattr(mod, "apply_quantizer",
+                            lambda *a, **k: apply(*a, **k) * 1.0001)
     res = run_cell(tiny_root, "deit_small_w4a4.serve_b200")
     assert res["correct"] is False
     assert res["check"]["site_rel_err_max"]["value"] > \
