@@ -10,6 +10,12 @@ The same rules as ``adalog_tpu.calib.layout``:
   - matmul2 uses the post-softmax quantizer at s_bit
   - the patch-embed conv uses qconv_a_bit
 ``param_path``s address the port's modules (timm's names).
+
+EVA-02 (``eva_layout``) has no JAX counterpart: its sites are the ViT
+block's, with q/k/v one ``attn.qkv`` site (n_V=3) and the SwiGLU's gate and
+value one ``mlp.fc1`` site (n_V=2), each with one activation quantizer for
+the input they share; its fc2 takes a LayerNorm output, so it is a uniform
+site whatever ``post_gelu_quantizer`` says.
 """
 
 from __future__ import annotations
@@ -84,6 +90,42 @@ def vit_layout(spec, cfg: Config, reparam: bool = True):
     return sites
 
 
+def eva_layout(spec, cfg: Config, reparam: bool = True):
+    m = spec.cfg
+    sites = {}
+    sites["patch_embed.proj"] = SiteSpec(
+        kind="conv", w_bits=cfg.w_bit, a_bits=cfg.qconv_a_bit,
+        param_path=("patch_embed", "proj"))
+    for i in range(m.depth):
+        p = f"blocks.{i}"
+        pp = ("blocks", i)
+        sites[f"{p}.attn.qkv"] = SiteSpec(
+            kind=_linear_kind("qkv", cfg, reparam, cfg.a_bit),
+            w_bits=cfg.w_bit, a_bits=cfg.a_bit, n_V=3,
+            param_path=pp + ("attn", "qkv"), norm_path=pp + ("norm1",))
+        sites[f"{p}.attn.proj"] = SiteSpec(
+            kind="linear", w_bits=cfg.w_bit, a_bits=cfg.a_bit,
+            param_path=pp + ("attn", "proj"))
+        sites[f"{p}.attn.matmul1"] = SiteSpec(
+            kind="matmul", a_bits=cfg.a_bit, s_bits=cfg.a_bit, heads=m.heads,
+            param_path=())
+        sites[f"{p}.attn.matmul2"] = SiteSpec(
+            kind="matmul_post", a_bits=cfg.a_bit, s_bits=cfg.s_bit,
+            heads=m.heads, param_path=(),
+            post_quantizer=cfg.post_softmax_quantizer)
+        sites[f"{p}.mlp.fc1"] = SiteSpec(
+            kind=_linear_kind("fc1", cfg, reparam, cfg.a_bit),
+            w_bits=cfg.w_bit, a_bits=cfg.a_bit, n_V=2,
+            param_path=pp + ("mlp", "fc1"), norm_path=pp + ("norm2",))
+        sites[f"{p}.mlp.fc2"] = SiteSpec(
+            kind="linear", w_bits=cfg.w_bit, a_bits=cfg.a_bit,
+            param_path=pp + ("mlp", "fc2"))
+    sites["head"] = SiteSpec(
+        kind="linear", w_bits=cfg.w_bit, a_bits=cfg.qhead_a_bit,
+        param_path=("head",))
+    return sites
+
+
 def swin_layout(spec, cfg: Config, reparam: bool = True):
     m = spec.cfg
     sites = {}
@@ -132,6 +174,8 @@ def swin_layout(spec, cfg: Config, reparam: bool = True):
 def quant_layout(spec, cfg: Config, reparam: bool = True):
     if spec.family == "vit":
         return vit_layout(spec, cfg, reparam)
+    if spec.family == "eva":
+        return eva_layout(spec, cfg, reparam)
     return swin_layout(spec, cfg, reparam)
 
 

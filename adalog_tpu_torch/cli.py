@@ -59,7 +59,8 @@ log = logging.getLogger("adalog_tpu_torch")
 
 MODELS = ["vit_tiny", "vit_small", "vit_base", "vit_large", "deit_tiny",
           "deit_small", "deit_base", "swin_tiny", "swin_small", "swin_base",
-          "swin_base_384", "test_tiny", "test_tiny_swin"]
+          "swin_base_384", "eva02_large_448", "test_tiny", "test_tiny_swin",
+          "test_tiny_eva"]
 
 
 def get_args_parser():

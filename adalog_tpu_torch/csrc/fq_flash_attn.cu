@@ -24,7 +24,8 @@
 // (ops/fq_attn.py::flash_variant) from shapes, dtype and bit widths:
 //
 // "mma" (S <= 256, D <= 128, at most 256 AdaLog codes): the design for this
-// card.
+// card. Past 256 keys (D <= 64) "mma" takes its rows in two passes over key
+// tiles instead (the long row, below the short one in this file).
 //   - Both products run on the tensor cores as mma.sync.aligned.m16n8k16,
 //     bf16 x bf16 with fp32 accumulators, from registers. mma.sync, not
 //     wgmma: the products are 5% of the kernel's cycles, so their
@@ -622,7 +623,347 @@ cudaError_t launch_mma_d(const FlashArgs& a) {
   return cudaErrorInvalidValue;
 }
 
-// must match ops/fq_attn.py: S <= 256, D <= 128, m2a_bits <= 8
+// ---------------------------------------------------------------------------
+// variant "mma", rows longer than 256: two passes over key tiles
+// ---------------------------------------------------------------------------
+//
+// Past 256 keys a row of logits no longer fits a warp's registers (EVA-02
+// at 448 px: 1,025 tokens), and the online-softmax trick alone cannot give
+// the codes: AdaLog quantizes the NORMALIZED probability, so the row's max
+// and sum must be known before any p is quantized. So the row takes two
+// passes over tiles of LONG_KN keys, in one kernel:
+//   - pass one forms each tile's logits on the tensor cores and keeps the
+//     row max and the row sum (online: the running sum is rescaled by
+//     expf(old max - new max) when the max grows);
+//   - pass two forms the logits again, the same products on the same
+//     operands, so the same values, takes p = expf(l - max) / sum, its
+//     AdaLog code and value from the slice's table (quantize_tile, as the
+//     short row) and accumulates value @ uq(v) on the tensor cores.
+// The (G, S, S) logits never reach device memory.
+//   - A block is LONG_WARPS warps on one slice, a warp a tile of 16 query
+//     rows, whose uq(q) operands it keeps in shared memory. The
+//     block's threads stage each key tile of uq(kT) (and, in pass two, of
+//     uq(v)) into shared memory as bf16 once for all its warps, the same
+//     integers (fp32 inputs) or rounded values (bf16) as the short row.
+//   - Blocks run row tiles fastest (one 1-D grid, slice-major), so the
+//     blocks of one slice are resident together and its kT and v come from
+//     L2 after the first.
+//   - Ragged edges as the short row: key columns past S take logits of
+//     -inf and probabilities of exactly 0 (their staged kT is 0), query rows
+//     past S are computed and not stored; the padded head dim is 0.
+//   - The sum is rescaled at each new max, so it differs from the short
+//     row's one-pass sum by an ulp or so: a probability within that of an
+//     AdaLog code boundary may take the neighbouring code.
+
+constexpr int LONG_WARPS = 8;       // 128 query rows a block, 2 an SM
+constexpr int LONG_KN = 64;         // keys a staged tile
+constexpr int LONG_KH = 32;         // keys a warp's logits hold at a time
+constexpr int LONG_MAX_D = 64;      // must match ops/fq_attn.py _LONG_MAX_D
+
+template <int DT>
+struct Long {
+  // of LONG_KH keys: with 32 registers of output a thread, logits of all
+  // 64 keys of a tile would not leave two blocks an SM without a spill
+  static constexpr int NT = LONG_KH / 8;       // n8 tiles of logits
+  static constexpr int KT = LONG_KH / 16;      // k16 steps of p @ v
+  static constexpr int DN = 2 * DT;            // n8 tiles of a row of output
+  static constexpr int D_PAD = 16 * DT;
+  // an odd number of 16-byte chunks a row, as the short row's
+  static constexpr int K_LD = LONG_KN + 8;     // uq(kT) tile: [D_PAD][K_LD]
+  static constexpr int V_LD = D_PAD + 8;       // uq(v) tile:  [LONG_KN][V_LD]
+  static constexpr int Q_LD = D_PAD + 8;       // uq(q):       [16][Q_LD] a warp
+  static constexpr int K_ELEMS = D_PAD * K_LD;
+  static constexpr int V_ELEMS = LONG_KN * V_LD;
+  static constexpr int Q_ELEMS = 16 * Q_LD;
+  static constexpr int SMEM_BF16 = K_ELEMS + V_ELEMS + LONG_WARPS * Q_ELEMS;
+};
+
+// Stage columns k0 .. k0 + LONG_KN - 1 of the (D, S) row-major uq(kT) of a
+// slice into the [d][c] tile dst; columns past S get 0. A row of kT starts
+// wherever d * S puts it (S odd: not 16-byte aligned), so the loads are one
+// element each, coalesced along the row, LOADS in flight a thread (16: a
+// 64 x 64 tile in one round of latency for 256 threads). Inlined: a call
+// inside the tile loop would save the live accumulators around it.
+template <bool kInt, int LD, int LOADS, typename T>
+__device__ __forceinline__ void stage_key_tile(__nv_bfloat16* dst,
+                                            const T* __restrict__ src, int D,
+                                            int S, int k0, Uniform uq,
+                                            int tid, int nthreads) {
+  const int count = D * LONG_KN;
+  for (int i0 = tid; i0 < count; i0 += LOADS * nthreads) {
+    float x[LOADS];
+#pragma unroll
+    for (int u = 0; u < LOADS; ++u) {
+      const int i = i0 + u * nthreads;
+      const int d = i / LONG_KN, c = k0 + i % LONG_KN;
+      x[u] = i < count && c < S
+          ? to_f32(src[static_cast<size_t>(d) * S + c]) : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < LOADS; ++u) {
+      const int i = i0 + u * nthreads;
+      if (i < count) {
+        const int d = i / LONG_KN, c = i % LONG_KN;
+        dst[d * LD + c] = k0 + c < S ? staged<kInt>(x[u], uq)
+                                     : __float2bfloat16_rn(0.0f);
+      }
+    }
+  }
+}
+
+// The logits of LONG_KH keys from key k0 into acc: uq(q) @ uq(kT) on the
+// tensor cores (q_frag: the lane's A operands in the warp's uq(q) tile;
+// k_addr: its ldmatrix row of the staged tile at those keys), the scales,
+// the bias, -inf past S.
+template <bool kInt, int DT>
+__device__ __forceinline__ void long_logits(
+    float (&acc)[Long<DT>::NT][4], const __nv_bfloat16* q_frag,
+    uint32_t k_addr, int k0, int S, int t4, float qk_scale,
+    float logit_scale, const float* bias_a, const float* bias_b) {
+  using C = Long<DT>;
+#pragma unroll
+  for (int nt = 0; nt < C::NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < DT; ++kk) {
+    uint32_t a[4];
+    a[0] = lds32(q_frag + kk * 16);
+    a[1] = lds32(q_frag + kk * 16 + 8 * C::Q_LD);
+    a[2] = lds32(q_frag + kk * 16 + 8);
+    a[3] = lds32(q_frag + kk * 16 + 8 * C::Q_LD + 8);
+#pragma unroll
+    for (int nt = 0; nt < C::NT; nt += 2) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, k_addr + (kk * 16 * C::K_LD + nt * 8) * 2);
+      mma_bf16(acc[nt], a, b);
+      mma_bf16(acc[nt + 1], a, b + 2);
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < C::NT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = k0 + 8 * nt + 2 * t4 + e;
+      float la = acc[nt][e], lb = acc[nt][2 + e];
+      if (kInt) {
+        la = __fmul_rn(la, qk_scale);
+        lb = __fmul_rn(lb, qk_scale);
+      }
+      la = __fmul_rn(la, logit_scale);
+      lb = __fmul_rn(lb, logit_scale);
+      if (c < S) {
+        if (bias_a != nullptr) la = __fadd_rn(la, bias_a[c]);
+        if (bias_b != nullptr) lb = __fadd_rn(lb, bias_b[c]);
+      } else {
+        la = -INFINITY;
+        lb = -INFINITY;
+      }
+      acc[nt][e] = la;
+      acc[nt][2 + e] = lb;
+    }
+  }
+}
+
+template <typename T, int DT>
+__global__ void __launch_bounds__(LONG_WARPS * 32, 2)
+fq_flash_attn_long_kernel(const T* __restrict__ q, const T* __restrict__ kT,
+                          const T* __restrict__ v,
+                          const float* __restrict__ m1a,
+                          const float* __restrict__ m1b,
+                          const float* __restrict__ m2q,
+                          const float* __restrict__ m2b,
+                          const float* __restrict__ bias,
+                          float* __restrict__ out, int P, int S, int D,
+                          int row_blocks, int m1a_bits, int m1b_bits,
+                          int m2a_bits, int m2b_bits, float logit_scale) {
+  using C = Long<DT>;
+  constexpr bool kInt = sizeof(T) == 4;
+  extern __shared__ __align__(16) unsigned char smem_long[];
+  __nv_bfloat16* K_s = reinterpret_cast<__nv_bfloat16*>(smem_long);
+  __nv_bfloat16* V_s = K_s + C::K_ELEMS;
+  __nv_bfloat16* q_s = V_s + C::V_ELEMS;
+  SliceConsts* sc = reinterpret_cast<SliceConsts*>(K_s + C::SMEM_BF16);
+
+  const int g = blockIdx.x / row_blocks;
+  const int rb = blockIdx.x - g * row_blocks;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, t4 = lane & 3;
+  const int r0 = 16 * (rb * LONG_WARPS + warp);
+  const bool rows = r0 < S;            // the warp has rows of the slice
+  const size_t base = static_cast<size_t>(g) * S * D;
+  const int n_codes = 2 * (1 << (m2a_bits - 1));
+  const float ts = static_cast<float>(1.0 / (2.0 * n_codes - 2.0));
+
+  // zeros first: the padded head dim of the tiles and of uq(q), and the
+  // query rows past S
+  {
+    uint4* all16 = reinterpret_cast<uint4*>(smem_long);
+    for (int i = threadIdx.x; i < C::SMEM_BF16 / 8; i += blockDim.x)
+      all16[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  fill_code_table<kInt>(&sc->codes, m2q[g], n_codes, ts, threadIdx.x,
+                        blockDim.x);
+  if (threadIdx.x == blockDim.x - 1) {
+    sc->uq_q = uniform_of(m1a, g, m1a_bits);
+    sc->qk_scale = kInt ? __fmul_rn(m1a[2 * g], m1b[2 * g]) : 1.0f;
+    sc->out_scale = kInt ? __fmul_rn(ts, m2b[2 * g]) : 1.0f;
+  }
+  __syncthreads();
+
+  // this warp's 16 rows of uq(q), the A operands of both passes (read
+  // from shared memory at each key tile: registers go to the logits)
+  __nv_bfloat16* Q_s = q_s + warp * C::Q_ELEMS;
+  if (rows)
+    stage_rows<kInt, C::Q_LD, 4>(Q_s, q + base + static_cast<size_t>(r0) * D,
+                                 min(16, S - r0) * D, D, sc->uq_q, lane, 32);
+  __syncwarp();
+  const __nv_bfloat16* q_frag = Q_s + gq * C::Q_LD + 2 * t4;
+
+  const Uniform uq_k = uniform_of(m1b, g, m1b_bits);
+  const Uniform uq_v = uniform_of(m2b, g, m2b_bits);
+  const float qk_scale = sc->qk_scale;
+  const int ra = r0 + gq, rb_ = ra + 8;
+  const float* bias_g =
+      bias == nullptr ? nullptr : bias + static_cast<size_t>(g % P) * S * S;
+  const float* bias_a = bias_g == nullptr || ra >= S
+      ? nullptr : bias_g + static_cast<size_t>(ra) * S;
+  const float* bias_b = bias_g == nullptr || rb_ >= S
+      ? nullptr : bias_g + static_cast<size_t>(rb_) * S;
+  const int ld_row = lane & 15, ld_col = (lane >> 4) * 8;
+  const uint32_t k_addr = smem_addr(K_s + ld_row * C::K_LD + ld_col);
+  const uint32_t v_addr = smem_addr(V_s + ld_row * C::V_LD + ld_col);
+
+  // pass one: the row max and the row sum
+  float mx_a = -INFINITY, mx_b = -INFINITY, sum_a = 0.0f, sum_b = 0.0f;
+  for (int k0 = 0; k0 < S; k0 += LONG_KN) {
+    __syncthreads();                   // the last tile is consumed
+    stage_key_tile<kInt, C::K_LD, 16>(K_s, kT + base, D, S, k0, uq_k,
+                                      threadIdx.x, blockDim.x);
+    __syncthreads();
+    if (!rows) continue;
+    for (int kc = 0; kc < LONG_KN && k0 + kc < S; kc += LONG_KH) {
+      float acc[C::NT][4];
+      long_logits<kInt, DT>(acc, q_frag, k_addr + kc * 2, k0 + kc, S, t4,
+                            qk_scale, logit_scale, bias_a, bias_b);
+      float ta = -INFINITY, tb = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < C::NT; ++nt) {
+        ta = fmaxf(ta, fmaxf(acc[nt][0], acc[nt][1]));
+        tb = fmaxf(tb, fmaxf(acc[nt][2], acc[nt][3]));
+      }
+      ta = fmaxf(ta, __shfl_xor_sync(0xffffffffu, ta, 1));
+      tb = fmaxf(tb, __shfl_xor_sync(0xffffffffu, tb, 1));
+      ta = fmaxf(ta, __shfl_xor_sync(0xffffffffu, ta, 2));
+      tb = fmaxf(tb, __shfl_xor_sync(0xffffffffu, tb, 2));
+      // a new max rescales the running sum (0 before the first keys)
+      const float na = fmaxf(mx_a, ta), nb = fmaxf(mx_b, tb);
+      if (na > mx_a) sum_a *= expf(mx_a - na);
+      if (nb > mx_b) sum_b *= expf(mx_b - nb);
+      mx_a = na;
+      mx_b = nb;
+#pragma unroll
+      for (int nt = 0; nt < C::NT; ++nt) {
+        sum_a += expf(acc[nt][0] - mx_a) + expf(acc[nt][1] - mx_a);
+        sum_b += expf(acc[nt][2] - mx_b) + expf(acc[nt][3] - mx_b);
+      }
+    }
+  }
+  sum_a += __shfl_xor_sync(0xffffffffu, sum_a, 1);
+  sum_b += __shfl_xor_sync(0xffffffffu, sum_b, 1);
+  sum_a += __shfl_xor_sync(0xffffffffu, sum_a, 2);
+  sum_b += __shfl_xor_sync(0xffffffffu, sum_b, 2);
+  const Divisor div_a{sum_a, __frcp_rn(sum_a)};
+  const Divisor div_b{sum_b, __frcp_rn(sum_b)};
+
+  // pass two: the probabilities, their AdaLog values, @ uq(v)
+  float o[C::DN][4];
+#pragma unroll
+  for (int dn = 0; dn < C::DN; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[dn][e] = 0.0f;
+  for (int k0 = 0; k0 < S; k0 += LONG_KN) {
+    __syncthreads();
+    stage_key_tile<kInt, C::K_LD, 16>(K_s, kT + base, D, S, k0, uq_k,
+                                      threadIdx.x, blockDim.x);
+    // key rows past S keep what the last tile left there (finite), and
+    // meet probabilities of exactly 0
+    stage_rows_body<kInt, 4>(V_s, C::V_LD,
+                             v + base + static_cast<size_t>(k0) * D,
+                             min(LONG_KN, S - k0) * D, D, uq_v, threadIdx.x,
+                             blockDim.x);
+    __syncthreads();
+    if (!rows) continue;
+    for (int kc = 0; kc < LONG_KN && k0 + kc < S; kc += LONG_KH) {
+      float acc[C::NT][4];
+      long_logits<kInt, DT>(acc, q_frag, k_addr + kc * 2, k0 + kc, S, t4,
+                            qk_scale, logit_scale, bias_a, bias_b);
+#pragma unroll
+      for (int kk = 0; kk < C::KT; ++kk) {
+        uint32_t pa[4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int nt = 2 * kk + h;
+          const uint2 w = quantize_tile(
+              expf(acc[nt][0] - mx_a), expf(acc[nt][1] - mx_a),
+              expf(acc[nt][2] - mx_b), expf(acc[nt][3] - mx_b), div_a,
+              div_b, &sc->codes, S - (k0 + kc + 8 * nt + 2 * t4));
+          pa[2 * h] = w.x;
+          pa[2 * h + 1] = w.y;
+        }
+        const uint32_t v_rows = v_addr + (kc + kk * 16) * C::V_LD * 2;
+#pragma unroll
+        for (int dn = 0; dn < C::DN; dn += 2) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, v_rows + dn * 8 * 2);
+          mma_bf16(o[dn], pa, b);
+          mma_bf16(o[dn + 1], pa, b + 2);
+        }
+      }
+    }
+  }
+  if (!rows) return;
+
+  const float out_scale = sc->out_scale;
+  float* out_a = out + base + static_cast<size_t>(ra) * D;
+  float* out_b = out + base + static_cast<size_t>(rb_) * D;
+#pragma unroll
+  for (int dn = 0; dn < C::DN; ++dn) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = 8 * dn + 2 * t4 + e;
+      if (c >= D) continue;
+      const float wa = kInt ? __fmul_rn(o[dn][e], out_scale) : o[dn][e];
+      const float wb = kInt ? __fmul_rn(o[dn][2 + e], out_scale) : o[dn][2 + e];
+      if (ra < S) out_a[c] = wa;
+      if (rb_ < S) out_b[c] = wb;
+    }
+  }
+}
+
+template <typename T, int DT>
+cudaError_t launch_long(const FlashArgs& a) {
+  using C = Long<DT>;
+  const size_t smem =
+      static_cast<size_t>(C::SMEM_BF16) * 2 + sizeof(SliceConsts);
+  cudaError_t err = cudaFuncSetAttribute(
+      fq_flash_attn_long_kernel<T, DT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int row_blocks = (a.S + 16 * LONG_WARPS - 1) / (16 * LONG_WARPS);
+  const long long blocks = static_cast<long long>(a.G) * row_blocks;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  fq_flash_attn_long_kernel<T, DT>
+      <<<static_cast<unsigned>(blocks), LONG_WARPS * 32, smem, a.stream>>>(
+          static_cast<const T*>(a.q), static_cast<const T*>(a.kT),
+          static_cast<const T*>(a.v), a.m1a, a.m1b, a.m2q, a.m2b, a.bias,
+          a.out, a.P, a.S, a.D, row_blocks, a.m1a_bits, a.m1b_bits,
+          a.m2a_bits, a.m2b_bits, a.logit_scale);
+  return cudaGetLastError();
+}
+
+// must match ops/fq_attn.py: S <= 256 and D <= 128 the short row, S > 256
+// and D <= 64 the long row; m2a_bits <= 8
 template <typename T>
 cudaError_t launch_mma_s(const FlashArgs& a) {
   if (a.m2a_bits > 8) return cudaErrorInvalidValue;
@@ -630,6 +971,8 @@ cudaError_t launch_mma_s(const FlashArgs& a) {
   if (a.S <= 128) return launch_mma_d<T, 16>(a);
   if (a.S <= 200) return launch_mma_d<T, 25>(a);     // a 14x14 grid + cls
   if (a.S <= 256) return launch_mma_d<T, 32>(a);
+  if (a.D <= 32) return launch_long<T, 2>(a);
+  if (a.D <= LONG_MAX_D) return launch_long<T, 4>(a);
   return cudaErrorInvalidValue;
 }
 

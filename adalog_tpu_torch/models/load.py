@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from adalog_tpu_torch.models.eva import EvaConfig, EvaTransformer
 from adalog_tpu_torch.models.swin import SwinConfig, SwinTransformer
 from adalog_tpu_torch.models.vit import ViTConfig, VisionTransformer
 
@@ -74,10 +75,25 @@ def load_swin(cfg: SwinConfig, sd: dict) -> SwinTransformer:
     return _fill(SwinTransformer(cfg, downsample, device="meta"), sd)
 
 
+def load_eva(cfg: EvaConfig, sd: dict) -> EvaTransformer:
+    """Build an EvaTransformer from a {key: array} dict in timm's layout
+    (``q_proj`` / ``k_proj`` / ``v_proj``, or the fused ``qkv`` with
+    ``q_bias`` / ``v_bias``; ``fc1_g`` / ``fc1_x``) or the module's own. The
+    model's ``load_state_dict`` maps timm's keys (``eva.from_timm_keys``);
+    a key missing after that, or one left over, raises."""
+    model = EvaTransformer(cfg, device="meta")
+    model.load_state_dict(
+        {k: torch.from_numpy(np.array(v, dtype=np.float32))
+         for k, v in sd.items()}, assign=True)
+    return model
+
+
 def load_state_dict(spec, sd: dict):
     """The model of ``spec`` from a timm-keyed {key: array} dict."""
     if spec.family == "vit":
         return load_vit(spec.cfg, sd)
+    if spec.family == "eva":
+        return load_eva(spec.cfg, sd)
     return load_swin(spec.cfg, sd)
 
 

@@ -313,8 +313,9 @@ def swin_window_attention(ap: WindowAttention, qstate, prefix: str, x, heads,
 
         out = attn = None
         fused = taps is None and not training
-        if fused and fq_attn.supports_flash(m1_site, m2_site, m1_mode,
-                                            m2_mode):
+        if fused and fq_attn.supports_flash(
+                m1_site, m2_site, m1_mode, m2_mode,
+                shape=(q.shape[-2], q.shape[-1]), dtype=q.dtype):
             # the whole quantized window attention in one kernel; the
             # rel-pos bias (+ shifted-window mask) folds into a (P, N, N)
             # additive logit bias with period P over the flattened

@@ -140,8 +140,9 @@ def vit_attention(cfg: ViTConfig, ap: Attention, qstate, prefix: str, x,
         # no kernel in training (block reconstruction differentiates the
         # plain ops)
         fused = taps is None and not training
-        if fused and fq_attn.supports_flash(m1_site, m2_site, m1_mode,
-                                            m2_mode):
+        if fused and fq_attn.supports_flash(
+                m1_site, m2_site, m1_mode, m2_mode,
+                shape=(q.shape[-2], q.shape[-1]), dtype=q.dtype):
             # the whole quantized attention, uq(q) @ uq(kT) -> scale ->
             # softmax -> AdaLog -> @ uq(v), in one kernel: the (B, H, N, N)
             # logits never reach device memory

@@ -8,6 +8,7 @@ from typing import Tuple, Union
 
 import torch
 
+from adalog_tpu_torch.models.eva import EvaConfig, eva_init
 from adalog_tpu_torch.models.vit import ViTConfig, vit_init
 from adalog_tpu_torch.models.swin import SwinConfig, swin_init
 
@@ -15,13 +16,15 @@ IMAGENET_DEFAULT_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_DEFAULT_STD = (0.229, 0.224, 0.225)
 IMAGENET_INCEPTION_MEAN = (0.5, 0.5, 0.5)
 IMAGENET_INCEPTION_STD = (0.5, 0.5, 0.5)
+OPENAI_CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
+OPENAI_CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
 
 
 @dataclass(frozen=True)
 class ModelSpec:
     name: str
-    family: str                      # 'vit' | 'swin'
-    cfg: Union[ViTConfig, SwinConfig]
+    family: str                      # 'vit' | 'swin' | 'eva'
+    cfg: Union[ViTConfig, SwinConfig, EvaConfig]
     timm_id: str
     mean: Tuple[float, ...] = IMAGENET_DEFAULT_MEAN
     std: Tuple[float, ...] = IMAGENET_DEFAULT_STD
@@ -62,6 +65,12 @@ MODEL_ZOO = {
     "swin_base_384": _swin("swin_base_384", "swin_base_patch4_window12_384",
                            128, (2, 2, 18, 2), (4, 8, 16, 32),
                            img_size=384, window=12, crop_pct=1.0),
+    # timm eva02_large_patch14_448: 1,025 tokens, 2D RoPE, SwiGLU + sub-LN
+    "eva02_large_448": ModelSpec(
+        name="eva02_large_448", family="eva",
+        timm_id="eva02_large_patch14_448.mim_m38m_ft_in22k_in1k",
+        cfg=EvaConfig(), mean=OPENAI_CLIP_MEAN, std=OPENAI_CLIP_STD,
+        crop_pct=1.0),
     # tiny fixtures for tests (no timm counterpart)
     "test_tiny": ModelSpec(
         name="test_tiny", family="vit", timm_id="test_tiny",
@@ -72,6 +81,12 @@ MODEL_ZOO = {
         cfg=SwinConfig(img_size=32, patch_size=4, embed_dim=16,
                        depths=(1, 2), heads=(2, 4), window=4,
                        num_classes=10)),
+    # hidden int(32 * 8 / 3) = 85, ragged as 2730 is; a 4 x 4 grid whose
+    # RoPE positions scale to a reference grid of 2
+    "test_tiny_eva": ModelSpec(
+        name="test_tiny_eva", family="eva", timm_id="test_tiny_eva",
+        cfg=EvaConfig(img_size=32, patch_size=8, dim=32, depth=2, heads=2,
+                      mlp_hidden=85, rope_grid=2, num_classes=10)),
 }
 
 
@@ -90,7 +105,8 @@ def build_model(name: str, checkpoint_path: str = None, seed: int = 0,
         from adalog_tpu_torch.models.load import load_timm_state_dict
         model = load_timm_state_dict(spec, checkpoint_path).to(device)
     else:
-        init = vit_init if spec.family == "vit" else swin_init
+        init = {"vit": vit_init, "swin": swin_init,
+                "eva": eva_init}[spec.family]
         model = init(spec.cfg, torch.Generator().manual_seed(seed),
                      device=device)
     return spec, model
@@ -100,5 +116,8 @@ def model_forward_fn(spec: ModelSpec):
     if spec.family == "vit":
         from adalog_tpu_torch.models.vit import vit_forward
         return vit_forward
+    if spec.family == "eva":
+        from adalog_tpu_torch.models.eva import eva_forward
+        return eva_forward
     from adalog_tpu_torch.models.swin import swin_forward
     return swin_forward

@@ -29,10 +29,13 @@ either device.
 
 K1 has two hand-written variants in one source (``flash_variant`` routes):
 "mma" runs both products on the tensor cores with the logits in registers
-and a per-slice table of the AdaLog values; "fma", the first kernel, runs
-exact fp32 products on the FMA pipes and takes what "mma" does not (S above
-256, more than 256 AdaLog codes, fp32 operands whose integer codes are not
-exact in bf16). ``fq_flash_attn(..., variant="mma" | "fma")`` forces one.
+and a per-slice table of the AdaLog values; past 256 keys (D <= 64) it
+takes each row in two passes over key tiles, the long row
+(``long_row``): the max and the sum first, then the codes. "fma", the
+first kernel, runs exact fp32 products on the FMA pipes and takes what
+"mma" does not (more than 256 AdaLog codes, fp32 operands whose integer
+codes are not exact in bf16, D above 64 past 256 keys).
+``fq_flash_attn(..., variant="mma" | "fma")`` forces one.
 
 K2 and K3 have the same two variants in their one source
 (``matmul_variant`` routes, ``variant=`` on either wrapper forces): "mma"
@@ -65,6 +68,7 @@ _MAX_HEAD_DIM = 128               # 4 output columns per lane
 # variant "mma" of fq_flash_attn.cu
 VARIANTS = ("auto", "mma", "fma")
 _MMA_MAX_S = 256                  # a row of logits in registers: 32 n8 tiles
+_LONG_MAX_D = 64                  # the long row past _MMA_MAX_S keys
 _MMA_MAX_CODE_BITS = 8            # the code table holds at most 256 values
 _MMA_INT_BITS = 8                 # fp32 inputs: operand codes c in 0..255,
 _MMA_INT_MAX = 256                # |c - z| <= 256, and 4N - 2 <= 254 steps
@@ -418,8 +422,9 @@ def mma_refusal(S: int, D: int, dtype, bits, exact_ints: bool) -> Optional[str]:
     is (m1a, m1b, m2a, m2b); ``exact_ints`` the verdict on the zero points
     of fp32 inputs (ignored for bf16)."""
     m1a_bits, m1b_bits, m2a_bits, m2b_bits = bits
-    if S > _MMA_MAX_S:
-        return f"S={S} > {_MMA_MAX_S}: a row of logits does not fit registers"
+    if long_row(S) and D > _LONG_MAX_D:
+        return (f"head dim {D} > {_LONG_MAX_D} at S={S} > {_MMA_MAX_S}: the "
+                "long row holds at most 64")
     if D > _MAX_HEAD_DIM:
         return f"head dim {D} > {_MAX_HEAD_DIM}"
     if m2a_bits > _MMA_MAX_CODE_BITS:
@@ -437,6 +442,21 @@ def mma_refusal(S: int, D: int, dtype, bits, exact_ints: bool) -> Optional[str]:
             return ("a zero point of the fp32 operands is out of range: "
                     f"|c - z| > {_MMA_INT_MAX} is not exact in bf16")
     return None
+
+
+def long_row(S: int) -> bool:
+    """True where variant "mma" takes a call's rows in two passes over key
+    tiles (its logits do not fit a warp's registers): S above 256."""
+    return S > _MMA_MAX_S
+
+
+def flash_takes(S: int, D: int, dtype, bits, exact_ints: bool) -> bool:
+    """True where one variant of K1 takes a call routed "auto"."""
+    try:
+        flash_variant(S, D, dtype, bits, exact_ints)
+    except ValueError:
+        return False
+    return True
 
 
 def flash_variant(S: int, D: int, dtype, bits, exact_ints: bool,
@@ -486,6 +506,8 @@ def _launch(q, kT, v, m1a_params, m1b_params, m2q, m2b_params, bias,
                            f"CUDA error {err}")
     fq_flash_attn.launches += 1
     fq_flash_attn.variant_launches[variant] += 1
+    if variant == "mma" and long_row(S):
+        fq_flash_attn.long_row_launches += 1
     return out
 
 
@@ -507,7 +529,9 @@ def fq_flash_attn(q, kT, v, m1a_params, m1b_params, m2q, m2b_params,
     not take the call; a CPU call checks that too). ``exact_ints`` is the
     caller's verdict on the zero points (``integers_exact``, taken where a
     predictor is built); None has the wrapper read them itself when an fp32
-    call could take "mma", which waits for the device."""
+    call could take "mma", which waits for the device. A launch counts in
+    ``launches`` and ``variant_launches``, and a long row of "mma"
+    (``long_row``) in ``long_row_launches`` too."""
     bits = (m1a_bits, m1b_bits, m2a_bits, m2b_bits)
     _check(q, kT, v, m1a_params, m1b_params, m2q, m2b_params, bias, bits)
     if variant not in VARIANTS:
@@ -539,6 +563,8 @@ def fq_flash_attn(q, kT, v, m1a_params, m1b_params, m2q, m2b_params,
 fq_flash_attn.launches = 0
 fq_flash_attn.calls = 0
 fq_flash_attn.variant_launches = {"mma": 0, "fma": 0}
+# the calls of "mma" that took the long row (counted under "mma" too)
+fq_flash_attn.long_row_launches = 0
 
 # the phases variant "mma" counts its cycles by, in the kernel's order
 FLASH_PHASES = ("stage uq(kT), uq(v), code table", "stage uq(q) tile",
@@ -563,6 +589,9 @@ def flash_phase_cycles(q, kT, v, m1a_params, m1b_params, m2q, m2b_params,
         and zero_points_exact(m1b_params, m1b_bits)
         and zero_points_exact(m2b_params, m2b_bits))
     flash_variant(q.shape[1], q.shape[2], q.dtype, bits, exact, "mma")
+    if long_row(q.shape[1]):
+        raise ValueError("flash_phase_cycles times the short row (S <= "
+                         f"{_MMA_MAX_S}); S={q.shape[1]} takes the long row")
     lib = _library(True)
     cycles = (ctypes.c_ulonglong * 16)()
     with torch.cuda.device(q.device):
@@ -982,10 +1011,14 @@ def supports_softmax(site, mode: str) -> bool:
             and Bq.kind == "uniform" and Bq.bits != 32)
 
 
-def supports_flash(m1_site, m2_site, m1_mode: str, m2_mode: str) -> bool:
+def supports_flash(m1_site, m2_site, m1_mode: str, m2_mode: str,
+                   shape, dtype) -> bool:
     """K1, the fully fused path: matmul1 both-uniform, matmul2 AdaLog A
     (unshifted) and uniform B, both sites in quant mode (the shipped eval
-    configuration)."""
+    configuration), and a variant of the kernel that takes the call's
+    ``shape`` (S, D) and ``dtype`` on a card (``flash_takes``), so that a
+    forward takes the unfused path where neither does; the verdict on the
+    zero points is ``activate``'s, or read from the two sites."""
     if not enabled() or m1_mode != "quant" or m2_mode != "quant":
         return False
     if m1_site is None or m2_site is None:
@@ -995,7 +1028,13 @@ def supports_flash(m1_site, m2_site, m1_mode: str, m2_mode: str) -> bool:
             or m1a.bits == 32 or m1b.bits == 32
             or m1a.shifted or m1b.shifted):
         return False
-    return supports_softmax(m2_site, m2_mode)
+    if not supports_softmax(m2_site, m2_mode):
+        return False
+    exact = _EXACT_INTS.get()
+    if exact is None and dtype == torch.float32:
+        exact = integers_exact({"m1": m1_site, "m2": m2_site})
+    bits = (m1a.bits, m1b.bits, m2_site.Aq.bits, m2_site.Bq.bits)
+    return flash_takes(shape[0], shape[1], dtype, bits, bool(exact))
 
 
 def _period_params(qs):

@@ -20,6 +20,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, Dict, List
 
+from adalog_tpu_torch.models import eva as E
 from adalog_tpu_torch.models import swin as SW
 from adalog_tpu_torch.models import vit as V
 
@@ -48,6 +49,33 @@ def _vit_units(spec) -> List[BlockUnit]:
 
     def head_fwd(p, qs, x, modes, training, soft):
         return V.vit_head(cfg, p, qs, x, modes, None,
+                          training=training, soft=soft)
+
+    units = [BlockUnit("patch_embed",
+                       {"patch_embed.proj": "patch_embed.proj"},
+                       lambda p: p, patch_fwd)]
+    for i in range(cfg.depth):
+        pre = f"blocks.{i}"
+        canon = {f"{pre}.{s}": f"blk.{s}" for s in VIT_BLOCK_SITES}
+        units.append(BlockUnit(pre, canon,
+                               lambda p, i=i: p.blocks[i], block_fwd))
+    units.append(BlockUnit("head", {"head": "head"}, lambda p: p, head_fwd))
+    return units
+
+
+def _eva_units(spec) -> List[BlockUnit]:
+    cfg = spec.cfg
+
+    def patch_fwd(p, qs, x, modes, training, soft):
+        return E.eva_patch_embed(cfg, p, qs, x, modes, None,
+                                 training=training, soft=soft)
+
+    def block_fwd(bp, qs, x, modes, training, soft):
+        return E.eva_block(cfg, bp, qs, "blk", x, modes, None,
+                           training=training, soft=soft)
+
+    def head_fwd(p, qs, x, modes, training, soft):
+        return E.eva_head(cfg, p, qs, x, modes, None,
                           training=training, soft=soft)
 
     units = [BlockUnit("patch_embed",
@@ -108,4 +136,5 @@ def _swin_units(spec) -> List[BlockUnit]:
 
 
 def block_units(spec) -> List[BlockUnit]:
-    return _vit_units(spec) if spec.family == "vit" else _swin_units(spec)
+    return {"vit": _vit_units, "eva": _eva_units,
+            "swin": _swin_units}[spec.family](spec)

@@ -38,7 +38,7 @@ FORMAT_VERSION = 2
 PARAM_CLASSES = frozenset({
     "LinearP", "ConvP", "LayerNormP", "ViTParams", "BlockP", "AttentionP",
     "MlpP", "SwinParams", "SwinStageP", "SwinBlockP", "PatchMergingP",
-    "WindowAttentionP",
+    "WindowAttentionP", "EvaParams",
 })
 REGISTRY = PARAM_CLASSES | frozenset(QSTATE_CLASSES)
 

@@ -25,7 +25,8 @@ import numpy as np
 import torch
 
 from adalog_tpu_torch.models.layers import LinearSite, ConvSite, MatMulSite
-from adalog_tpu_torch.models.load import load_swin, load_vit
+from adalog_tpu_torch.models.eva import EvaTransformer
+from adalog_tpu_torch.models.load import load_eva, load_swin, load_vit
 from adalog_tpu_torch.models.swin import (
     SwinTransformer, gather_rel_pos_bias, ungather_rel_pos_bias,
 )
@@ -221,9 +222,14 @@ def _swin_to_tree(model) -> Node:
 def params_to_tree(model) -> Node:
     """A port ``VisionTransformer`` or ``SwinTransformer`` -> the
     ``ViTParams`` or ``SwinParams`` tree of the JAX package, as Nodes with
-    numpy leaves (what a v2 checkpoint stores)."""
+    numpy leaves (what a v2 checkpoint stores). An ``EvaTransformer``, which
+    the JAX package lacks, becomes an ``EvaParams`` node holding its
+    state dict under the module's keys."""
     if isinstance(model, SwinTransformer):
         return _swin_to_tree(model)
+    if isinstance(model, EvaTransformer):
+        return Node("EvaParams", {"state": {
+            k: _host(t) for k, t in model.state_dict().items()}})
     blocks = tuple(
         Node("BlockP", {
             "norm1": _ln_node(bp.norm1),
@@ -278,6 +284,8 @@ def model_from_tree(cfg, params):
         return load_vit(cfg, vit_state_dict(params))
     if name == "SwinParams":
         return load_swin(cfg, swin_state_dict(params))
+    if name == "EvaParams":
+        return load_eva(cfg, dict(node_fields(params)["state"]))
     raise TypeError(f"not a parameter tree of the JAX package: {name!r}")
 
 

@@ -25,10 +25,14 @@ The spans, by where they are opened:
   linear.fq_gemm    the fused activation-quant GEMM (K4)
   conv              the patch-embedding convolution
   norm, gelu        LayerNorm, GeLU
-  attn              qkv output to merged heads (models/vit.py, swin.py)
+  attn              qkv output to merged heads (models/vit.py, swin.py,
+                    eva.py)
   swin.window       Swin's rolls, window partition and reverse, and the
                     patch merge's gather
   swin.bias         Swin's rel-pos bias gather and shift-mask add
+  eva.rope          EVA-02's rotation of q and k (inside attn) and its
+                    sine and cosine tables (models/eva.py)
+  eva.glu           EVA-02's gated product silu(gate) * value
 """
 
 from __future__ import annotations

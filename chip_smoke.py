@@ -92,10 +92,13 @@ Phases, each a hard check (any failure raises and exits non-zero):
      against the plain version bit for bit, with and without the bias, at
      deit_small's int8 sites at batch 32 (qkv, proj, fc1, the head),
      deit_base's three block sites, vit_large's three and its head,
-     swin_base_384's stage 0 qkv, stage 2 fc1 and stage 2-3 reduction, and
-     two ragged shapes ("wgmma" must take every shape but the ragged ones,
-     whose reason is printed; the routed call takes the variant
-     int8_variant names), fp32 and bf16, each variant timed as K4 (one
+     swin_base_384's stage 0 qkv, stage 2 fc1 and stage 2-3 reduction,
+     eva02_large_448's four block sites and its head at batch 64 (T =
+     65600: qkv 1024->3072, proj 1024->1024, fc1 1024->5460, fc2
+     2730->1024), and two ragged shapes ("wgmma" must take every shape but
+     the ragged ones, eva02's fc2 and, in bf16, its fc1, whose reason is
+     printed and which are routed to "mma"; the routed call takes the
+     variant int8_variant names), fp32 and bf16, each variant timed as K4 (one
      call, ten in a row, ten from a CUDA graph) beside torch._int_mm on the
      activation codes (the product alone; one call and from a CUDA graph),
      the sums over deit_small's four sites printed; then
@@ -106,6 +109,11 @@ Phases, each a hard check (any failure raises and exits non-zero):
      kernels, fp32 and bf16: per batch K5 37 (deit_small) or 40 (swin_tiny)
      times, every launch "wgmma" (the heads' 32 rows too), K1 12, K4 12
      (the AdaLog fc2 sites) with the GEMM switch, else 0; img/s; then
+     eva02_large_448 at full depth and width with a smoke state, served
+     the same way in fp32 on EVA_BATCH images: per batch K1 24 (every one
+     "mma" and on the long row, S=1025), K5 97 (73 "wgmma", fc2's 24
+     "mma"), K2, K3, K4 and K6 0, and no tensor as large as the (B*H, S, S)
+     logits; then
      site_error_report on the calibrated deit_small (its top rows and
      seconds) and its export round trip (export_quantized, then
      load_exported on the card, logits against the plain predictor);
@@ -258,8 +266,9 @@ GEMM_SWIN_SHAPES = (("swin_tiny stage 0 qkv", 100352, 96, 288, "uniform"),
 # int8 sites of the models the JAX package serves with int8 by default at
 # batch 32 (vit_large's block sites and head; swin_base_384's longest
 # Linear, stage 0's qkv, stage 2's fc1 and its deepest, the stage 2-3
-# reduction) and two ragged shapes (K neither a multiple of 16 nor of a
-# stage, odd O), which variant "wgmma" refuses: (site, T, K, O)
+# reduction), eva02_large_448's block sites and head at batch 64 (T = 64 x
+# 1,025 tokens; q | k | v and gate | value are one site each) and two ragged
+# shapes (K neither a multiple of 16 nor of a stage, odd O): (site, T, K, O)
 INT8_SHAPES = (("deit_small qkv", 6304, 384, 1152),
                ("deit_small proj", 6304, 384, 384),
                ("deit_small fc1", 6304, 384, 1536),
@@ -274,8 +283,20 @@ INT8_SHAPES = (("deit_small qkv", 6304, 384, 1152),
                ("swin_base_384 stage 0 qkv", 294912, 128, 384),
                ("swin_base_384 stage 2 fc1", 18432, 512, 2048),
                ("swin_base_384 reduction 2-3", 4608, 2048, 1024),
+               ("eva02_large_448 qkv", 65600, 1024, 3072),
+               ("eva02_large_448 proj", 65600, 1024, 1024),
+               ("eva02_large_448 fc1", 65600, 1024, 5460),
+               ("eva02_large_448 fc2", 65600, 2730, 1024),
+               ("eva02_large_448 head", 64, 1024, 1000),
                ("ragged", 777, 100, 130),
                ("ragged", 6304, 40, 1001))
+# the sites of INT8_SHAPES that variant "wgmma" refuses, by dtype, so that
+# K5 routes them to "mma": the ragged shapes; eva02_large_448's fc2 (K =
+# 2730 is no multiple of 16, and past WGMMA_K_MAX); its fc1 in bf16 (an
+# output row of 5460 bf16 values is no multiple of 16 bytes)
+INT8_MMA_SITES = {
+    "float32": {"ragged", "eva02_large_448 fc2"},
+    "bfloat16": {"ragged", "eva02_large_448 fc2", "eva02_large_448 fc1"}}
 SMOKE_LOG_Q = 29.0          # AdaLog base of the smoke state, not 37
 # qkv weight std: q.k logits of LayerNormed tokens then have a std of about
 # (QKV_STD**2 * dim) * head_dim**0.5 / 8 ~ 2
@@ -290,8 +311,11 @@ QKV_STD = 0.075
 ATOL = RTOL = 1e-5
 FLIP_SHARE = 1e-3
 FLIP_MAX = 0.1
-# K1 past the 256 columns variant "mma" holds in registers: "fma" by routing
+# K1 past the 256 columns variant "mma" holds in registers: its long row by
+# routing, "fma" forced
 LONG_SHAPE = dict(G=64, S=300, D=64, P=2)
+# eva02_large_448 at batch 64: 16 heads of 1,025 tokens, K1's long row
+EVA_SHAPE = dict(G=1024, S=1025, D=64)
 # K4 vs plain: ATOL + GEMM_RTOL[dtype]*|ref|, with the same share and max.
 # fp32: the two sum in different orders; bf16: both round their fp32 sum to
 # bf16, and sums a last bit apart may round to neighbours one bf16 ulp
@@ -549,8 +573,10 @@ def flash_case(torch, fq_attn, args, bias, kw, tag, variant, took):
 def kernel_phase(torch, fq_attn, device):
     """Hold the kernel against its plain version: as routed ("mma",
     asserted) at KERNEL_SHAPE in fp32 and bf16, with and without bias;
-    "fma" forced at KERNEL_SHAPE in fp32, and as routed at LONG_SHAPE; "mma"
-    at swin_tiny's window shapes with a bias of their period. Returns the
+    "fma" forced at KERNEL_SHAPE in fp32; "mma" as routed (its long row)
+    and "fma" forced at LONG_SHAPE; "mma" as routed at EVA_SHAPE (the long
+    row, timed for PERF.md's table); "mma" at swin_tiny's window shapes
+    with a bias of their period. Returns the
     fp32 no-bias times (flash_case's three) of the routed variant at
     KERNEL_SHAPE and the largest max|diff| of all cases."""
     G, S, D, P = (KERNEL_SHAPE[k] for k in "GSDP")
@@ -577,9 +603,22 @@ def kernel_phase(torch, fq_attn, device):
     lg, ls, ld, lp = (LONG_SHAPE[k] for k in "GSDP")
     *args, bias = attention_inputs(torch, lg, ls, ld, lp, SEED + 2, device)
     kw["logit_scale"] = ld ** -0.5
-    _, d = flash_case(torch, fq_attn, args, bias, kw,
-                      "float32, bias, S > 256", "auto", "fma")
+    for variant, took in (("auto", "mma"), ("fma", "fma")):
+        _, d = flash_case(torch, fq_attn, args, bias, kw,
+                          "float32, bias, S > 256", variant, took)
+        worst = max(worst, d)
+    before = fq_attn.fq_flash_attn.long_row_launches
+    eg, es, ed = (EVA_SHAPE[k] for k in "GSD")
+    *args, _ = attention_inputs(torch, eg, es, ed, 1, SEED + 4, device)
+    kw["logit_scale"] = ed ** -0.5
+    _, d = flash_case(torch, fq_attn, args, None, kw,
+                      "eva02_large_448 batch 64, float32, long row", "auto",
+                      "mma")
     worst = max(worst, d)
+    check(fq_attn.fq_flash_attn.long_row_launches > before,
+          "the EVA-02 shape did not take the long row")
+    del args
+    torch.cuda.empty_cache()
 
     for model, wg, ws, wd in MATMUL_SHAPES[1:]:
         # the bias's period: windows x heads of one image
@@ -1175,7 +1214,8 @@ def fq_act_kernel_phase(torch, fq_act, device):
 
 def int8_kernel_phase(torch, device):
     """K5's variants against the plain version, bit for bit, at INT8_SHAPES
-    in fp32 and bf16; every shape but the ragged ones must take "wgmma".
+    in fp32 and bf16; every shape but INT8_MMA_SITES must take "wgmma",
+    and those are routed to "mma".
     Returns ({dtype: {key: the numbers summed over deit_small's four int8
     sites, its block's three and the head; for "wgmma" and "mma" a dict of
     their times}}, the largest max|diff|)."""
@@ -1199,7 +1239,8 @@ def int8_kernel_phase(torch, device):
                                                  SEED + 40 + i, device)
             r, d = int8_case(torch, x.to(dtype), w_int, prm, srow,
                              b.to(dtype), f"{dt}, {site}")
-            check((r["refused"] is None) == (site != "ragged"),
+            check((r["refused"] is None)
+                  == (site not in INT8_MMA_SITES[dt]),
                   f"[{dt}, {site}] 'wgmma' refusal: {r['refused']}")
             worst = max(worst, d)
             if site.startswith("deit_small"):
@@ -1280,20 +1321,25 @@ def timm_weights(cfg, seed):
 
 
 def swin_weights(cfg, seed):
-    """A timm-keyed Swin state dict from a numpy seed: normal weights and
-    rel-pos tables (std 0.02; qkv of a stage of width C std sqrt(2 / C), so
-    the window logits have a std of about 2 and attention rows are peaked),
-    zero biases, unit LayerNorms, bias-free reductions."""
-    import torch
+    """A timm-keyed Swin state dict from a numpy seed (module_weights)."""
     from adalog_tpu_torch.models.swin import SwinTransformer
 
+    return module_weights(SwinTransformer, cfg, seed)
+
+
+def module_weights(cls, cfg, seed):
+    """A state dict of the module ``cls`` builds from ``cfg``, in its own
+    keys, from a numpy seed: normal weights and rel-pos tables (std 0.02;
+    qkv of width C std sqrt(2 / C), so the logits have a std of about 2 and
+    attention rows are peaked), zero biases, unit LayerNorms, bias-free
+    Swin reductions."""
     rng = np.random.default_rng(seed)
     sd = {}
-    for key, t in SwinTransformer(cfg, device="meta").state_dict().items():
+    for key, t in cls(cfg, device="meta").state_dict().items():
         shape = tuple(t.shape)
         if key.endswith("bias"):
             sd[key] = np.zeros(shape, np.float32)
-        elif ".norm" in key or key.startswith("norm"):
+        elif "norm" in key.rpartition(".")[0].rpartition(".")[2]:
             sd[key] = np.ones(shape, np.float32)
         else:
             std = (2.0 / shape[1]) ** 0.5 if key.endswith("qkv.weight") \
@@ -1507,6 +1553,14 @@ ZOO_FALLBACK = ("vit_large", "swin_base_384")
 # reductions and head.fc); the AdaLog fc2 sites stay on K4 (12 a batch)
 # with the GEMM switch, else on the plain path
 INT8_MODELS = {"deit_small": 37, "swin_tiny": 40}
+# eva02_large_448 served with eval_int8 in fp32, launches a batch: K1 at
+# each block's attention, every one "mma" on the long row (S = 1025); K5 at
+# qkv, proj, fc1 and fc2 of the 24 blocks and at the head, fc2's on "mma"
+# (INT8_MMA_SITES) and the rest on "wgmma"; no fake-quant Linear site is
+# left for K4 or K6
+EVA_MODEL, EVA_BATCH = "eva02_large_448", 4
+EVA_LAUNCHES = {"K1": 24, "K2": 0, "K3": 0, "K4": 0, "K5": 97, "K6": 0}
+EVA_K5_VARIANTS = {"wgmma": 73, "mma": 24}
 # int8 serving settings: (name, use_pallas, use_pallas_gemm)
 INT8_SETTINGS = (("int8 + attention kernel", True, False),
                  ("int8 + attention + GEMM kernels", True, True))
@@ -2387,11 +2441,94 @@ def serve_int8(torch, fq_attn, fq_gemm, device, spec, ckpt, batches, tag,
     return launches
 
 
+def eva_int8_serving(torch, fq_attn, fq_gemm, device, ckpt_dir,
+                     name=EVA_MODEL):
+    """Model ``name`` (an EVA-02) at full depth and width with random
+    weights from SEED and its smoke state, served through load_quantized
+    with eval_int8 in fp32 on EVA_BATCH images: one batch's launches
+    (EVA_LAUNCHES, K5's by variant EVA_K5_VARIANTS, every K1 launch "mma"
+    on the long row) and the largest tensor PyTorch makes in it, which
+    must hold fewer elements than the (B*H, S, S) logits that K1 keeps on
+    chip; the logits checked, ms a batch printed. Returns the launches."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    from adalog_tpu_torch.models.eva import EvaTransformer
+    from adalog_tpu_torch.models.load import load_state_dict
+    from adalog_tpu_torch.models.zoo import model_spec
+    from adalog_tpu_torch.serve import load_quantized
+    from adalog_tpu_torch.utils.checkpoint import save_checkpoint
+
+    class Largest(TorchDispatchMode):
+        """The largest tensor the dispatched ops return: (elements,
+        shape)."""
+        most = (0, ())
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in tree_leaves(out):
+                if isinstance(t, torch.Tensor) and t.numel() > self.most[0]:
+                    self.most = (t.numel(), tuple(t.shape))
+            return out
+
+    spec = model_spec(name)
+    cfg = spec.cfg
+    rng = np.random.default_rng(SEED + 1)
+    shape = (EVA_BATCH, cfg.img_size, cfg.img_size, cfg.in_chans)
+    x, calib = (rng.standard_normal(shape).astype(np.float32)
+                for _ in range(2))
+    model = load_state_dict(spec, module_weights(EvaTransformer, cfg, SEED))
+    model = model.to(device)
+    qstate = smoke_qstate(torch, spec, model, torch.from_numpy(calib),
+                          device)
+    os.makedirs(ckpt_dir, exist_ok=True)
+    ckpt = os.path.join(ckpt_dir, f"{name}_smoke_w4a4_int8.ckpt")
+    save_checkpoint(ckpt, model, qstate, {"model": name,
+                                          "state": "smoke, not FPCS"})
+    del model, qstate
+    predict, *_ = load_quantized(
+        name, ckpt, device=device, eval_dtype="float32", use_pallas=True,
+        config=quant_config(use_pallas_gemm=False, eval_int8=True))
+    os.remove(ckpt)
+    predict(x)                                       # warm-up
+    torch.cuda.synchronize()
+    zero_launches(fq_attn, fq_gemm)
+    long_rows = fq_attn.fq_flash_attn.long_row_launches
+    with Largest() as seen:
+        y = predict(x)
+    torch.cuda.synchronize()
+    got = read_launches(fq_attn, fq_gemm)
+    long_rows = fq_attn.fq_flash_attn.long_row_launches - long_rows
+    k1 = dict(fq_attn.fq_flash_attn.variant_launches)
+    H, S = cfg.heads, cfg.num_patches + 1
+    logits = EVA_BATCH * H * S * S
+    print(f"serving path {name} int8 float32, batch {EVA_BATCH}: launches "
+          f"{got}, K1 by variant {k1} ({long_rows} on the long row), K5 by "
+          f"variant {k5_variants()}; largest tensor {seen.most[1]} "
+          f"({seen.most[0]} elements; the (B*H, S, S) logits would hold "
+          f"{logits})")
+    check(got == EVA_LAUNCHES, f"{name}: launches {got} != {EVA_LAUNCHES}")
+    check(k1 == {"mma": got["K1"], "fma": 0} and long_rows == got["K1"],
+          f"{name}: K1 by variant {k1}, {long_rows} long rows")
+    check(k5_variants() == EVA_K5_VARIANTS,
+          f"{name}: K5 by variant {k5_variants()} != {EVA_K5_VARIANTS}")
+    check(seen.most[0] < logits,
+          f"{name}: a tensor of {seen.most[1]} in the forward")
+    check_logits(torch, y, spec, EVA_BATCH, f"{name} int8 float32")
+    ms = cuda_ms(torch, lambda: predict(x), reps=5, warmup=1)
+    print(f"serving {name} int8 float32, batch {EVA_BATCH}: {ms:.2f} ms a "
+          f"batch; {card_line()}")
+    del predict
+    torch.cuda.empty_cache()
+    return got
+
+
 def int8_phase(torch, fq_attn, fq_gemm, device, ckpt_dir, start):
     """K5 against its plain version at INT8_SHAPES; the calibrated
     deit_small (the calibration phase's folded state) and the smoke
     swin_tiny: int8 block checks, then served with eval_int8 (serve_int8);
-    then site_error_report on the calibrated deit_small and its export
+    eva02_large_448 served with eval_int8 (eva_int8_serving); then
+    site_error_report on the calibrated deit_small and its export
     round trip on the card. Returns (the K5 kernel numbers, {kernel:
     launches of the served paths}, {kernel: worst max|diff|})."""
     from adalog_tpu_torch.serve import make_predictor
@@ -2435,6 +2572,9 @@ def int8_phase(torch, fq_attn, fq_gemm, device, ckpt_dir, start):
         if name != CALIB_MODEL:
             del model, qs
         torch.cuda.empty_cache()
+    for k, v in eva_int8_serving(torch, fq_attn, fq_gemm, device,
+                                 ckpt_dir).items():
+        launches[k] += v
 
     t0 = time.perf_counter()
     rows = site_error_report(spec, params, qstate, start["calib"].layout,

@@ -164,13 +164,14 @@ def test_flash_gate():
     and AdaLog matmul2, both sites in quant mode."""
     rng = np.random.default_rng(0)
     _, (m1, m2) = _sites(rng, 2, 29.0)
-    assert not fq_attn.supports_flash(m1, m2, "quant", "quant")
+    call = dict(shape=(197, 64), dtype=F32)
+    assert not fq_attn.supports_flash(m1, m2, "quant", "quant", **call)
     with fq_attn.activate(True):
-        assert fq_attn.supports_flash(m1, m2, "quant", "quant")
-        assert not fq_attn.supports_flash(m1, m2, "quant", "raw")
-        assert not fq_attn.supports_flash(None, m2, "quant", "quant")
-        assert not fq_attn.supports_flash(m2, m2, "quant", "quant")
-        assert not fq_attn.supports_flash(m1, m1, "quant", "quant")
+        assert fq_attn.supports_flash(m1, m2, "quant", "quant", **call)
+        assert not fq_attn.supports_flash(m1, m2, "quant", "raw", **call)
+        assert not fq_attn.supports_flash(None, m2, "quant", "quant", **call)
+        assert not fq_attn.supports_flash(m2, m2, "quant", "quant", **call)
+        assert not fq_attn.supports_flash(m1, m1, "quant", "quant", **call)
     assert not fq_attn.enabled()
 
 
@@ -359,8 +360,9 @@ F32, BF16 = torch.float32, torch.bfloat16
     (49, 32, F32, (4, 4, 4, 4), True, "mma"),        # swin_tiny
     (49, 32, BF16, (4, 4, 4, 4), False, "mma"),      # bf16 needs no integers
     (256, 128, F32, (8, 8, 7, 8), True, "mma"),      # the widest it takes
-    (300, 64, F32, (4, 4, 4, 4), True, "fma"),       # logits past registers
-    (257, 64, BF16, (4, 4, 4, 4), True, "fma"),
+    (300, 64, F32, (4, 4, 4, 4), True, "mma"),       # the long row
+    (257, 64, BF16, (4, 4, 4, 4), True, "mma"),
+    (300, 32, F32, (9, 4, 4, 4), True, "fma"),       # long, 9-bit operands
     (197, 64, F32, (9, 4, 4, 4), True, "fma"),       # 9-bit fp32 operands
     (197, 64, F32, (4, 4, 4, 9), True, "fma"),
     (197, 64, F32, (4, 4, 8, 4), True, "fma"),       # 510 mantissa steps
@@ -386,9 +388,74 @@ def test_flash_variant_routing(S, D, dtype, bits, exact, want):
 
 def test_flash_variant_raises_where_neither_takes_the_call():
     with pytest.raises(ValueError):
-        fq_attn.flash_variant(577, 64, F32, (4, 4, 4, 4), True)
+        fq_attn.flash_variant(577, 128, F32, (4, 4, 4, 4), True)
     with pytest.raises(ValueError):
         fq_attn.flash_variant(64, 256, BF16, (4, 4, 4, 4), True, "fma")
+
+
+@pytest.mark.parametrize("S,long", [
+    (49, False), (197, False), (256, False),      # a row in registers
+    (257, True), (577, True), (1025, True),       # two passes over key tiles
+])
+def test_long_row_choice(S, long):
+    """Variant "mma" holds a row of up to 256 logits in registers and takes
+    longer rows in two passes (the long row), at a head dim of at most 64;
+    past 256 at D=128 neither variant takes a call ("fma" stages the slice
+    in one block's shared memory)."""
+    bits = (4, 4, 4, 4)
+    assert fq_attn.long_row(S) is long
+    for dtype in (F32, BF16):
+        for D in (32, 64):
+            assert fq_attn.flash_variant(S, D, dtype, bits, True) == "mma"
+            assert fq_attn.flash_takes(S, D, dtype, bits, True)
+        assert fq_attn.flash_takes(S, 128, dtype, bits, True) is not long
+        if long:
+            with pytest.raises(ValueError, match="long row"):
+                fq_attn.flash_variant(S, 128, dtype, bits, True, "mma")
+
+
+def test_flash_gate_declines_shapes_neither_variant_takes():
+    """With the call's shape, supports_flash also asks whether a variant of
+    K1 takes it: D=256 (past both) and D=128 past 256 tokens are declined,
+    so a forward takes the unfused path instead of raising inside K1; the
+    zero points' verdict is activate's, or read from the sites."""
+    rng = np.random.default_rng(0)
+    _, (m1, m2) = _sites(rng, 2, 29.0)
+    gate = functools.partial(fq_attn.supports_flash, m1, m2, "quant",
+                             "quant", dtype=F32)
+    for exact in (True, None):
+        with fq_attn.activate(True, exact_ints=exact):
+            assert gate(shape=(197, 64)) and gate(shape=(1025, 64))
+            assert gate(shape=(49, 32)) and gate(shape=(256, 128))
+            assert not gate(shape=(64, 256))
+            assert not gate(shape=(1025, 128))
+    with fq_attn.activate(True, exact_ints=False):    # "fma" where it fits
+        assert gate(shape=(197, 64)) and not gate(shape=(1025, 64))
+
+
+def test_forward_past_both_variants_takes_the_unfused_path():
+    """A ViT of head dim 256 served with the attention kernels on: no K1
+    call (neither variant takes it), the unfused path's answer instead."""
+    from adalog_tpu_torch.calib.init_state import init_qstate
+    from adalog_tpu_torch.models.vit import ViTConfig, vit_forward, vit_init
+    from adalog_tpu_torch.models.zoo import ModelSpec
+    from adalog_tpu_torch.utils.config import Config
+
+    spec = ModelSpec(name="wide_heads", family="vit", timm_id="wide_heads",
+                     cfg=ViTConfig(img_size=16, patch_size=8, dim=512,
+                                   depth=1, heads=2, num_classes=4))
+    model = vit_init(spec.cfg, torch.Generator().manual_seed(0))
+    qs = init_qstate(spec, Config(), model)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, 16, 16, 3)).astype(np.float32))
+    calls = fq_attn.fq_flash_attn.calls
+    with torch.no_grad(), fq_attn.activate(True, exact_ints=True):
+        got = vit_forward(spec.cfg, model, x, qs, {"*": "quant"})
+    assert fq_attn.fq_flash_attn.calls == calls
+    with torch.no_grad():
+        want = vit_forward(spec.cfg, model, x, qs, {"*": "quant"})
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=RTOL,
+                               atol=ATOL)
 
 
 def test_zero_point_range():

@@ -132,9 +132,21 @@ def test_mma_matches_plain_shapes(cuda_device, G, S, D, P, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S", [257, 300])
 def test_auto_takes_fma_past_256_columns(cuda_device, S, dtype):
+    """Past 256 columns "auto" takes "fma" where the long row of "mma"
+    does not apply (fp32 operands of 9 bits; 512 AdaLog codes), and "fma"
+    forced holds to the plain version where "mma" would take the call."""
     _kernel_vs_plain(cuda_device, 4, S, 64, 2, dtype, True, seed=7,
-                     variant="auto", took="fma")
+                     variant="fma")
     args, b, kw = _case(cuda_device, 4, S, 64, 2, dtype, True, 7)
+    kw = dict(kw, m1b_bits=9) if dtype == torch.float32 \
+        else dict(kw, m2a_bits=9)
+    before = dict(fq_attn.fq_flash_attn.variant_launches)
+    got = fq_attn.fq_flash_attn(*args, b, **kw)
+    torch.cuda.synchronize()
+    assert fq_attn.fq_flash_attn.variant_launches == \
+        dict(before, fma=before["fma"] + 1)
+    _hold(got, fq_attn.fq_flash_attn_plain(*args, b, **kw),
+          chip_smoke.flash_cap(torch, args[2], args[6], kw["m2b_bits"]))
     with pytest.raises(ValueError):
         fq_attn.fq_flash_attn(*args, b, variant="mma", **kw)
 
@@ -201,16 +213,98 @@ def test_inexact_integers_never_reach_mma(cuda_device):
 
 @pytest.mark.cuda
 def test_kernel_refuses_oversized_shapes(cuda_device):
-    """S=577 at D=64 does not fit one block's shared memory: the wrapper
-    raises before launching."""
-    q, kT, v, m1a, m1b, m2q, m2b, _ = chip_smoke.attention_inputs(
-        torch, 1, 577, 64, 1, 3, cuda_device)
+    """S=577 at D=64 does not fit one block's shared memory of "fma": a
+    forced "fma" raises before launching; at D=128 the long row of "mma"
+    does not take it either, and "auto" raises before launching."""
+    kw = dict(m1a_bits=4, m1b_bits=4, m2a_bits=4, m2b_bits=4,
+              logit_scale=0.125)
     before = fq_attn.fq_flash_attn.launches
-    with pytest.raises(ValueError):
-        fq_attn.fq_flash_attn(q, kT, v, m1a, m1b, m2q, m2b, m1a_bits=4,
-                              m1b_bits=4, m2a_bits=4, m2b_bits=4,
-                              logit_scale=0.125)
+    for D, variant in ((64, "fma"), (128, "auto")):
+        q, kT, v, m1a, m1b, m2q, m2b, _ = chip_smoke.attention_inputs(
+            torch, 1, 577, D, 1, 3, cuda_device)
+        with pytest.raises(ValueError):
+            fq_attn.fq_flash_attn(q, kT, v, m1a, m1b, m2q, m2b,
+                                  variant=variant, **kw)
     assert fq_attn.fq_flash_attn.launches == before
+
+
+def _untied_rows(args, b, kw, window=2e-4):
+    """(G, S) True where no post-softmax AdaLog code of the plain version's
+    row lies within ``window`` code units of a rounding boundary that
+    changes its value (as portbench/reference.py's adalog_ties): a last-bit
+    difference of the probability may round such a code either way."""
+    q, kT, v, m1a, m1b, m2q, m2b = args
+
+    def per_g(a):
+        return a.float().reshape(-1, 1, 1)
+
+    qf = fq_attn._uq(q.float(), per_g(m1a[:, 0]), per_g(m1a[:, 1]),
+                     kw["m1a_bits"])
+    kf = fq_attn._uq(kT.float(), per_g(m1b[:, 0]), per_g(m1b[:, 1]),
+                     kw["m1b_bits"])
+    cd = q.dtype
+    l = torch.matmul(qf.to(cd).float(), kf.to(cd).float()) * kw["logit_scale"]
+    if b is not None:
+        P = b.shape[0]
+        l = (l.reshape(-1, P, *l.shape[1:]) + b.float()).reshape(l.shape)
+    p = torch.softmax(l.double(), dim=-1)
+    code = -torch.log2(p.clamp(min=1e-15)) * (37.0 / per_g(m2q).double())
+    tied = ((code - code.floor() - 0.5).abs() < window) \
+        & (code < 2.0 ** kw["m2a_bits"])
+    return ~tied.any(-1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("G,S,D", [
+    (4, 257, 64),           # one column past the short row; 5 key tiles
+    (3, 577, 64),           # 24 x 24 patches + cls
+    (2, 1025, 64),          # EVA-02 at 448 px: 32 x 32 patches + cls
+    (3, 300, 32),           # a narrower head
+    (2, 333, 40),           # a ragged head dim, padded to 64
+])
+def test_long_row_matches_plain(cuda_device, G, S, D, dtype, with_bias):
+    """Past 256 columns "auto" takes the long row of "mma": one launch a
+    call, counted under "mma" and in ``long_row_launches``. On every query
+    row without a tied AdaLog code its output equals the plain version's to
+    ATOL + RTOL |ref|; a tied row may take the neighbouring code (a row of
+    up to 1,025 probabilities, and few rows: the share of flipped outputs
+    that the shorter cases bound is not a fair test here), by at most a
+    flipped code's worth."""
+    args, b, kw = _case(cuda_device, G, S, D, 2 - G % 2, dtype, with_bias,
+                        30 + S)
+    before = (fq_attn.fq_flash_attn.launches,
+              dict(fq_attn.fq_flash_attn.variant_launches),
+              fq_attn.fq_flash_attn.long_row_launches)
+    got = fq_attn.fq_flash_attn(*args, b, **kw)
+    torch.cuda.synchronize()
+    launches, by_variant, long_rows = before
+    assert fq_attn.fq_flash_attn.launches == launches + 1
+    assert fq_attn.fq_flash_attn.variant_launches == \
+        dict(by_variant, mma=by_variant["mma"] + 1)
+    assert fq_attn.fq_flash_attn.long_row_launches == long_rows + 1
+    want = fq_attn.fq_flash_attn_plain(*args, b, **kw)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= chip_smoke.flash_cap(
+        torch, args[2], args[6], kw["m2b_bits"])
+    keep = _untied_rows(args, b, kw)
+    assert keep.float().mean().item() > 0.5
+    diff = (got - want).abs()[keep]
+    assert bool((diff <= ATOL + RTOL * want.abs()[keep]).all()), \
+        diff.max().item()
+
+
+@pytest.mark.cuda
+def test_short_rows_never_take_the_long_row(cuda_device):
+    """S <= 256 takes the kernel of the short row: the long-row counter
+    does not move."""
+    before = fq_attn.fq_flash_attn.long_row_launches
+    for G, S, D in ((12, 197, 64), (8, 49, 32), (3, 256, 64)):
+        _kernel_vs_plain(cuda_device, G, S, D, 1, torch.float32, False,
+                         seed=40 + S, variant="auto", took="mma")
+    assert fq_attn.fq_flash_attn.long_row_launches == before
 
 
 @pytest.mark.cuda

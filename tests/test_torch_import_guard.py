@@ -33,7 +33,8 @@ print("imported", sys.argv[1])
     "adalog_tpu_torch.calib.calibrator", "adalog_tpu_torch.calib.search",
     "adalog_tpu_torch.calib.candidates", "adalog_tpu_torch.ops.scoring",
     "adalog_tpu_torch.utils.resume", "adalog_tpu_torch.serve",
-    "adalog_tpu_torch.models.swin", "adalog_tpu_torch.ops.fq_gemm",
+    "adalog_tpu_torch.models.swin", "adalog_tpu_torch.models.eva",
+    "adalog_tpu_torch.ops.fq_gemm",
     "adalog_tpu_torch.calib.reparam", "adalog_tpu_torch.recon.blocks",
     "adalog_tpu_torch.recon.brecq", "adalog_tpu_torch.cli",
     "adalog_tpu_torch.data.imagenet", "adalog_tpu_torch.data.native_loader",

@@ -1,5 +1,6 @@
 """The port's spans (``adalog_tpu_torch/utils/profiling.py``) in a served
-forward, on the CPU at test_tiny and test_tiny_swin size: with the spans
+forward, on the CPU at test_tiny, test_tiny_swin and test_tiny_eva size:
+with the spans
 off a profiled batch names none of them; with them on each is named as
 often as the model's blocks open it, the image copy and the forward
 inside ``serve.predict``; logits are bitwise the same either way; and
@@ -21,8 +22,8 @@ from adalog_tpu_torch.utils.config import Config
 W4A4 = dict(w_bit=4, a_bit=4, s_bit=4, qhead_a_bit=4)
 
 # (blocks, patch merges) of the fixtures: test_tiny depth 2; test_tiny_swin
-# depths (1, 2), one merge
-SHAPE = {"test_tiny": (2, 0), "test_tiny_swin": (3, 1)}
+# depths (1, 2), one merge; test_tiny_eva depth 2
+SHAPE = {"test_tiny": (2, 0), "test_tiny_swin": (3, 1), "test_tiny_eva": (2, 0)}
 
 
 def expected(name, int8):
@@ -31,8 +32,20 @@ def expected(name, int8):
     AdaLog); a Swin block adds its two window spans and the rel-pos bias;
     a merge opens a window span, a norm and one uniform Linear site. Then
     the patch convolution (weight quantized at call time, activations at 8
-    bits pass through), its norm in Swin, the last norm and the head."""
+    bits pass through), its norm in Swin, the last norm and the head.
+    An EVA-02 block opens norm three times (the sub-LN), eva.rope inside
+    attn and eva.glu once, no gelu, and four uniform Linear sites; the
+    forward opens eva.rope once more for its tables."""
     blocks, merges = SHAPE[name]
+    if name.endswith("eva"):
+        uniform = 4 * blocks + 1
+        want = {"serve.predict": 1, "serve.h2d": 1, "serve.forward": 1,
+                "conv": 1, "fq.weight": 1, "attn": blocks,
+                "norm": 3 * blocks + 1, "eva.rope": blocks + 1,
+                "eva.glu": blocks}
+        want.update({"linear.int8": uniform} if int8 else
+                    {"fq.act.uniform": uniform, "linear": uniform})
+        return want
     swin = name.endswith("swin")
     uniform = 3 * blocks + merges + 1
     want = {"serve.predict": 1, "serve.h2d": 1, "serve.forward": 1,
@@ -50,7 +63,8 @@ def expected(name, int8):
     return want
 
 
-@pytest.fixture(scope="module", params=["test_tiny", "test_tiny_swin"])
+@pytest.fixture(scope="module",
+                params=["test_tiny", "test_tiny_swin", "test_tiny_eva"])
 def served(request):
     torch.manual_seed(0)
     spec, model = zoo.build_model(request.param, seed=0)
@@ -86,6 +100,8 @@ def test_spans_on_name_each_layer(served, int8):
         if e.name in ("serve.h2d", "serve.forward"):
             assert e.cpu_parent.name == "serve.predict"
         if e.name == "swin.bias":
+            assert e.cpu_parent.name == "attn"
+        if e.name == "eva.rope" and e.cpu_parent.name != "serve.forward":
             assert e.cpu_parent.name == "attn"
 
 
