@@ -15,19 +15,25 @@
 // (x 29.1 MB, w 1.6 MB, the output 77.6 MB: 72% of it), 32.3 us at 3.35
 // TB/s, while its 14.9 G integer operations take 7.5 us at the card's 1979
 // dense int8 TOPS. So what counts is that x's loads and the output's stores
-// keep device memory busy all the time; the products hardly matter.
+// keep device memory busy all the time; the products hardly matter. At
+// eva02_large_448's fc2 at batch 64 (T = 65600, K = 2730, O = 1024) the
+// bytes take 0.295 ms in fp32 (x 716 MB, w 2.8 MB, the output 269 MB), the
+// 367 G integer operations 0.185 ms: there the products count too.
 //
-// Numerics, both variants: the quantizer in fp32 to the JAX package's bits
+// Numerics, every variant: the quantizer in fp32 to the JAX package's bits
 // (rint, the IEEE quotient by s from its rounded reciprocal,
 // fq_quant.cuh::div_rn_by_any; no FMA contraction); the int32 sums are
 // exact in any order; the epilogue is __int2float_rn of the sum (exact below
 // 2^24, JAX's convert above), one product with scale_row, one sum with the
-// bias, one rounding to x's dtype. So both equal the plain version bit for
-// bit.
+// bias, one rounding to x's dtype. So all three equal the plain version bit
+// for bit.
 //
-// Two variants, chosen by the wrapper (ops/int8_linear.py::int8_variant):
+// Three variants, chosen by the wrapper (ops/int8_linear.py::int8_variant):
+// "wgmma" where it applies, else "wgmma_codes" where the output rows allow,
+// else "mma".
 //
-// "wgmma", the design for this card (every int8 site of the served models):
+// "wgmma", the design for this card (every int8 site of the served models
+// but eva02's fc2):
 //   - Persistent grid, one block an SM (227 KB of shared memory), three
 //     warpgroups: two consumers and a producer. The (row tile of 64, column
 //     tile of 128) pairs in row-major order are cut into one run a block:
@@ -77,11 +83,33 @@
 //     rows take one 64-row tile); k32 steps past K are not run.
 //   - It takes K a multiple of 16 (w's rows are TMA's row pitch) and at
 //     most W_KMAX, x's rows 16-byte aligned, and O * itemsize a multiple of
-//     16 (the pieces of a row); the wrapper sends the rest to "mma".
+//     16 (the pieces of a row); the wrapper sends the rest to
+//     "wgmma_codes" or "mma".
 //   - Where the time goes: see PERF.md (chip_smoke.py --profile prints the
-//     phase shares of both variants at deit_small's qkv and fc1).
+//     phase shares of "wgmma" and "mma" at deit_small's qkv and fc1).
 //
-// "mma", the first kernel of the port, for what "wgmma" does not take:
+// "wgmma_codes", for a K "wgmma" cannot keep resident or rows it cannot load
+// as 16-byte pieces (eva02_large_448's fc2: K = 2730, rows of 10,920 bytes):
+//   - Two launches. int8_gemm_codes_kernel quantizes x once, by "wgmma"'s
+//     QuantI, into a scratch (T, Kp) int8 buffer the wrapper allocates (Kp
+//     = K rounded up to 128, codes 0 past K), a 16-byte piece of codes a
+//     thread, x read in the widest loads its base and row stride allow (8
+//     bytes at fc2 in fp32). Its bound at fc2: 716 MB read, 185 MB
+//     written, 0.27 ms.
+//   - Then "wgmma"'s persistent block with nothing resident: each ring stage
+//     holds the 64 x 128 slab of codes (TMA, a tensor map over the buffer
+//     encoded at each launch) and w's 128 x 128 (24 KB; 7 stages in fp32,
+//     8 in bf16), the same products, ping-pong and epilogue. A block's run
+//     of tiles is row-major, so a row tile's codes come from device memory
+//     once and from L2 for its other column tiles. Bound at fc2: 185 + 3 +
+//     269 MB, 0.14 ms; the products' 0.19 ms set the pace.
+//   - w's rows need a 16-byte pitch for TMA: the table keeps a site's codes
+//     in an (O, roundup(K, 16)) buffer (ops/int8_linear.py::pitched_codes),
+//     and the tensor map has width K, so TMA fills past K with 0.
+//   - It takes any K and x's layout, and O * itemsize a multiple of 16.
+//
+// "mma", the first kernel of the port, for what neither of the others
+// takes:
 //   - one block of 256 threads (8 warps, 2 x 4) per 64 x 128 output tile,
 //     k in steps of 64; a warp owns 32 rows x 32 columns, 2 x 4 tiles of
 //     mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32, int32 accumulators;
@@ -91,7 +119,8 @@
 //     into int8 codes in shared memory, [row][k] padded to 80 bytes; every
 //     block quantizes its 64 rows again (once per 128-column tile);
 //   - w: 16-byte cp.async of the next k step into a second buffer while this
-//     one is multiplied (element loads where K is not a multiple of 16);
+//     one is multiplied (element loads where K or w's row pitch is not a
+//     multiple of 16);
 //   - epilogue: stored in pairs straight from the fragments, where the row
 //     allows;
 //   - ragged edges: rows past T and k past K are staged as code 0 and w
@@ -148,7 +177,7 @@ struct Args {
   const float* scale_row;
   const void* bias;
   void* out;
-  int T, K, O, lda, bits;
+  int T, K, O, lda, ldw, bits;       // ldw: w's row pitch, at least K
 };
 
 __device__ __forceinline__ void mma_s8(int* c, const uint32_t* a,
@@ -325,10 +354,10 @@ __device__ __forceinline__ void load_w(int8_t* sb, const Args& g, int n0,
     int8_t* dst = sb + rr * LD + kk;
     if (vec) {
       const bool full = o < g.O && k < g.K;
-      const int8_t* src = full ? g.w + static_cast<size_t>(o) * g.K + k : g.w;
+      const int8_t* src = full ? g.w + static_cast<size_t>(o) * g.ldw + k : g.w;
       cp_async16(dst, src, full);
     } else {
-      const int8_t* row = g.w + static_cast<size_t>(o < g.O ? o : 0) * g.K;
+      const int8_t* row = g.w + static_cast<size_t>(o < g.O ? o : 0) * g.ldw;
 #pragma unroll
       for (int j = 0; j < 16; ++j)
         dst[j] = o < g.O && k + j < g.K ? row[k + j] : int8_t(0);
@@ -486,8 +515,8 @@ cudaError_t launch_mma(const Args& g, cudaStream_t stream) {
   constexpr int VEC = 16 / sizeof(T);
   const bool x_vec = g.K % VEC == 0 && g.lda % VEC == 0 &&
                      (reinterpret_cast<uintptr_t>(g.x) & 15) == 0;
-  const bool w_vec =
-      g.K % 16 == 0 && (reinterpret_cast<uintptr_t>(g.w) & 15) == 0;
+  const bool w_vec = g.K % 16 == 0 && g.ldw % 16 == 0 &&
+                     (reinterpret_cast<uintptr_t>(g.w) & 15) == 0;
   const dim3 grid((g.O + BN - 1) / BN, (g.T + BM - 1) / BM);
   if (grid.y > 65535) return cudaErrorInvalidConfiguration;
   int8_gemm_kernel<T><<<grid, THREADS, 0, stream>>>(g, x_vec, w_vec);
@@ -526,28 +555,38 @@ __host__ __device__ constexpr int stg_bytes() {
   return 4 * W_CONSUMERS * W_STG_ROWS * stg_pitch<T>();
 }
 
-// The shared memory of a launch: the resident codes, the ring (as many
-// stages as fit, W_MIN_STAGES to W_MAX_STAGES), the staging rows, each
-// consumer warpgroup's two tables of its tile's 128 row scales and biases,
-// and the barriers: the ring's full and empty, the consumers' two turns.
+// A ring stage: w's 16 KB, and in "wgmma_codes" the 8 KB slab of x's codes
+// before it
+template <bool CODES>
+__host__ __device__ constexpr int ring_stage() {
+  return CODES ? W_SLAB + W_STAGE : W_STAGE;
+}
+
+// The shared memory of a launch: the resident codes ("wgmma" only), the
+// ring (as many stages as fit, W_MIN_STAGES to W_MAX_STAGES), the staging
+// rows, each consumer warpgroup's two tables of its tile's 128 row scales
+// and biases, and the barriers: the ring's full and empty, the consumers'
+// two turns.
 constexpr int W_COLS = W_CONSUMERS * 2 * 2 * W_BN * 4;
 constexpr int W_BARRIERS = (2 * W_MAX_STAGES + 2) * 8;
 
-template <typename T>
+template <typename T, bool CODES>
 struct WLayout {
   int stages, bytes;
   __host__ __device__ constexpr WLayout(int K) : stages(0), bytes(0) {
-    const int fixed = (K + W_BK - 1) / W_BK * W_SLAB + stg_bytes<T>() +
-                      W_COLS + W_BARRIERS;
-    stages = (W_SMEM_LIMIT - fixed) / W_STAGE;
+    const int fixed = (CODES ? 0 : (K + W_BK - 1) / W_BK * W_SLAB) +
+                      stg_bytes<T>() + W_COLS + W_BARRIERS;
+    stages = (W_SMEM_LIMIT - fixed) / ring_stage<CODES>();
     stages = stages > W_MAX_STAGES ? W_MAX_STAGES : stages;
-    bytes = fixed + stages * W_STAGE;
+    bytes = fixed + stages * ring_stage<CODES>();
   }
 };
-static_assert(WLayout<float>(W_KMAX).stages >= W_MIN_STAGES,
+static_assert(WLayout<float, false>(W_KMAX).stages >= W_MIN_STAGES,
               "K = W_KMAX must stay resident");
-static_assert(WLayout<float>(W_KMAX + W_BK).stages < W_MIN_STAGES,
+static_assert(WLayout<float, false>(W_KMAX + W_BK).stages < W_MIN_STAGES,
               "W_KMAX is the largest resident K");
+static_assert(WLayout<float, true>(0).stages >= W_MIN_STAGES,
+              "the ring of \"wgmma_codes\" holds both operands");
 
 struct WArgs {
   const void* x;
@@ -604,9 +643,10 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
   }
 }
 
-// one ring stage of w: rows row.., k k.. of the tensor map, 128-byte swizzle
-__device__ __forceinline__ void tma_load_w(void* dst, const CUtensorMap* map,
-                                           uint64_t* bar, int k, int row) {
+// one box of a tensor map (w's 128 rows, or 64 rows of x's codes): rows
+// row.., k k.., 128-byte swizzle
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int k, int row) {
   asm volatile(
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
@@ -883,16 +923,22 @@ __device__ __forceinline__ void wgmma_epilogue(int (&acc)[64],
   __syncwarp();
 }
 
-template <typename T>
-__global__ void __launch_bounds__(W_THREADS, 1)
-    int8_gemm_wgmma_kernel(const WArgs g,
-                           const __grid_constant__ CUtensorMap wmap) {
-  extern __shared__ __align__(1024) uint8_t smem[];
-  const int nk = (g.K + W_BK - 1) / W_BK;      // slabs of A, stages a tile
+// The persistent block of both variants on the tensor cores: "wgmma"
+// (CODES false) quantizes each row tile of x into resident codes and takes
+// w through the ring; "wgmma_codes" (CODES true) takes a 64-row slab of x's
+// codes (``amap``, written by int8_gemm_codes_kernel) and w's stage through
+// the ring together, and keeps nothing resident.
+template <typename T, bool CODES>
+__device__ __forceinline__ void wgmma_block(const WArgs& g,
+                                            const CUtensorMap* wmap,
+                                            const CUtensorMap* amap,
+                                            uint8_t* smem) {
+  constexpr int STAGE = ring_stage<CODES>();
+  const int nk = (g.K + W_BK - 1) / W_BK;      // k stages a tile
   const int stages = g.stages;
   uint8_t* sa = smem;                          // the resident codes
-  uint8_t* ring = smem + nk * W_SLAB;
-  uint8_t* stg = ring + stages * W_STAGE;
+  uint8_t* ring = CODES ? smem : smem + nk * W_SLAB;
+  uint8_t* stg = ring + stages * STAGE;
   float* col_tab = reinterpret_cast<float*>(stg + stg_bytes<T>());
   uint64_t* full = reinterpret_cast<uint64_t*>(col_tab) + W_COLS / 8;
   uint64_t* empty = full + W_MAX_STAGES;
@@ -928,22 +974,30 @@ __global__ void __launch_bounds__(W_THREADS, 1)
   K5_TICK_START;
   if (wg == W_CONSUMERS) {
     if (warp == 0) {
-      // the producer: one thread streams w's stages of every tile of the
+      // the producer: one thread streams the stages of every tile of the
       // run through the ring, in order, as the consumers release them
       if (lane == 0) {
         for (int i = 0; i < t_end - t_begin; ++i) {
-          const int n0 = (t_begin + i) % g.col_tiles * W_BN;
+          const int t = t_begin + i;
+          const int n0 = t % g.col_tiles * W_BN;
           for (int kk = 0; kk < nk; ++kk) {
             const int slot = i * nk + kk, st = slot % stages;
             if (slot >= stages)
               mbar_wait(&empty[st], ((slot / stages) & 1) ^ 1);
-            mbar_expect_tx(&full[st], W_STAGE);
-            tma_load_w(ring + st * W_STAGE, &wmap, &full[st], kk * W_BK, n0);
+            mbar_expect_tx(&full[st], STAGE);
+            uint8_t* dst = ring + st * STAGE;
+            if (CODES) {
+              tma_load(dst, amap, &full[st], kk * W_BK,
+                       t / g.col_tiles * W_BM);
+              dst += W_SLAB;
+            }
+            tma_load(dst, wmap, &full[st], kk * W_BK, n0);
           }
         }
       }
       return;
     }
+    if (CODES) return;               // no x to quantize
     // its other three warps quantize each row tile of the run with the
     // consumers
     const QuantI q = quanti_of(g.a_params, g.bits);
@@ -980,13 +1034,15 @@ __global__ void __launch_bounds__(W_THREADS, 1)
   int acc[64];
   for (int m = m_begin; m < m_end; ++m) {
     const int seg_end = min(t_end, (m + 1) * g.col_tiles);
-    bar_row_tile();                  // the last row tile's products are done
-    K5_TICK(PH_BAR);
-    quantize_row_tile<T>(sa, g, q, m * W_BM, threadIdx.x, W_XTHREADS);
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    K5_TICK(PH_X);
-    bar_row_tile();
-    K5_TICK(PH_BAR);
+    if (!CODES) {
+      bar_row_tile();                // the last row tile's products are done
+      K5_TICK(PH_BAR);
+      quantize_row_tile<T>(sa, g, q, m * W_BM, threadIdx.x, W_XTHREADS);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      K5_TICK(PH_X);
+      bar_row_tile();
+      K5_TICK(PH_BAR);
+    }
     for (int t = max(t_begin, m * g.col_tiles); t < seg_end; ++t) {
       const int i = t - t_begin;
       if ((i & 1) != wg) continue;
@@ -1005,14 +1061,17 @@ __global__ void __launch_bounds__(W_THREADS, 1)
         const int slot = i * nk + kk, st = slot % stages;
         mbar_wait(&full[st], (slot / stages) & 1);
         K5_TICK(PH_W);
+        // A: the resident slab, or the stage's own; B: w's 128 rows
+        const uint8_t* a = CODES ? ring + st * STAGE : sa + kk * W_SLAB;
+        const uint8_t* b = ring + st * STAGE + (CODES ? W_SLAB : 0);
         fence_acc(acc);
         wgmma_fence();
         const int ksteps = min(W_BK, g.K - kk * W_BK + 31) / 32;
 #pragma unroll
         for (int ks = 0; ks < W_BK / 32; ++ks)
           if (ks < ksteps)
-            wgmma_m64n128k32(acc, smem_desc(sa + kk * W_SLAB + ks * 32),
-                             smem_desc(ring + st * W_STAGE + ks * 32), 1);
+            wgmma_m64n128k32(acc, smem_desc(a + ks * 32),
+                             smem_desc(b + ks * 32), 1);
         wgmma_commit();
         fence_acc(acc);
         if (kk > 0) {                // the stage before this one is read
@@ -1043,6 +1102,107 @@ __global__ void __launch_bounds__(W_THREADS, 1)
   }
 }
 
+template <typename T>
+__global__ void __launch_bounds__(W_THREADS, 1)
+    int8_gemm_wgmma_kernel(const WArgs g,
+                           const __grid_constant__ CUtensorMap wmap) {
+  extern __shared__ __align__(1024) uint8_t smem[];
+  wgmma_block<T, false>(g, &wmap, nullptr, smem);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(W_THREADS, 1)
+    int8_gemm_wgmma_codes_kernel(const WArgs g,
+                                 const __grid_constant__ CUtensorMap wmap,
+                                 const __grid_constant__ CUtensorMap amap) {
+  extern __shared__ __align__(1024) uint8_t smem[];
+  wgmma_block<T, true>(g, &wmap, &amap, smem);
+}
+
+// x's codes for "wgmma_codes", one 16-byte piece a thread: the codes of
+// x[t, k0 .. k0 + 15] (0 past K) at row t, byte k0 of ``codes`` (rows of
+// ``pitch`` bytes, K rounded up to W_BK), by QuantI as "wgmma" quantizes.
+// A whole piece below K is read in loads of LOAD bytes, the widest that
+// x's base and row stride allow (fp32 4 to 16, bf16 2 to 16); the piece
+// at the end of a row elementwise.
+struct CArgs {
+  const void* x;
+  const float* a_params;
+  uint8_t* codes;
+  long long pieces;                  // T * pitch / 16
+  int K, lda, pitch, bits;
+};
+
+// The 16 elements' bits of one piece, in loads of LOAD bytes
+template <int LOAD, int WORDS>
+__device__ __forceinline__ void load_piece(uint32_t (&w)[WORDS],
+                                           const void* src) {
+  if constexpr (LOAD == 16) {
+#pragma unroll
+    for (int i = 0; i < WORDS / 4; ++i) {
+      const uint4 v = __ldg(static_cast<const uint4*>(src) + i);
+      w[4 * i] = v.x, w[4 * i + 1] = v.y, w[4 * i + 2] = v.z;
+      w[4 * i + 3] = v.w;
+    }
+  } else if constexpr (LOAD == 8) {
+#pragma unroll
+    for (int i = 0; i < WORDS / 2; ++i) {
+      const uint2 v = __ldg(static_cast<const uint2*>(src) + i);
+      w[2 * i] = v.x, w[2 * i + 1] = v.y;
+    }
+  } else if constexpr (LOAD == 4) {
+#pragma unroll
+    for (int i = 0; i < WORDS; ++i)
+      w[i] = __ldg(static_cast<const unsigned int*>(src) + i);
+  } else {
+    static_assert(LOAD == 2, "loads of 2 to 16 bytes");
+    const unsigned short* h = static_cast<const unsigned short*>(src);
+#pragma unroll
+    for (int i = 0; i < WORDS; ++i)
+      w[i] = static_cast<uint32_t>(__ldg(h + 2 * i)) |
+             static_cast<uint32_t>(__ldg(h + 2 * i + 1)) << 16;
+  }
+}
+
+// element j of a piece's bits
+__device__ __forceinline__ float piece_elem(const uint32_t* w, int j, float) {
+  return __uint_as_float(w[j]);
+}
+
+__device__ __forceinline__ float piece_elem(const uint32_t* w, int j,
+                                            __nv_bfloat16) {
+  return __uint_as_float(j % 2 ? w[j / 2] & 0xffff0000u : w[j / 2] << 16);
+}
+
+template <typename T, int LOAD>
+__global__ void __launch_bounds__(256)
+    int8_gemm_codes_kernel(const CArgs g) {
+  const long long p =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (p >= g.pieces) return;
+  const int per_row = g.pitch / 16;
+  const long long t = p / per_row;
+  const int k0 = static_cast<int>(p - t * per_row) * 16;
+  const T* src = static_cast<const T*>(g.x) + t * g.lda + k0;
+  const QuantI q = quanti_of(g.a_params, g.bits);
+  int c[16];
+  if (k0 + 16 <= g.K) {
+    constexpr int WORDS = 16 * static_cast<int>(sizeof(T)) / 4;
+    uint32_t w[WORDS];
+    load_piece<LOAD>(w, src);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) c[j] = code_int(piece_elem(w, j, T()), q);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      c[j] = k0 + j < g.K ? code_int(fq::to_f32(src[j]), q) : 0;
+  }
+  *reinterpret_cast<uint4*>(g.codes + t * g.pitch + k0) =
+      make_uint4(pack4(c[0], c[1], c[2], c[3]), pack4(c[4], c[5], c[6], c[7]),
+                 pack4(c[8], c[9], c[10], c[11]),
+                 pack4(c[12], c[13], c[14], c[15]));
+}
+
 int sm_count(int device) {
   static int cached[64] = {0};
   if (cached[device] == 0) {
@@ -1053,58 +1213,6 @@ int sm_count(int device) {
     cached[device] = n;
   }
   return cached[device];
-}
-
-template <typename T>
-cudaError_t launch_wgmma(const Args& g, const CUtensorMap& wmap, int device,
-                         cudaStream_t stream) {
-  // the kernel's own guards (the wrapper routes by the same rules)
-  constexpr int VEC = 16 / sizeof(T);
-  if (g.K % 16 != 0 || g.K > W_KMAX || g.lda % VEC != 0 ||
-      (reinterpret_cast<uintptr_t>(g.x) & 15) != 0 ||
-      (reinterpret_cast<uintptr_t>(g.out) & 15) != 0 ||
-      g.O * static_cast<int>(sizeof(T)) % 16 != 0)
-    return cudaErrorInvalidValue;
-  auto kernel = int8_gemm_wgmma_kernel<T>;
-  static bool ready[64] = {false};
-  if (!ready[device]) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, W_SMEM_LIMIT);
-    if (err != cudaSuccess) return err;
-    ready[device] = true;
-  }
-  const WLayout<T> layout(g.K);
-  WArgs a;
-  a.x = g.x;
-  a.a_params = g.a_params;
-  a.scale_row = g.scale_row;
-  a.bias = g.bias;
-  a.out = g.out;
-  a.T = g.T, a.K = g.K, a.O = g.O, a.lda = g.lda, a.bits = g.bits;
-  a.col_tiles = (g.O + W_BN - 1) / W_BN;
-  a.stages = layout.stages;
-  const long long tiles =
-      static_cast<long long>((g.T + W_BM - 1) / W_BM) * a.col_tiles;
-  if (tiles > 0x7fffffff) return cudaErrorInvalidConfiguration;
-  a.tiles = static_cast<int>(tiles);
-  // Runs of whole row tiles where that costs a block less: a run of L
-  // tiles spans up to ceil((L - 1) / col_tiles) + 1 row tiles, each
-  // quantized once, at about 1.6 K / 128 tiles' time (the phase shares at
-  // deit_small's widths on an H100: a row tile's quantization takes a
-  // third of a qkv block's cycles, its nine tiles the rest).
-  const long long sms = sm_count(device);
-  const long long row_tiles = tiles / a.col_tiles;
-  const long long run = (tiles + sms - 1) / sms;
-  const double q = 1.6 * g.K / W_BN;
-  const double cost_tiles =
-      run + q * ((run - 1 + a.col_tiles - 1) / a.col_tiles + 1);
-  const double cost_rows =
-      (row_tiles + sms - 1) / sms * (a.col_tiles + q);
-  a.whole_rows = cost_rows <= cost_tiles;
-  const long long units = a.whole_rows ? row_tiles : tiles;
-  const int grid = static_cast<int>(units < sms ? units : sms);
-  kernel<<<grid, W_THREADS, layout.bytes, stream>>>(a, wmap);
-  return cudaGetLastError();
 }
 
 // cuTensorMapEncodeTiled lives in libcuda, not in the runtime: its address
@@ -1134,43 +1242,166 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-}  // namespace
-
-// The tensor map "wgmma" reads w (O, K) int8 through: boxes of 128 rows x
-// 128 k, 128-byte swizzle, zeros past the edges. Written to ``map128`` (128
-// bytes). K must be a multiple of 16 and w 16-byte aligned. Returns 0, or
-// the encoder's CUresult (-1 where no encoder is found).
-extern "C" int int8_gemm_wmap(void* map128, const void* w, int K, int O) {
-  if (K <= 0 || O <= 0 || K % 16 != 0 ||
-      (reinterpret_cast<uintptr_t>(w) & 15) != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
+// The tensor map of ``rows`` rows of ``cols`` int8 at ``base``, ``pitch``
+// bytes apart: boxes of ``box_rows`` rows x 128 bytes, 128-byte swizzle,
+// zeros past the edges. Returns 0, or the encoder's CUresult (-1 where no
+// encoder is found).
+int encode_map(CUtensorMap* map, const void* base, int cols, int rows,
+               long long pitch, int box_rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return -1;
-  CUtensorMap map;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K),
-                              static_cast<cuuint64_t>(O)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K)};
-  const cuuint32_t box[2] = {W_BK, W_BN};
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(pitch)};
+  const cuuint32_t box[2] = {W_BK, static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = encode(
-      &map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(w), dims,
+  return static_cast<int>(encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims,
       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (r != CUDA_SUCCESS) return static_cast<int>(r);
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+}
+
+// the row pitch of x's codes in "wgmma_codes": K rounded up to a stage's k
+constexpr int codes_pitch(int K) { return (K + W_BK - 1) / W_BK * W_BK; }
+
+// int8_gemm_codes_kernel over x (T, K) into ``codes`` (T, codes_pitch(K))
+template <typename T>
+cudaError_t launch_codes(const Args& g, uint8_t* codes, cudaStream_t stream) {
+  CArgs c;
+  c.x = g.x;
+  c.a_params = g.a_params;
+  c.codes = codes;
+  c.K = g.K, c.lda = g.lda, c.pitch = codes_pitch(g.K), c.bits = g.bits;
+  c.pieces = static_cast<long long>(g.T) * (c.pitch / 16);
+  const long long blocks = (c.pieces + 255) / 256;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
+  // the widest load a row's pieces allow: the lowest set bit of x's
+  // address, of its row stride in bytes and of 16 (a piece starts 16
+  // elements into a row)
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(g.x) |
+                         static_cast<uintptr_t>(g.lda) * sizeof(T) | 16;
+  const int load = static_cast<int>(bits & (~bits + 1));
+  if (load < static_cast<int>(sizeof(T))) return cudaErrorInvalidValue;
+  const dim3 grid(static_cast<unsigned>(blocks));
+  switch (load) {
+    case 16: int8_gemm_codes_kernel<T, 16><<<grid, 256, 0, stream>>>(c); break;
+    case 8: int8_gemm_codes_kernel<T, 8><<<grid, 256, 0, stream>>>(c); break;
+    case 4: int8_gemm_codes_kernel<T, 4><<<grid, 256, 0, stream>>>(c); break;
+    default:
+      if constexpr (sizeof(T) == 2)
+        int8_gemm_codes_kernel<T, 2><<<grid, 256, 0, stream>>>(c);
+  }
+  return cudaGetLastError();
+}
+
+// "wgmma" (CODES false) or "wgmma_codes" (CODES true, its codes pass into
+// ``codes`` first) on ``stream``
+template <typename T, bool CODES>
+cudaError_t launch_wgmma(const Args& g, const CUtensorMap& wmap,
+                         uint8_t* codes, int device, cudaStream_t stream) {
+  // the kernels' own guards (the wrapper routes by the same rules)
+  constexpr int VEC = 16 / sizeof(T);
+  if ((!CODES && (g.K % 16 != 0 || g.K > W_KMAX || g.lda % VEC != 0 ||
+                  (reinterpret_cast<uintptr_t>(g.x) & 15) != 0)) ||
+      (CODES && (codes == nullptr ||
+                 (reinterpret_cast<uintptr_t>(codes) & 15) != 0)) ||
+      (reinterpret_cast<uintptr_t>(g.out) & 15) != 0 ||
+      g.O * static_cast<int>(sizeof(T)) % 16 != 0)
+    return cudaErrorInvalidValue;
+  const void* kernel =
+      CODES ? reinterpret_cast<const void*>(int8_gemm_wgmma_codes_kernel<T>)
+            : reinterpret_cast<const void*>(int8_gemm_wgmma_kernel<T>);
+  static bool ready[64] = {false};
+  if (!ready[device]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, W_SMEM_LIMIT);
+    if (err != cudaSuccess) return err;
+    ready[device] = true;
+  }
+  const WLayout<T, CODES> layout(g.K);
+  WArgs a;
+  a.x = g.x;
+  a.a_params = g.a_params;
+  a.scale_row = g.scale_row;
+  a.bias = g.bias;
+  a.out = g.out;
+  a.T = g.T, a.K = g.K, a.O = g.O, a.lda = g.lda, a.bits = g.bits;
+  a.col_tiles = (g.O + W_BN - 1) / W_BN;
+  a.stages = layout.stages;
+  const long long tiles =
+      static_cast<long long>((g.T + W_BM - 1) / W_BM) * a.col_tiles;
+  if (tiles > 0x7fffffff) return cudaErrorInvalidConfiguration;
+  a.tiles = static_cast<int>(tiles);
+  // Runs of whole row tiles where that costs a block less: a run of L
+  // tiles spans up to ceil((L - 1) / col_tiles) + 1 row tiles, each
+  // quantized once, at about 1.6 K / 128 tiles' time (the phase shares at
+  // deit_small's widths on an H100: a row tile's quantization takes a
+  // third of a qkv block's cycles, its nine tiles the rest). "wgmma_codes"
+  // quantizes nothing: an even share of the tiles.
+  const long long sms = sm_count(device);
+  const long long row_tiles = tiles / a.col_tiles;
+  const long long run = (tiles + sms - 1) / sms;
+  const double q = 1.6 * g.K / W_BN;
+  const double cost_tiles =
+      run + q * ((run - 1 + a.col_tiles - 1) / a.col_tiles + 1);
+  const double cost_rows =
+      (row_tiles + sms - 1) / sms * (a.col_tiles + q);
+  a.whole_rows = !CODES && cost_rows <= cost_tiles;
+  const long long units = a.whole_rows ? row_tiles : tiles;
+  const int grid = static_cast<int>(units < sms ? units : sms);
+  if constexpr (CODES) {
+    cudaError_t err = launch_codes<T>(g, codes, stream);
+    if (err != cudaSuccess) return err;
+    CUtensorMap amap;
+    const int pitch = codes_pitch(g.K);
+    if (encode_map(&amap, codes, pitch, g.T, pitch, W_BM) != 0)
+      return cudaErrorInvalidValue;
+    int8_gemm_wgmma_codes_kernel<T>
+        <<<grid, W_THREADS, layout.bytes, stream>>>(a, wmap, amap);
+  } else {
+    int8_gemm_wgmma_kernel<T>
+        <<<grid, W_THREADS, layout.bytes, stream>>>(a, wmap);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// The tensor map the variants on the tensor cores read w (O, K) int8
+// through: rows ``ldw`` bytes apart, boxes of 128 rows x 128 k, 128-byte
+// swizzle, zeros past the edges (so past K where ldw > K). Written to
+// ``map128`` (128 bytes). ldw must be a multiple of 16, at least K, and w
+// 16-byte aligned. Returns 0, or the encoder's CUresult (-1 where no
+// encoder is found).
+extern "C" int int8_gemm_wmap(void* map128, const void* w, int K, int O,
+                              int ldw) {
+  if (K <= 0 || O <= 0 || ldw < K || ldw % 16 != 0 ||
+      (reinterpret_cast<uintptr_t>(w) & 15) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap map;
+  const int r = encode_map(&map, w, K, O, ldw, W_BN);
+  if (r != 0) return r;
   memcpy(map128, &map, sizeof(map));
   return 0;
 }
 
-// "wgmma"'s largest resident K, and its launch's layout at this K (dtype 0
-// = float32, 1 = bfloat16): what = 0 the dynamic shared memory in bytes, 1
-// the ring's stages
+// "wgmma"'s largest resident K, and the row pitch of x's codes in
+// "wgmma_codes" (the wrapper allocates them)
 extern "C" int int8_gemm_kmax() { return W_KMAX; }
 
+extern "C" int int8_gemm_codes_pitch(int K) { return codes_pitch(K); }
+
+// A launch's layout at this K (dtype 0 = float32, 1 = bfloat16): what = 0
+// the dynamic shared memory in bytes of "wgmma", 1 its ring's stages; 2
+// and 3 the same of "wgmma_codes"
 extern "C" int int8_gemm_layout(int dtype, int K, int what) {
-  const WLayout<float> f(K);
-  const WLayout<__nv_bfloat16> h(K);
-  const int v[2][2] = {{f.bytes, f.stages}, {h.bytes, h.stages}};
+  const WLayout<float, false> f(K);
+  const WLayout<__nv_bfloat16, false> h(K);
+  const WLayout<float, true> fc(K);
+  const WLayout<__nv_bfloat16, true> hc(K);
+  const int v[2][4] = {{f.bytes, f.stages, fc.bytes, fc.stages},
+                       {h.bytes, h.stages, hc.bytes, hc.stages}};
   return v[dtype != 0][what];
 }
 
@@ -1185,23 +1416,26 @@ extern "C" int int8_gemm_profile(unsigned long long* host8) {
 }
 #endif
 
-// variant: 0 = "mma", 1 = "wgmma"; dtype: 0 = float32, 1 = bfloat16 (x,
-// bias and out). x is (T, K) with row stride lda, w (O, K) int8
-// contiguous, wmap the 128 bytes of w's tensor map from int8_gemm_wmap
-// ("wgmma" only; null for "mma"), a_params (2,) fp32 [scale, zero point],
-// scale_row (O,) fp32, bias (O,) or null, out (T, O) contiguous, bits the
-// activation's (1..7). The launch goes to ``stream`` of ``device``, which
-// is made current for the call where it is not. Returns the CUDA error code
-// of the launch.
+// variant: 0 = "mma", 1 = "wgmma", 2 = "wgmma_codes"; dtype: 0 = float32,
+// 1 = bfloat16 (x, bias and out). x is (T, K) with row stride lda, w (O,
+// K) int8 with row pitch ldw, wmap the 128 bytes of w's tensor map from
+// int8_gemm_wmap (variants 1 and 2; null for "mma"), a_params (2,) fp32
+// [scale, zero point], scale_row (O,) fp32, bias (O,) or null, out (T, O)
+// contiguous, codes (variant 2) a scratch (T, int8_gemm_codes_pitch(K))
+// int8 buffer, 16-byte aligned, bits the activation's (1..7). The launches
+// go to ``stream`` of ``device``, which is made current for the call where
+// it is not. Returns the CUDA error code of the launch.
 extern "C" int int8_gemm_launch(int variant, int dtype, const void* x,
                                 const void* w, const void* wmap,
                                 const void* a_params, const void* scale_row,
-                                const void* bias, void* out, int T, int K,
-                                int O, int lda, int bits, int device,
-                                void* stream) {
-  if ((variant != 0 && variant != 1) || (dtype != 0 && dtype != 1) ||
+                                const void* bias, void* out, void* codes,
+                                int T, int K, int O, int lda, int ldw,
+                                int bits, int device, void* stream) {
+  if (variant < 0 || variant > 2 || (dtype != 0 && dtype != 1) ||
       bits < 1 || bits > 7 || T <= 0 || O <= 0 || K <= 0 || lda < K ||
-      device < 0 || device >= 64 || (variant == 1 && wmap == nullptr))
+      ldw < K || device < 0 || device >= 64 ||
+      (variant != 0 && wmap == nullptr) ||
+      (variant == 2 && codes == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   int current = -1;
   cudaError_t err = cudaGetDevice(&current);
@@ -1215,16 +1449,23 @@ extern "C" int int8_gemm_launch(int variant, int dtype, const void* x,
   g.scale_row = static_cast<const float*>(scale_row);
   g.bias = bias;
   g.out = out;
-  g.T = T, g.K = K, g.O = O, g.lda = lda, g.bits = bits;
+  g.T = T, g.K = K, g.O = O, g.lda = lda, g.ldw = ldw, g.bits = bits;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  uint8_t* c = static_cast<uint8_t*>(codes);
   if (variant == 0) {
     err = dtype == 0 ? launch_mma<float>(g, s)
                      : launch_mma<__nv_bfloat16>(g, s);
   } else {
     CUtensorMap map;                 // aligned, as the launch copies it
     memcpy(&map, wmap, sizeof(map));
-    err = dtype == 0 ? launch_wgmma<float>(g, map, device, s)
-                     : launch_wgmma<__nv_bfloat16>(g, map, device, s);
+    if (variant == 1)
+      err = dtype == 0 ? launch_wgmma<float, false>(g, map, c, device, s)
+                       : launch_wgmma<__nv_bfloat16, false>(g, map, c,
+                                                            device, s);
+    else
+      err = dtype == 0 ? launch_wgmma<float, true>(g, map, c, device, s)
+                       : launch_wgmma<__nv_bfloat16, true>(g, map, c,
+                                                           device, s);
   }
   if (current != device) cudaSetDevice(current);
   return static_cast<int>(err);

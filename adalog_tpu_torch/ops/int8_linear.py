@@ -14,23 +14,35 @@ fake-quant forward up to the rounding of its fp32 products.
 
 ``int8_gemm`` is the wrapper of the kernel: for CPU tensors it runs
 ``int8_gemm_plain`` (an exact int32 product in plain PyTorch); for CUDA
-tensors it launches a kernel of ``csrc/int8_gemm.cu`` (built at first use,
-ops/cuda_build.py) or raises. ``int8_gemm.launches`` counts kernel
-launches, ``int8_gemm.variant_launches`` the same by variant,
-``int8_gemm.calls`` every call on either device. ``int8_qlinear`` is the
-call of one site.
+tensors it launches the kernels of ``csrc/int8_gemm.cu`` (built at first
+use, ops/cuda_build.py) or raises. ``int8_gemm.launches`` counts the
+wrapper's launches, one a call whatever the variant launches on the card
+(a forward's count over its sites' is the number of forwards),
+``int8_gemm.variant_launches`` the same by variant, ``int8_gemm.calls``
+every call on either device. ``int8_qlinear`` is the call of one site.
 
-Two hand-written variants (``int8_variant`` routes; ``variant=`` forces):
-  "wgmma"  the design for Hopper: each x element quantized once per row
-           tile into resident int8 codes, w through a TMA ring into
-           wgmma, two consumer warpgroups in ping-pong so one tile's
-           stores overlap the next tile's products. It takes K a multiple
-           of 16 up to WGMMA_K_MAX, x's rows 16-byte aligned and O * itemsize
-           a multiple of 16 (``wgmma_refusal``): every int8 site of the
-           served models.
-  "mma"    the first kernel (mma.sync, a cp.async double buffer, x
-           quantized again for every 128-column tile), for the rest.
-Both equal ``int8_gemm_plain`` bit for bit.
+Three hand-written variants (``int8_variant`` routes to the first that
+takes the call; ``variant=`` forces one):
+  "wgmma"        the design for Hopper: each x element quantized once per
+                 row tile into resident int8 codes, w through a TMA ring
+                 into wgmma, two consumer warpgroups in ping-pong so one
+                 tile's stores overlap the next tile's products. It takes K
+                 a multiple of 16 up to WGMMA_K_MAX, x's rows 16-byte
+                 aligned and O * itemsize a multiple of 16
+                 (``wgmma_refusal``): every int8 site of the served models
+                 but eva02's fc2.
+  "wgmma_codes"  two launches: x's codes written once to a scratch buffer,
+                 then "wgmma"'s block with the codes' slabs and w both
+                 through the ring. Any K and any x layout; O * itemsize a
+                 multiple of 16 (``wgmma_codes_refusal``): eva02's fc2 (K =
+                 2730, rows of 10,920 bytes).
+  "mma"          the first kernel (mma.sync, a cp.async double buffer, x
+                 quantized again for every 128-column tile), for the rest
+                 (bf16 outputs of an odd number of 8-column groups, such as
+                 eva02's fc1 in bf16).
+All equal ``int8_gemm_plain`` bit for bit. The kernels read w's rows a
+multiple of 16 bytes apart (TMA's pitch): a table keeps each site's codes
+so (``pitched_codes``), and a call with other codes pads a copy.
 
 Which sites run here is decided once per loaded model: ``prepare`` builds
 {site: Int8Weights} from the module the predictor runs (already cast to the
@@ -56,7 +68,7 @@ from adalog_tpu_torch.ops import cuda_build
 
 MAX_BITS = 7        # codes of at most 7 bits and their zero points fit int8
 _INT8_MAX = 127
-VARIANTS = ("auto", "wgmma", "mma")
+VARIANTS = ("auto", "wgmma", "wgmma_codes", "mma")
 # the largest K whose codes stay resident in "wgmma"'s shared memory
 # (csrc/int8_gemm.cu: W_KMAX)
 WGMMA_K_MAX = 2176
@@ -64,16 +76,19 @@ _ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2}
 
 
 class WeightMap(NamedTuple):
-    """The TMA tensor map "wgmma" reads ``w_int`` through (``blob``, 128
-    bytes), with the address and shape it was encoded for."""
+    """The TMA tensor map "wgmma" and "wgmma_codes" read ``w_int`` through
+    (``blob``, 128 bytes), with the address, shape and row pitch in bytes
+    it was encoded for."""
     ptr: int
     shape: tuple
+    pitch: int
     blob: bytes
 
 
 class Int8Weights(NamedTuple):
     """What the kernel needs of a site: ``w_int`` (O, K) int8 holds
-    c_w - round(z_w); ``scale_row`` (O,) float32 is s_a * s_w[o], the one
+    c_w - round(z_w), rows 16-byte aligned (``pitched_codes``);
+    ``scale_row`` (O,) float32 is s_a * s_w[o], the one
     fp32 product JAX forms per call; ``a_params`` (2,) float32 is the
     activation quantizer's [scale, zero point]; ``w_map`` the tensor map of
     w_int (``weight_map``), encoded once where the table is built, on the
@@ -141,19 +156,37 @@ def wgmma_refusal(T: int, K: int, O: int, lda: int, x_ptr_mod16: int,
     return None
 
 
+def wgmma_codes_refusal(T: int, K: int, O: int, lda: int, x_ptr_mod16: int,
+                        dtype) -> Optional[str]:
+    """Why variant "wgmma_codes" does not take a call (arguments as
+    ``wgmma_refusal``); None when it does. Its codes pass reads x in any
+    layout and its ring takes any K, so only the output rows count."""
+    item = _ITEMSIZE[dtype]
+    if (O * item) % 16:
+        return (f"O = {O}: output rows of {O * item} bytes do not leave as "
+                "16-byte pieces")
+    return None
+
+
+_REFUSALS = {"wgmma": wgmma_refusal, "wgmma_codes": wgmma_codes_refusal}
+
+
 def int8_variant(T: int, K: int, O: int, lda: int, x_ptr_mod16: int, dtype,
                  variant: str = "auto") -> str:
     """Which hand-written variant of K5 a call takes: "wgmma" where it
-    applies, else "mma". A forced "wgmma" that does not take the call
-    raises."""
+    applies, else "wgmma_codes" where it applies, else "mma". A forced
+    "wgmma" or "wgmma_codes" that does not take the call raises."""
     if variant not in VARIANTS:
         raise ValueError(f"variant {variant!r}: want one of {VARIANTS}")
-    why = wgmma_refusal(T, K, O, lda, x_ptr_mod16, dtype)
-    if variant == "wgmma" and why is not None:
-        raise ValueError(f"int8_gemm variant 'wgmma' refused: {why}")
-    if variant == "mma" or why is not None:
+    if variant == "mma":
         return "mma"
-    return "wgmma"
+    for v, refusal in _REFUSALS.items():
+        why = refusal(T, K, O, lda, x_ptr_mod16, dtype)
+        if variant == v and why is not None:
+            raise ValueError(f"int8_gemm variant {v!r} refused: {why}")
+        if variant in (v, "auto") and why is None:
+            return v
+    return "mma"
 
 
 # ---------------------------------------------------------------------------
@@ -161,6 +194,7 @@ def int8_variant(T: int, K: int, O: int, lda: int, x_ptr_mod16: int, dtype,
 # ---------------------------------------------------------------------------
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_VARIANT_CODE = {"mma": 0, "wgmma": 1, "wgmma_codes": 2}
 
 
 @functools.lru_cache(maxsize=None)
@@ -171,12 +205,14 @@ def _library(profile: bool = False):
     lib = ctypes.CDLL(cuda_build.build("int8_gemm", ("K5_PROFILE",))) \
         if profile else cuda_build.library("int8_gemm")
     fn = lib.int8_gemm_launch
-    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 7
-                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
+                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.int8_gemm_wmap.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                   ctypes.c_int, ctypes.c_int]
+                                   ctypes.c_int, ctypes.c_int, ctypes.c_int]
     lib.int8_gemm_wmap.restype = ctypes.c_int
+    lib.int8_gemm_codes_pitch.argtypes = [ctypes.c_int]
+    lib.int8_gemm_codes_pitch.restype = ctypes.c_int
     lib.int8_gemm_layout.argtypes = [ctypes.c_int] * 3
     lib.int8_gemm_layout.restype = ctypes.c_int
     lib.int8_gemm_kmax.restype = ctypes.c_int
@@ -189,19 +225,51 @@ def _library(profile: bool = False):
     return lib
 
 
+def pitched_codes(w_int):
+    """(O, K) int8 codes as the (O, K) view of a zero-padded (O, roundup(K,
+    16)) buffer on their device: the same codes, shape and dtype, rows a
+    multiple of 16 bytes apart as TMA reads them (contiguous where K is a
+    multiple of 16). A copy."""
+    O, K = w_int.shape
+    buf = torch.zeros((O, -(-K // 16) * 16), dtype=torch.int8,
+                      device=w_int.device)
+    buf[:, :K] = w_int
+    return buf[:, :K]
+
+
+def _pitch(w_int) -> int:
+    """The row pitch in bytes the kernels read w_int (O, K) with: its row
+    stride, or for one row K rounded up to 16."""
+    O, K = w_int.shape
+    return w_int.stride(0) if O > 1 else -(-K // 16) * 16
+
+
+def _pitched(w_int) -> bool:
+    """Do the kernels take w_int's layout as it is: unit column stride,
+    rows a multiple of 16 bytes apart, 16-byte aligned."""
+    return w_int.stride(1) == 1 and _pitch(w_int) % 16 == 0 \
+        and _pitch(w_int) >= w_int.shape[1] and w_int.data_ptr() % 16 == 0
+
+
 def weight_map(w_int) -> WeightMap:
-    """The TMA tensor map of a contiguous (O, K) int8 CUDA tensor, for
-    variant "wgmma" (K a multiple of 16). A host call; no device work."""
+    """The TMA tensor map of (O, K) int8 codes on the card whose rows lie a
+    multiple of 16 bytes apart (``pitched_codes``; any contiguous codes at K
+    a multiple of 16), for "wgmma" and "wgmma_codes": width K, so TMA fills
+    past K with 0. A host call; no device work."""
     if w_int.device.type != "cuda":
         raise RuntimeError("weight_map encodes a tensor map of a CUDA "
                            "tensor")
+    if not _pitched(w_int):
+        raise ValueError("weight_map takes codes whose rows lie a multiple "
+                         "of 16 bytes apart (pitched_codes)")
     O, K = w_int.shape
     blob = ctypes.create_string_buffer(128)
-    err = _library().int8_gemm_wmap(blob, w_int.data_ptr(), K, O)
+    err = _library().int8_gemm_wmap(blob, w_int.data_ptr(), K, O,
+                                    _pitch(w_int))
     if err != 0:
         raise RuntimeError(f"int8_gemm tensor map encoding failed: error "
                            f"{err}")
-    return WeightMap(w_int.data_ptr(), (O, K), blob.raw)
+    return WeightMap(w_int.data_ptr(), (O, K), _pitch(w_int), blob.raw)
 
 
 def _x_layout(x):
@@ -243,17 +311,22 @@ def _launch(x, lda, w_int, a_params, scale_row, bias, bits, variant, w_map,
     out = torch.empty((T, O), dtype=x.dtype, device=x.device)
     if T == 0 or O == 0:
         return out
-    blob = None
-    if variant == "wgmma":
-        if w_map is None or w_map.ptr != w_int.data_ptr() \
-                or w_map.shape != tuple(w_int.shape):
+    lib = _library(profile)
+    blob = codes = None
+    if variant != "mma":
+        if w_map is None or w_map[:3] != (w_int.data_ptr(),
+                                          tuple(w_int.shape), _pitch(w_int)):
             w_map = weight_map(w_int)
         blob = w_map.blob
-    err = _library(profile).int8_gemm_launch(
-        1 if variant == "wgmma" else 0, _DTYPE_CODE[x.dtype], x.data_ptr(),
+    if variant == "wgmma_codes":         # x's codes, for the second launch
+        codes = torch.empty((T, lib.int8_gemm_codes_pitch(K)),
+                            dtype=torch.int8, device=x.device)
+    err = lib.int8_gemm_launch(
+        _VARIANT_CODE[variant], _DTYPE_CODE[x.dtype], x.data_ptr(),
         w_int.data_ptr(), blob, a_params.data_ptr(), scale_row.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
-        T, K, O, lda, bits, x.device.index,
+        None if codes is None else codes.data_ptr(),
+        T, K, O, lda, _pitch(w_int), bits, x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"int8_gemm kernel ({variant}) launch failed: "
@@ -264,13 +337,13 @@ def _launch(x, lda, w_int, a_params, scale_row, bias, bits, variant, w_map,
 
 
 def _prepared(x, w_int, a_params, scale_row, bias):
-    """Every input but x contiguous and on x's device, w 16-byte aligned."""
+    """Every input but x and w contiguous and on x's device; w's rows a
+    multiple of 16 bytes apart (a padded copy where they are not)."""
     for t in (w_int, a_params, scale_row) + (() if bias is None else (bias,)):
         if t.device != x.device:
             raise ValueError(f"all int8_gemm inputs must be on {x.device}")
-    w_int = w_int.contiguous()
-    if w_int.data_ptr() % 16:
-        w_int = w_int.clone()
+    if not _pitched(w_int):
+        w_int = pitched_codes(w_int)
     return (w_int, a_params.contiguous(), scale_row.contiguous(),
             None if bias is None else bias.contiguous())
 
@@ -288,9 +361,10 @@ def int8_gemm(x, w_int, a_params, scale_row, bias=None, *, bits: int,
 
     CPU tensors run the plain version; CUDA tensors launch a kernel; any
     other device raises. ``variant`` picks the kernel: "auto" routes by
-    ``int8_variant``, "wgmma" or "mma" force one (a forced "wgmma" that
-    does not take the call raises, on the CPU too). ``w_map``, the
-    ``WeightMap`` of w_int, spares "wgmma" encoding one per call."""
+    ``int8_variant``, "wgmma", "wgmma_codes" or "mma" force one (a forced
+    variant that does not take the call raises, on the CPU too).
+    ``w_map``, the ``WeightMap`` of w_int, spares "wgmma" and "wgmma_codes"
+    encoding one per call."""
     _check(x, w_int, a_params, scale_row, bias, bits)
     if variant not in VARIANTS:
         raise ValueError(f"variant {variant!r}: want one of {VARIANTS}")
@@ -310,9 +384,9 @@ def int8_gemm(x, w_int, a_params, scale_row, bias=None, *, bits: int,
 
 int8_gemm.launches = 0
 int8_gemm.calls = 0
-int8_gemm.variant_launches = {"wgmma": 0, "mma": 0}
+int8_gemm.variant_launches = {"wgmma": 0, "wgmma_codes": 0, "mma": 0}
 
-# the phases both variants count their cycles by
+# the phases "wgmma" and "mma" count their cycles by
 INT8_PHASES = ("waiting for w", "loading and quantizing x", "products",
                "epilogue and stores", "at a row tile's barriers")
 
@@ -378,15 +452,14 @@ def weight_codes(weight, site):
 
 def site_weights(weight, site) -> Int8Weights:
     """The ``Int8Weights`` of a supported site, computed on the weight's
-    device with no host read; on the card with the tensor map of its codes
-    where "wgmma" can read them (K a multiple of 16)."""
+    device with no host read: its codes in ``pitched_codes``' storage, and
+    on the card the tensor map of them."""
     aq = site.aq
     w_int, s_row = weight_codes(weight, site)
-    w_int = w_int.contiguous()
+    w_int = pitched_codes(w_int)
     a_params = torch.stack([aq.scale.reshape(()),
                             aq.zero_point.reshape(())]).float()
-    w_map = weight_map(w_int) if w_int.device.type == "cuda" \
-        and w_int.shape[1] % 16 == 0 else None
+    w_map = weight_map(w_int) if w_int.device.type == "cuda" else None
     return Int8Weights(w_int, (a_params[0] * s_row).contiguous(),
                        a_params.to(weight.device).contiguous(), w_map)
 

@@ -8,7 +8,7 @@ Phases, each a hard check (any failure raises and exits non-zero):
   2. build the five kernel sources with nvcc, one process each, started
      together: K1 (csrc/fq_flash_attn.cu), K2 and K3
      (csrc/fq_attn_matmul.cu), K4 (csrc/fq_gemm.cu), K5
-     (csrc/int8_gemm.cu, variants "wgmma" and "mma") and K6
+     (csrc/int8_gemm.cu, variants "wgmma", "wgmma_codes" and "mma") and K6
      (csrc/fq_act.cu); each kernel's
      registers and static shared memory are printed, none may spill, and
      the compiler may not serialize a wgmma;
@@ -87,18 +87,19 @@ Phases, each a hard check (any failure raises and exits non-zero):
      each launch's variant printed, the reason for any "fma"); and
      test_tiny calibrated at the same numbers on the card and on the CPU:
      integer picks exact or adjacent, scales to a stated tolerance;
-  9. int8 phase: K5, the int8 GEMM of eval_int8, both variants forced
-     ("wgmma" where wgmma_refusal takes the shape, "mma" everywhere)
-     against the plain version bit for bit, with and without the bias, at
+  9. int8 phase: K5, the int8 GEMM of eval_int8, each variant that takes
+     the shape forced ("wgmma" and "wgmma_codes" where their refusals
+     allow, "mma" everywhere) against the plain version bit for bit, with
+     and without the bias, at
      deit_small's int8 sites at batch 32 (qkv, proj, fc1, the head),
      deit_base's three block sites, vit_large's three and its head,
      swin_base_384's stage 0 qkv, stage 2 fc1 and stage 2-3 reduction,
      eva02_large_448's four block sites and its head at batch 64 (T =
      65600: qkv 1024->3072, proj 1024->1024, fc1 1024->5460, fc2
-     2730->1024), and two ragged shapes ("wgmma" must take every shape but
-     the ragged ones, eva02's fc2 and, in bf16, its fc1, whose reason is
-     printed and which are routed to "mma"; the routed call takes the
-     variant int8_variant names), fp32 and bf16, each variant timed as K4 (one
+     2730->1024), and two ragged shapes (each routed as INT8_ROUTES says:
+     "wgmma" but eva02's fc2, on "wgmma_codes", and the ragged ones and,
+     in bf16, eva02's fc1, on "mma"; the routed call takes the variant
+     int8_variant names), fp32 and bf16, each variant timed as K4 (one
      call, ten in a row, ten from a CUDA graph) beside torch._int_mm on the
      activation codes (the product alone; one call and from a CUDA graph),
      the sums over deit_small's four sites printed; then
@@ -112,7 +113,8 @@ Phases, each a hard check (any failure raises and exits non-zero):
      eva02_large_448 at full depth and width with a smoke state, served
      the same way in fp32 on EVA_BATCH images: per batch K1 24 (every one
      "mma" and on the long row, S=1025), K5 97 (73 "wgmma", fc2's 24
-     "mma"), K2, K3, K4 and K6 0, and no tensor as large as the (B*H, S, S)
+     "wgmma_codes", 0 "mma"), K2, K3, K4 and K6 0, and no tensor as large
+     as the (B*H, S, S)
      logits; then
      site_error_report on the calibrated deit_small (its top rows and
      seconds) and its export round trip (export_quantized, then
@@ -290,13 +292,15 @@ INT8_SHAPES = (("deit_small qkv", 6304, 384, 1152),
                ("eva02_large_448 head", 64, 1024, 1000),
                ("ragged", 777, 100, 130),
                ("ragged", 6304, 40, 1001))
-# the sites of INT8_SHAPES that variant "wgmma" refuses, by dtype, so that
-# K5 routes them to "mma": the ragged shapes; eva02_large_448's fc2 (K =
-# 2730 is no multiple of 16, and past WGMMA_K_MAX); its fc1 in bf16 (an
-# output row of 5460 bf16 values is no multiple of 16 bytes)
-INT8_MMA_SITES = {
-    "float32": {"ragged", "eva02_large_448 fc2"},
-    "bfloat16": {"ragged", "eva02_large_448 fc2", "eva02_large_448 fc1"}}
+# the variant K5 routes each site of INT8_SHAPES to where it is not
+# "wgmma", by dtype: eva02_large_448's fc2 (K = 2730 is no multiple of 16,
+# and past WGMMA_K_MAX) to "wgmma_codes"; the ragged shapes (odd O) and
+# eva02's fc1 in bf16 (an output row of 5460 bf16 values is no multiple of
+# 16 bytes) to "mma"
+INT8_ROUTES = {
+    "float32": {"ragged": "mma", "eva02_large_448 fc2": "wgmma_codes"},
+    "bfloat16": {"ragged": "mma", "eva02_large_448 fc2": "wgmma_codes",
+                 "eva02_large_448 fc1": "mma"}}
 SMOKE_LOG_Q = 29.0          # AdaLog base of the smoke state, not 37
 # qkv weight std: q.k logits of LayerNormed tokens then have a std of about
 # (QKV_STD**2 * dim) * head_dim**0.5 / 8 ~ 2
@@ -1024,13 +1028,14 @@ def int8_bound_ms(T, K, O, dtype):
 
 
 def int8_case(torch, x, w_int, a_params, scale_row, b, tag):
-    """K5 on one shape: each variant that takes it ("wgmma" unless
-    wgmma_refusal refuses, "mma" always) forced, against the plain version
-    bit for bit with and without the bias, and timed; the routed call
-    launches the variant int8_variant names. Returns ({variant: {"ms": one
-    call a timing, "ms_back_to_back": ten in a row, "ms_graph": ten replayed
-    from a CUDA graph (the device alone)}, "refused": why "wgmma" does not
-    take the shape or None, "plain_ms", "library_ms": torch._int_mm on the
+    """K5 on one shape, w_int in a table's storage (pitched_codes, with its
+    tensor map): each variant that takes it ("wgmma" and "wgmma_codes"
+    unless their refusals refuse, "mma" always) forced, against the plain
+    version bit for bit with and without the bias, and timed; the routed
+    call launches the variant int8_variant names, once. Returns ({variant:
+    {"ms": one call a timing, "ms_back_to_back": ten in a row, "ms_graph":
+    ten replayed from a CUDA graph (the device alone)}, "routed": the
+    variant int8_variant names, "plain_ms", "library_ms": torch._int_mm on the
     activation codes (the integer product alone) one call a timing, and
     "library_ms_graph" from a CUDA graph, both None where it does not take
     the shape (T > 16, K and O multiples of 8), "bound_ms", "bound_by"},
@@ -1038,20 +1043,24 @@ def int8_case(torch, x, w_int, a_params, scale_row, b, tag):
     from adalog_tpu_torch.ops import int8_linear
 
     (T, K), O, dt = x.shape, w_int.shape[0], str(x.dtype).split(".")[-1]
+    w_int = int8_linear.pitched_codes(w_int)
+    w_map = int8_linear.weight_map(w_int)
     args = (x, w_int, a_params, scale_row)
     counts = int8_linear.int8_gemm.variant_launches
-    refused = int8_linear.wgmma_refusal(T, K, O, K, x.data_ptr() % 16,
-                                        x.dtype)
-    routed = "mma" if refused else "wgmma"
-    w_map = None if refused else int8_linear.weight_map(w_int)
+    shape = (T, K, O, K, x.data_ptr() % 16, x.dtype)
+    routed = int8_linear.int8_variant(*shape)
+    refused = {v: int8_linear.wgmma_refusal(*shape) if v == "wgmma" else
+               int8_linear.wgmma_codes_refusal(*shape)
+               for v in ("wgmma", "wgmma_codes")}
     want = int8_linear.int8_gemm_plain(*args, b, bits=4)
     want_nb = int8_linear.int8_gemm_plain(*args, bits=4)
-    before = dict(counts)
+    before, launches = dict(counts), int8_linear.int8_gemm.launches
     int8_linear.int8_gemm(*args, b, bits=4, w_map=w_map)
-    check(counts[routed] == before[routed] + 1,
-          f"[{tag}] the routed call did not launch '{routed}'")
-    r, worst = {"refused": refused}, 0.0
-    for v in ("mma",) if refused else ("wgmma", "mma"):
+    check(counts[routed] == before[routed] + 1
+          and int8_linear.int8_gemm.launches == launches + 1,
+          f"[{tag}] the routed call did not launch '{routed}' once")
+    r, worst = {"routed": routed}, 0.0
+    for v in [v for v, why in refused.items() if why is None] + ["mma"]:
         before = dict(counts)
         got = int8_linear.int8_gemm(*args, b, bits=4, variant=v,
                                     w_map=w_map)
@@ -1097,8 +1106,8 @@ def int8_case(torch, x, w_int, a_params, scale_row, b, tag):
     lib = "n/a (shape)" if r["library_ms"] is None else \
         f"{fmt_ms(r['library_ms'])} graph {fmt_ms(r['library_ms_graph'])}"
     print(f"kernel K5 int8_gemm [{tag}] T={T} K={K} O={O}: routed "
-          f"'{routed}'" + (f" ('wgmma' refused: {refused})" if refused
-                           else "")
+          f"'{routed}'" + "".join(f" ('{v}' refused: {why})"
+                                  for v, why in refused.items() if why)
           + f"; plain_ms={r['plain_ms']:.4f} int_mm_ms(product alone)={lib} "
           f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})")
     return r, worst
@@ -1214,11 +1223,11 @@ def fq_act_kernel_phase(torch, fq_act, device):
 
 def int8_kernel_phase(torch, device):
     """K5's variants against the plain version, bit for bit, at INT8_SHAPES
-    in fp32 and bf16; every shape but INT8_MMA_SITES must take "wgmma",
-    and those are routed to "mma".
+    in fp32 and bf16; every shape must be routed as INT8_ROUTES says
+    ("wgmma" where it names none).
     Returns ({dtype: {key: the numbers summed over deit_small's four int8
-    sites, its block's three and the head; for "wgmma" and "mma" a dict of
-    their times}}, the largest max|diff|)."""
+    sites, its block's three and the head; for each variant a dict of
+    its times}}, the largest max|diff|)."""
     from adalog_tpu_torch.ops import int8_linear
 
     lib = int8_linear._library()
@@ -1229,7 +1238,11 @@ def int8_kernel_phase(torch, device):
                                       for what in range(2))
                   for d, dt in enumerate(("fp32", "bf16")))
               for K in sorted({K for _, _, K, _ in INT8_SHAPES
-                               if K % 16 == 0})))
+                               if K % 16 == 0}))
+          + "; 'wgmma_codes' at any K: " + ", ".join(
+              f"{dt} " + "/".join(str(lib.int8_gemm_layout(d, 0, what))
+                                  for what in (2, 3))
+              for d, dt in enumerate(("fp32", "bf16"))))
     worst, sums = 0.0, {}
     for dt in ("float32", "bfloat16"):
         dtype = getattr(torch, dt)
@@ -1239,14 +1252,24 @@ def int8_kernel_phase(torch, device):
                                                  SEED + 40 + i, device)
             r, d = int8_case(torch, x.to(dtype), w_int, prm, srow,
                              b.to(dtype), f"{dt}, {site}")
-            check((r["refused"] is None)
-                  == (site not in INT8_MMA_SITES[dt]),
-                  f"[{dt}, {site}] 'wgmma' refusal: {r['refused']}")
+            want = INT8_ROUTES[dt].get(site, "wgmma")
+            check(r["routed"] == want,
+                  f"[{dt}, {site}] routed '{r['routed']}', want '{want}'")
+            if site == "eva02_large_448 fc2":
+                print(f"kernel K5 int8_gemm [{dt}, {site}] T={T} K={K} "
+                      f"O={O}, graph: " + ", ".join(
+                          f"'{v}' {r[v]['ms_graph']:.4f} ms"
+                          for v in int8_linear.VARIANTS if v in r)
+                      + f", plain {r['plain_ms']:.4f} ms, bound "
+                      f"{r['bound_ms']:.4f} ms ({r['bound_by']}): "
+                      f"'wgmma_codes' at "
+                      f"{100 * r['bound_ms'] / r['wgmma_codes']['ms_graph']:.1f}"
+                      f"% of it; {card_line()}")
             worst = max(worst, d)
             if site.startswith("deit_small"):
                 bounds.append((r.pop("bound_ms"), r.pop("bound_by")))
                 for k, v in r.items():
-                    if k == "refused":
+                    if k == "routed":
                         continue
                     if isinstance(v, dict):
                         tot.setdefault(k, {})
@@ -1262,12 +1285,12 @@ def int8_kernel_phase(torch, device):
         tot["bound_by"] = max(bounds)[1]
         sums[dt] = tot
         print(f"kernel K5 int8_gemm [{dt}, deit_small's four int8 sites "
-              f"summed]: 'wgmma' graph {tot['wgmma']['ms_graph']:.4f} ms "
-              f"({100 * tot['bound_ms'] / tot['wgmma']['ms_graph']:.1f}% of "
-              f"the bound), 'mma' graph {tot['mma']['ms_graph']:.4f} ms "
-              f"({100 * tot['bound_ms'] / tot['mma']['ms_graph']:.1f}%), "
-              f"torch._int_mm graph {fmt_ms(tot['library_ms_graph'])} ms, "
-              f"bound {tot['bound_ms']:.4f} ms; {card_line()}")
+              f"summed]: " + ", ".join(
+                  f"'{v}' graph {tot[v]['ms_graph']:.4f} ms ("
+                  f"{100 * tot['bound_ms'] / tot[v]['ms_graph']:.1f}% of "
+                  f"the bound)" for v in int8_linear.VARIANTS if v in tot)
+              + f", torch._int_mm graph {fmt_ms(tot['library_ms_graph'])} "
+              f"ms, bound {tot['bound_ms']:.4f} ms; {card_line()}")
     return sums, worst
 
 
@@ -1555,12 +1578,12 @@ ZOO_FALLBACK = ("vit_large", "swin_base_384")
 INT8_MODELS = {"deit_small": 37, "swin_tiny": 40}
 # eva02_large_448 served with eval_int8 in fp32, launches a batch: K1 at
 # each block's attention, every one "mma" on the long row (S = 1025); K5 at
-# qkv, proj, fc1 and fc2 of the 24 blocks and at the head, fc2's on "mma"
-# (INT8_MMA_SITES) and the rest on "wgmma"; no fake-quant Linear site is
-# left for K4 or K6
+# qkv, proj, fc1 and fc2 of the 24 blocks and at the head, fc2's on
+# "wgmma_codes" (INT8_ROUTES) and the rest on "wgmma"; no fake-quant Linear
+# site is left for K4 or K6
 EVA_MODEL, EVA_BATCH = "eva02_large_448", 4
 EVA_LAUNCHES = {"K1": 24, "K2": 0, "K3": 0, "K4": 0, "K5": 97, "K6": 0}
-EVA_K5_VARIANTS = {"wgmma": 73, "mma": 24}
+EVA_K5_VARIANTS = {"wgmma": 73, "wgmma_codes": 24, "mma": 0}
 # int8 serving settings: (name, use_pallas, use_pallas_gemm)
 INT8_SETTINGS = (("int8 + attention kernel", True, False),
                  ("int8 + attention + GEMM kernels", True, True))
@@ -1593,7 +1616,7 @@ def check_k5_variants(n, tag):
     block site, and the heads' 32-row calls, whose rows past 32 the kernel
     computes and never stores."""
     got = k5_variants()
-    check(got == {"wgmma": n, "mma": 0},
+    check(got == {"wgmma": n, "wgmma_codes": 0, "mma": 0},
           f"{tag}: K5 launches by variant {got}, want all {n} 'wgmma'")
 
 
@@ -2811,7 +2834,8 @@ def mesh_phase(torch, fq_attn, fq_gemm, device, ckpt_dir, runs=MESH_RUNS):
                 check(r["launches"] == want,
                       f"mesh {key} rank {rank}: launches {r['launches']} != "
                       f"{want}")
-                check(r["variants"]["K5"] == {"wgmma": want["K5"], "mma": 0},
+                check(r["variants"]["K5"] == {"wgmma": want["K5"],
+                                              "wgmma_codes": 0, "mma": 0},
                       f"mesh {key} rank {rank}: K5 by variant "
                       f"{r['variants']['K5']}, want all 'wgmma'")
                 for k in ("K1", "K4"):

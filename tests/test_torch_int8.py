@@ -484,26 +484,116 @@ def test_int8_every_model_site_routes_wgmma(name, dtype):
     assert max(K for _, _, K, _ in sites) <= int8_linear.WGMMA_K_MAX
 
 
-@pytest.mark.parametrize("T,K,O,lda,mod16,dtype,why", [
-    (64, 100, 128, 100, 0, torch.float32, "multiple of 16"),
-    (64, 40, 1001, 40, 0, torch.bfloat16, "multiple of 16"),
-    (64, 32, 64, 33, 0, torch.float32, "16-byte aligned"),
-    (64, 32, 64, 36, 0, torch.bfloat16, "16-byte aligned"),
-    (64, 32, 64, 32, 8, torch.float32, "16-byte aligned"),
-    (64, 32, 130, 32, 0, torch.float32, "16-byte pieces"),
-    (64, 32, 1004, 32, 0, torch.bfloat16, "16-byte pieces"),
-    (64, 2192, 128, 2192, 0, torch.float32, "stay resident"),
-    (64, 4096, 1024, 4096, 0, torch.bfloat16, "stay resident"),
+@pytest.mark.parametrize("T,K,O,lda,mod16,dtype,why,routed", [
+    (64, 100, 128, 100, 0, torch.float32, "multiple of 16", "wgmma_codes"),
+    (64, 40, 1001, 40, 0, torch.bfloat16, "multiple of 16", "mma"),
+    (64, 32, 64, 33, 0, torch.float32, "16-byte aligned", "wgmma_codes"),
+    (64, 32, 64, 36, 0, torch.bfloat16, "16-byte aligned", "wgmma_codes"),
+    (64, 32, 64, 32, 8, torch.float32, "16-byte aligned", "wgmma_codes"),
+    (64, 32, 130, 32, 0, torch.float32, "16-byte pieces", "mma"),
+    (64, 32, 1004, 32, 0, torch.bfloat16, "16-byte pieces", "mma"),
+    (64, 2192, 128, 2192, 0, torch.float32, "stay resident", "wgmma_codes"),
+    (64, 4096, 1024, 4096, 0, torch.bfloat16, "stay resident",
+     "wgmma_codes"),
 ])
-def test_int8_wgmma_refusal_reasons(T, K, O, lda, mod16, dtype, why):
-    """Each reason "wgmma" refuses a call for; the call then takes "mma",
-    and a forced "wgmma" raises naming the reason."""
+def test_int8_wgmma_refusal_reasons(T, K, O, lda, mod16, dtype, why,
+                                    routed):
+    """Each reason "wgmma" refuses a call for; the call then takes
+    "wgmma_codes" where K or x's alignment is the reason, "mma" where the
+    output rows are (which "wgmma_codes" refuses too); a forced "wgmma"
+    raises naming the reason."""
     assert why in int8_linear.wgmma_refusal(T, K, O, lda, mod16, dtype)
-    assert int8_linear.int8_variant(T, K, O, lda, mod16, dtype) == "mma"
+    assert int8_linear.int8_variant(T, K, O, lda, mod16, dtype) == routed
+    assert (int8_linear.wgmma_codes_refusal(T, K, O, lda, mod16, dtype)
+            is None) == (routed == "wgmma_codes")
     assert int8_linear.int8_variant(T, K, O, lda, mod16, dtype,
                                     "mma") == "mma"
     with pytest.raises(ValueError, match=why):
         int8_linear.int8_variant(T, K, O, lda, mod16, dtype, "wgmma")
+
+
+def _eva02_site_shapes(batch=64):
+    """{site: (T, K, O)} of eva02_large_448's five int8 sites at ``batch``
+    images, from its config (q | k | v and gate | value are one site
+    each; the head takes the mean-pooled rows)."""
+    c = zoo.model_spec("eva02_large_448").cfg
+    T, D = batch * ((c.img_size // c.patch_size) ** 2 + 1), c.dim
+    return {"qkv": (T, D, 3 * D), "proj": (T, D, D),
+            "fc1": (T, D, 2 * c.mlp_hidden), "fc2": (T, c.mlp_hidden, D),
+            "head": (batch, D, c.num_classes)}
+
+
+@pytest.mark.parametrize("dtype,site,want", [
+    (torch.float32, "qkv", "wgmma"), (torch.float32, "proj", "wgmma"),
+    (torch.float32, "fc1", "wgmma"), (torch.float32, "fc2", "wgmma_codes"),
+    (torch.float32, "head", "wgmma"),
+    (torch.bfloat16, "qkv", "wgmma"), (torch.bfloat16, "proj", "wgmma"),
+    (torch.bfloat16, "fc1", "mma"), (torch.bfloat16, "fc2", "wgmma_codes"),
+    (torch.bfloat16, "head", "wgmma"),
+])
+def test_int8_eva02_sites_route(dtype, site, want):
+    """eva02_large_448's sites at batch 64, x contiguous: fc2 (K = 2730)
+    on "wgmma_codes", fc1's 5460 bf16 outputs a row (no multiple of 16
+    bytes) on "mma", the rest on "wgmma"."""
+    T, K, O = _eva02_site_shapes()[site]
+    assert (T, K, O)[1:] == {"qkv": (1024, 3072), "proj": (1024, 1024),
+                             "fc1": (1024, 5460), "fc2": (2730, 1024),
+                             "head": (1024, 1000)}[site]
+    assert int8_linear.int8_variant(T, K, O, K, 0, dtype) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("O", [1, 4, 8, 16, 130, 1000, 1001, 1004, 5460])
+def test_int8_wgmma_codes_refusal(rng, O, dtype):
+    """"wgmma_codes" takes exactly the calls whose output rows are a
+    multiple of 16 bytes, whatever K and x's layout; where its refusal
+    says no, a forced call raises naming it, on the CPU too, and
+    launches nothing; elsewhere it runs (the plain version on the CPU)."""
+    item = 4 if dtype == torch.float32 else 2
+    for K, lda, mod16 in ((40, 40, 0), (2730, 2730, 8), (32, 33, 4),
+                          (4096, 4096, 0)):
+        why = int8_linear.wgmma_codes_refusal(5, K, O, lda, mod16, dtype)
+        assert (why is None) == ((O * item) % 16 == 0)
+        if why is None:
+            assert int8_linear.int8_variant(5, K, O, lda, mod16, dtype,
+                                            "wgmma_codes") == "wgmma_codes"
+        else:
+            assert "16-byte pieces" in why
+            with pytest.raises(ValueError, match="'wgmma_codes' refused"):
+                int8_linear.int8_variant(5, K, O, lda, mod16, dtype,
+                                         "wgmma_codes")
+    x = torch.from_numpy(_x(rng, 5, 40)).to(dtype)
+    w = torch.from_numpy(rng.integers(-7, 8, (O, 40)).astype(np.int8))
+    prm, s = torch.tensor([0.07, 7.0]), torch.rand(O)
+    launches = dict(int8_linear.int8_gemm.variant_launches)
+    if (O * item) % 16:
+        with pytest.raises(ValueError, match="'wgmma_codes' refused"):
+            int8_linear.int8_gemm(x, w, prm, s, bits=4,
+                                  variant="wgmma_codes")
+    else:
+        assert torch.equal(
+            int8_linear.int8_gemm(x, w, prm, s, bits=4,
+                                  variant="wgmma_codes"),
+            int8_linear.int8_gemm_plain(x, w, prm, s, bits=4))
+    assert int8_linear.int8_gemm.variant_launches == launches
+
+
+@pytest.mark.parametrize("K", [12, 32, 40, 2730])
+def test_int8_site_weights_padded_storage(rng, K):
+    """site_weights keeps a site's codes in a zero-padded (O, roundup(K,
+    16)) buffer: w_int is weight_codes' output, shape, dtype and codes,
+    its rows 16-byte aligned, the pad 0."""
+    _, site = _site(rng, 12)
+    _, lin = _linear(rng, 12, K)
+    want, _ = int8_linear.weight_codes(lin.weight, site)
+    hit = int8_linear.site_weights(lin.weight, site)
+    assert hit.w_int.dtype == torch.int8 and hit.w_int.shape == want.shape
+    assert torch.equal(hit.w_int, want)
+    pitch = -(-K // 16) * 16
+    assert hit.w_int.stride() == (pitch, 1)
+    assert hit.w_int.is_contiguous() == (K % 16 == 0)
+    whole = torch.as_strided(hit.w_int, (12, pitch), (pitch, 1))
+    assert not whole[:, K:].any()
 
 
 @pytest.mark.parametrize("T", [1, 32, 63, 64, 65, 294912])

@@ -5,16 +5,17 @@ This file imports no jax, so it runs on a GPU machine without JAX:
 
     python -m pytest --noconftest tests/test_torch_int8_cuda.py
 
-The integer sum is exact in both, and both round the same fp32 epilogue
-(the sum to float, times the row scale, plus the bias, one cast), so both
-variants of the kernel ("wgmma" and "mma") equal the plain version bit for
-bit, in float32 and bfloat16, at the int8 Linear shapes of chip_smoke.py
-(deit_small, deit_base, vit_large and swin_base_384 at batch 32) and at
-ragged ones, as routed and forced; the routed variant is the one
-int8_variant names. A forced "wgmma" on a call it refuses raises, as does
-a CUDA call neither variant takes; a capture into a CUDA graph replays to
-the direct call's output; a reconstruction inside a predictor's int8 table
-launches no kernel.
+The integer sum is exact in all, and all round the same fp32 epilogue
+(the sum to float, times the row scale, plus the bias, one cast), so the
+three variants of the kernel ("wgmma", "wgmma_codes" and "mma") equal the
+plain version bit for bit, in float32 and bfloat16, at the int8 Linear
+shapes of chip_smoke.py (deit_small, deit_base, vit_large and
+swin_base_384 at batch 32, eva02_large_448 at batch 64) and at ragged
+ones, as routed and forced; the routed variant is the one int8_variant
+names. A forced variant on a call it refuses raises, as does a CUDA call
+no variant takes; a capture into a CUDA graph replays to the direct call's
+output; a reconstruction inside a predictor's int8 table launches no
+kernel.
 """
 
 import numpy as np
@@ -39,7 +40,7 @@ def cuda_device():
     return torch.device("cuda")
 
 
-VARIANTS = ("auto", "wgmma", "mma")
+VARIANTS = ("auto", "wgmma", "wgmma_codes", "mma")
 
 
 def _kernel_vs_plain(device, T, K, O, dt, seed, variant, bits=4,
@@ -53,10 +54,11 @@ def _kernel_vs_plain(device, T, K, O, dt, seed, variant, bits=4,
     if strided:                      # rows of a wider tensor
         x = torch.cat([x, x], dim=1)[:, :K]
     lda = x.stride(0) if T > 1 else K
-    why = int8_linear.wgmma_refusal(T, K, O, lda, x.data_ptr() % 16, dtype)
-    if variant == "wgmma" and why is not None:
-        pytest.skip(f"'wgmma' refuses this call: {why}")
-    routed = "mma" if variant == "mma" or why is not None else "wgmma"
+    try:
+        routed = int8_linear.int8_variant(T, K, O, lda, x.data_ptr() % 16,
+                                          dtype, variant)
+    except ValueError as refused:
+        pytest.skip(str(refused))
     before = dict(int8_linear.int8_gemm.variant_launches)
     got = int8_linear.int8_gemm(x, w_int, a_params, scale_row, b, bits=bits,
                                 variant=variant)
@@ -79,8 +81,8 @@ def _kernel_vs_plain(device, T, K, O, dt, seed, variant, bits=4,
 def test_kernel_equals_plain_at_model_shapes(cuda_device, site, T, K, O, dt,
                                              variant):
     """The int8 sites of deit_small, deit_base, vit_large and swin_base_384
-    at batch 32, and the ragged cases of chip_smoke.py ("wgmma" refuses
-    those)."""
+    at batch 32, eva02_large_448's at batch 64, and the ragged cases of
+    chip_smoke.py ("wgmma" refuses those)."""
     _kernel_vs_plain(cuda_device, T, K, O, dt, 1, variant)
 
 
@@ -97,6 +99,10 @@ def test_kernel_equals_plain_at_model_shapes(cuda_device, site, T, K, O, dt,
     (130, 96, 288, 5, True, False),  # swin_tiny's stage 0 width, strided
     (300, 1024, 4096, 4, False, True),  # more k stages than the ring
     (65, 2176, 128, 4, False, True),    # the largest resident K
+    (65, 2177, 128, 4, False, True),    # one past it: "wgmma_codes"
+    (129, 2730, 1024, 4, True, True),   # eva02's fc2 widths, strided rows
+    (300, 4100, 256, 5, False, True),   # more k stages than its ring
+    (1, 40, 16, 4, False, False),       # one row, one piece past K
 ])
 def test_kernel_equals_plain_ragged(cuda_device, T, K, O, bits, strided,
                                     bias, dt, variant):
@@ -107,13 +113,28 @@ def test_kernel_equals_plain_ragged(cuda_device, T, K, O, bits, strided,
 @pytest.mark.cuda
 def test_forced_wgmma_refused_raises(cuda_device):
     """A forced "wgmma" on a call it refuses raises and launches nothing;
-    the same call routed takes "mma"."""
+    the same call routed takes "wgmma_codes", one launch of the wrapper; a
+    forced "wgmma_codes" on output rows it refuses raises too, and the
+    call routed takes "mma"."""
     x, w_int, a_params, scale_row, _ = chip_smoke.int8_inputs(
         torch, 64, 40, 32, 4, cuda_device)
     before = dict(int8_linear.int8_gemm.variant_launches)
+    launches = int8_linear.int8_gemm.launches
     with pytest.raises(ValueError, match="'wgmma' refused"):
         int8_linear.int8_gemm(x, w_int, a_params, scale_row, bits=4,
                               variant="wgmma")
+    assert int8_linear.int8_gemm.variant_launches == before
+    int8_linear.int8_gemm(x, w_int, a_params, scale_row, bits=4)
+    torch.cuda.synchronize()
+    assert int8_linear.int8_gemm.variant_launches["wgmma_codes"] == \
+        before["wgmma_codes"] + 1
+    assert int8_linear.int8_gemm.launches == launches + 1
+    x, w_int, a_params, scale_row, _ = chip_smoke.int8_inputs(
+        torch, 64, 40, 130, 4, cuda_device)
+    before = dict(int8_linear.int8_gemm.variant_launches)
+    with pytest.raises(ValueError, match="'wgmma_codes' refused"):
+        int8_linear.int8_gemm(x, w_int, a_params, scale_row, bits=4,
+                              variant="wgmma_codes")
     assert int8_linear.int8_gemm.variant_launches == before
     int8_linear.int8_gemm(x, w_int, a_params, scale_row, bits=4)
     torch.cuda.synchronize()
@@ -128,11 +149,12 @@ def test_forced_wgmma_refused_raises(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
-@pytest.mark.parametrize("variant", ["wgmma", "mma"])
+@pytest.mark.parametrize("variant", ["wgmma", "wgmma_codes", "mma"])
 def test_cuda_graph_replay_equals_direct_call(cuda_device, variant, dt):
     """Each variant captured into a CUDA graph (the table's tensor map
-    passed by value) replays to the direct call's output, on new inputs
-    copied into the captured ones too."""
+    passed by value; "wgmma_codes"' codes buffer and its tensor map from
+    the graph's own pool) replays to the direct call's output, on new
+    inputs copied into the captured ones too."""
     dtype = getattr(torch, dt)
     x, w_int, a_params, scale_row, b = chip_smoke.int8_inputs(
         torch, 6304, 384, 1152, 5, cuda_device)
