@@ -236,8 +236,8 @@ class QuantCalibrator:
         self._capture_dtype = (torch.bfloat16 if getattr(
             cfg, "capture_dtype", "float32") == "bfloat16" else None)
         scoring.set_score_dtype(cfg.search_dtype)
-        scoring.set_score_precision(getattr(cfg, "search_precision",
-                                            "highest"))
+        scoring.check_score_precision(getattr(cfg, "search_precision",
+                                              "highest"))
 
     @contextlib.contextmanager
     def _timed(self, family):

@@ -184,7 +184,7 @@ def main(args):
     from adalog_tpu_torch.calib.layout import quant_layout
     from adalog_tpu_torch.data.imagenet import ImageNetLoader, SyntheticLoader
     from adalog_tpu_torch.models.zoo import build_model, model_spec
-    from adalog_tpu_torch.ops.kernel_defaults import resolve_kernel_config
+    from adalog_tpu_torch.ops.routes import switches
     from adalog_tpu_torch.quantizers.state import map_tensors
     from adalog_tpu_torch.recon.brecq import BlockReconstructor
     from adalog_tpu_torch.serve import make_predictor
@@ -255,24 +255,25 @@ def main(args):
                args.load_optimize_checkpoint is None)
     qstate = None
 
-    resolve_kernel_config(cfg, spec)   # None = auto -> measured per-model
+    kernels = switches(cfg)
     log.info("eval kernels: use_pallas=%s use_pallas_gemm=%s eval_int8=%s",
-             cfg.use_pallas, cfg.use_pallas_gemm, cfg.eval_int8)
+             kernels["use_kernels"], kernels["use_gemm_kernels"],
+             kernels["use_int8"])
     if mesh is not None:
         log.info("eval on a dp=%d x tp=%d mesh of %s ranks on %s", mesh.dp,
                  mesh.tp, mesh.backend, device)
         if args.calibrate or args.optimize:
             log.info("calibration / reconstruction data-parallel over %d "
                      "ranks", calib_mesh.dp)
-        if cfg.use_pallas_gemm:
+        if kernels["use_gemm_kernels"]:
             log.info("mesh active: fq_gemm linear kernels stay disabled")
 
     def eval_forward(p, qs):
         return make_predictor(
             spec, p, qs, eval_dtype=cfg.eval_dtype, cfg=cfg,
-            use_kernels=bool(cfg.use_pallas),
-            use_gemm_kernels=bool(cfg.use_pallas_gemm) and mesh is None,
-            use_int8=bool(cfg.eval_int8), device=device, mesh=mesh)
+            use_kernels=kernels["use_kernels"],
+            use_gemm_kernels=kernels["use_gemm_kernels"] and mesh is None,
+            use_int8=kernels["use_int8"], device=device, mesh=mesh)
 
     def load_any_checkpoint(path):
         """Route by format: the reference's torch.save(state_dict)

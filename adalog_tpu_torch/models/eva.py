@@ -44,8 +44,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from adalog_tpu_torch.models.layers import qlinear, qconv2d, qmatmul, layer_norm
-from adalog_tpu_torch.models.vit import _tap, mode_of, site_of
+from adalog_tpu_torch.models.layers import (
+    _tap, layer_norm, qconv2d, qlinear, quant_attention,
+)
+from adalog_tpu_torch.models.vit import mode_of, site_of
 from adalog_tpu_torch.ops import fq_attn
 from adalog_tpu_torch.utils.profiling import span
 
@@ -211,27 +213,13 @@ def eva_attention(cfg: EvaConfig, ap: Attention, qstate, prefix: str, x,
             q = apply_rope(q, rope)
             k = apply_rope(k, rope)
 
-        nm = f"{prefix}.matmul1"
-        kT = k.transpose(-2, -1)
-        m1_site, m1_mode = site_of(qstate, nm), mode_of(modes, nm)
-        nm2 = f"{prefix}.matmul2"
-        m2_site, m2_mode = site_of(qstate, nm2), mode_of(modes, nm2)
-
-        out = attn = None
-        fused = taps is None and not training
-        if fused and fq_attn.supports_flash(
-                m1_site, m2_site, m1_mode, m2_mode,
-                shape=(q.shape[-2], q.shape[-1]), dtype=q.dtype):
-            # the whole quantized attention in one kernel (a long row past
-            # 256 tokens): the (B, H, N, N) logits never reach device memory
-            out = fq_attn.run_flash(m1_site, m2_site, q, kT, v,
-                                    logit_scale=hd ** -0.5)
-        if out is None:
-            attn = qmatmul(m1_site, q, kT, mode=m1_mode, training=training)
-            _tap(taps, nm, q, kT, attn)
-            attn = torch.softmax(attn * (hd ** -0.5), dim=-1)
-            out = qmatmul(m2_site, attn, v, mode=m2_mode, training=training)
-            _tap(taps, nm2, attn, v, out)
+        # K1 takes a row past 256 tokens in two passes (its long row)
+        nm, nm2 = f"{prefix}.matmul1", f"{prefix}.matmul2"
+        out = quant_attention(
+            q, k.transpose(-2, -1), v, site_of(qstate, nm),
+            site_of(qstate, nm2), mode_of(modes, nm), mode_of(modes, nm2),
+            taps, (nm, nm2), training=training, logit_scale=hd ** -0.5,
+            run_flash=fq_attn.run_flash)
         out = out.transpose(1, 2).reshape(B, N, H * hd)
 
     nm = f"{prefix}.proj"

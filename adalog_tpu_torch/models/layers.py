@@ -12,23 +12,23 @@ mode:
 Captured taps are returned through a ``taps`` dict the caller threads through
 the forward, so one raw pass captures every site's inputs and output.
 
-``training=True`` (block reconstruction) rounds with straight-through
-estimators so gradients reach the quantizers' scales, and dispatches no
-kernel: no int8 GEMM, no weight-prep table, no fused GEMM, no fused
-attention matmul.
-``soft=True`` takes the soft AdaRound target of a weight quantizer that
-carries an ``alpha``, and reads no weight-prep or activation-quant table
-either.
+Under a predictor's plan (ops/routes.py) each quantized site runs as its
+route says: ``qlinear`` by the one route of its Linear site,
+``quant_attention`` and ``qmatmul`` through the attention kernels where the
+plan turns them on. ``training=True`` (block reconstruction) rounds with
+straight-through estimators so gradients reach the quantizers' scales, and
+reads no plan: no kernel, no prepared weight. ``soft=True`` takes the soft
+AdaRound target of a weight quantizer that carries an ``alpha``, and reads
+no plan either.
 
 Under tensor parallelism (parallel/tp.py) the row-parallel Linear sites
-named by ``tp_row_context`` hold an input-feature slice of their weight:
-``qlinear`` sums their partial products over the tp group and adds the bias
-once, on the sum.
+hold an input-feature slice of their weight: ``qlinear`` sums their
+partial products over the tp group of their route and adds the bias once,
+on the sum.
 """
 
 from __future__ import annotations
 
-import contextvars
 from contextlib import contextmanager
 from dataclasses import dataclass
 
@@ -38,9 +38,7 @@ import torch.nn.functional as F
 
 from adalog_tpu_torch.quantizers.state import QuantizerState, WeightQuantizerState
 from adalog_tpu_torch.quantizers.apply import apply_quantizer, apply_weight_quantizer
-from adalog_tpu_torch.ops import (
-    fq_act, fq_attn, fq_gemm, int8_linear, weight_prep,
-)
+from adalog_tpu_torch.ops import fq_act, fq_attn, fq_gemm, int8_linear, routes
 from adalog_tpu_torch.utils.profiling import span
 
 # the span of each activation quantizer kind (utils/profiling.py)
@@ -48,15 +46,19 @@ _ACT_SPAN = {k: "fq.act." + k
              for k in ("uniform", "twin", "log2", "logsqrt2", "adalog")}
 
 
-def _act_quant(qs, x, training, name=None):
-    """``apply_quantizer`` inside its span; outside training, the Linear
-    site ``name`` of the active ``ops.fq_act`` table runs through K6's
-    wrapper instead, in the same span."""
+def _act_quant(qs, x, training, act=None):
+    """``apply_quantizer`` inside its span; a Linear site whose route holds
+    an ``fq_act.ActSite`` ``act`` runs through K6's wrapper instead, in the
+    same span."""
     with span(_ACT_SPAN.get(qs.kind, "fq.act")):
-        hit = None if training else fq_act.lookup(name, qs)
-        if hit is not None:
-            return fq_act.fq_act_quant(hit, x)
+        if act is not None:
+            return fq_act.fq_act_quant(act, x)
         return apply_quantizer(qs, x, training=training)
+
+
+def _tap(taps, name, *tensors):
+    if taps is not None:
+        taps[name] = tensors
 
 
 # ---------------------------------------------------------------------------
@@ -86,36 +88,6 @@ class MatMulSite:
 
 
 # ---------------------------------------------------------------------------
-# Tensor-parallel context
-# ---------------------------------------------------------------------------
-
-# (tp process group, frozenset of row-parallel site names) while a rank's
-# forward runs over a tp mesh (parallel/tp.py), else None
-_TP_ROW: contextvars.ContextVar = contextvars.ContextVar(
-    "adalog_tp_row", default=None)
-
-
-def tp_row_group(name):
-    """The tp process group when site ``name`` is row-parallel in the active
-    context, else None."""
-    ctx = _TP_ROW.get()
-    if ctx is not None and name is not None and name in ctx[1]:
-        return ctx[0]
-    return None
-
-
-@contextmanager
-def tp_row_context(group, names):
-    """Mark the Linear sites ``names`` row-parallel over the process group
-    ``group`` inside the block."""
-    tok = _TP_ROW.set((group, frozenset(names)))
-    try:
-        yield
-    finally:
-        _TP_ROW.reset(tok)
-
-
-# ---------------------------------------------------------------------------
 # Forwards
 # ---------------------------------------------------------------------------
 
@@ -133,53 +105,53 @@ def quant_linear_weight(p: torch.nn.Linear, site: LinearSite, *,
                                   training=training).reshape(p.weight.shape)
 
 
+# a site outside a plan: weight and input quantized at the call
+_PER_CALL = routes.Route("eager", site=None, shape=None)
+
+
 def qlinear(p: torch.nn.Linear, site, x, *, mode: str = "raw",
             training: bool = False, soft: bool = False, name=None):
     """y = x @ W^T + b with optional fake quantization of W and/or x.
 
-    In quant mode, outside training, while an ``ops.int8_linear`` table is
-    active, a site that ``int8_linear.supports`` runs as an integer product,
-    before anything else is looked up (as in the JAX package). In
-    quant/w_only mode the weight comes from the load-time table of
-    ``ops.weight_prep`` when one is active (never in training or soft
-    mode), else it is quantized here. In quant mode, outside training, a
-    site of the active ``ops.fq_gemm`` table runs through the fused kernel:
-    the activation quantizer inside the GEMM, the bias added after the
-    product in the compute dtype. Otherwise, outside training and soft
-    mode, a site of the active ``ops.fq_act`` table fake-quantizes its
-    input in one pass (K6).
+    Under a predictor's plan, outside training and soft rounding, a
+    quantized site reads its one route (``ops.routes``): in quant mode an
+    "int8" route runs as an integer product, an "fq_gemm" route through the
+    fused GEMM kernel (the activation quantizer inside the product, the bias
+    added after it in the compute dtype), and the others fake-quantize the
+    input, in one pass (K6) on an "fq_act" route; in quant and w_only mode
+    the weight is the route's prepared one. Otherwise the weight and the
+    input are quantized here, per call.
 
-    A row-parallel site of the active ``tp_row_context`` takes neither the
-    int8 nor the fused GEMM (as in the JAX package): its partial product is
-    summed over the tp group, then the bias is added once."""
-    row = tp_row_group(name)
-    if row is None and site is not None and mode == "quant" \
-            and not training and int8_linear.enabled() \
-            and int8_linear.supports(site, mode):
+    A row-parallel route (a tp rank's) takes neither the int8 nor the fused
+    GEMM (as in the JAX package): its partial product is summed over the tp
+    group, then the bias is added once."""
+    route = _PER_CALL
+    if site is not None and not training and not soft:
+        plan = routes.current()
+        if plan is not None:
+            route = plan.route(name, site, p.weight)
+    if route.kind == "int8" and mode == "quant":
         with span("linear.int8"):
-            return int8_linear.int8_qlinear(p, site, x, name=name)
+            return int8_linear.int8_qlinear(p, site, x, route.int8)
     w = p.weight
     if site is not None and mode in ("quant", "w_only"):
-        w = None
-        if not training and not soft:
-            w = weight_prep.lookup(name, p.weight.shape)
+        w = route.weight
         if w is None:
             with span("fq.weight"):
                 w = quant_linear_weight(p, site, soft=soft,
                                         training=training)
     if site is not None and mode in ("quant", "a_only"):
-        hit = fq_gemm.lookup(name) \
-            if mode == "quant" and not training and row is None else None
-        if hit is not None:
+        if route.kind == "fq_gemm" and mode == "quant":
             with span("linear.fq_gemm"):
-                y = fq_gemm.run(hit, x.reshape(-1, x.shape[-1]), w, p.bias)
+                y = fq_gemm.run(route.gemm, x.reshape(-1, x.shape[-1]), w,
+                                p.bias)
             return y.reshape(*x.shape[:-1], w.shape[0])
-        x = _act_quant(site.aq, x, training, None if soft else name)
+        x = _act_quant(site.aq, x, training, route.act)
     with span("linear"):
-        if row is None:
+        if route.row is None:
             return F.linear(x, w, p.bias)
         y = F.linear(x, w)
-        dist.all_reduce(y, group=row)
+        dist.all_reduce(y, group=route.row)
         return y if p.bias is None else y + p.bias
 
 
@@ -236,18 +208,65 @@ def qconv2d(p: torch.nn.Conv2d, site, x, *, mode: str = "raw",
     return y.permute(0, 2, 3, 1)
 
 
-def qmatmul(site, A, B, *, mode: str = "raw", training: bool = False):
+def qmatmul(site, A, B, *, mode: str = "raw", training: bool = False,
+            name=None):
     """A @ B with optional fake quantization of both operands.
 
-    With the attention kernels on, a supported quant-mode site with 4-D
-    operands runs through the fused kernel of ``ops.fq_attn`` (K3), outside
-    training: both quantizers inside the batched product."""
+    Where the predictor's plan turns the attention kernels on, a supported
+    quant-mode site with 4-D operands runs through K3 (``fq_attn.run``),
+    outside training: both quantizers inside the batched product."""
     if site is not None and mode == "quant":
-        if not training and A.dim() == 4 and fq_attn.supports(site, mode):
-            return fq_attn.run(site, A, B)
+        plan = None if training else routes.current()
+        if plan is not None and plan.attn and A.dim() == 4 \
+                and fq_attn.supports(site, mode):
+            return fq_attn.run(site, A, B, name=name)
         A = _act_quant(site.Aq, A, training)
         B = _act_quant(site.Bq, B, training)
     return torch.matmul(A, B)
+
+
+def quant_attention(q, kT, v, m1_site, m2_site, m1_mode, m2_mode, taps,
+                    names, *, training, logit_scale, run_flash, bias=None,
+                    add_bias=None):
+    """softmax(q @ kT * logit_scale (+ bias)) @ v through the quantized
+    attention matmul sites ``names`` = (matmul1, matmul2), in three tiers:
+    K1 (``run_flash``) where the predictor's plan turns the attention
+    kernels on and K1 takes the call; else K3 for matmul1 (``qmatmul``), the
+    scale and ``add_bias`` on the logits, then K2 (``fq_attn.run_softmax``)
+    for the rest where the plan turns the kernels on; else the plain ops
+    (always in training and while ``taps`` are captured).
+
+    q, v: (N, H, S, D), kT: (N, H, D, S); returns (N, H, S, D).
+    ``run_flash`` is the family module's ``fq_attn.run_flash``, read at the
+    call (the benchmark's recorder wraps it); ``bias`` a callable giving
+    K1's (P, S, S) additive logit bias, called only where K1 runs;
+    ``add_bias`` the unfused path's: logits -> logits with the bias."""
+    nm1, nm2 = names
+    plan = None if taps is not None or training else routes.current()
+    fused = plan is not None and plan.attn
+    if fused and fq_attn.supports_flash(
+            m1_site, m2_site, m1_mode, m2_mode, shape=q.shape[-2:],
+            dtype=q.dtype, exact_ints=plan.exact_ints):
+        # the whole quantized attention, uq(q) @ uq(kT) -> scale (+ bias)
+        # -> softmax -> AdaLog -> @ uq(v), in one kernel: the (N, H, S, S)
+        # logits never reach device memory
+        return run_flash(m1_site, m2_site, q, kT, v, logit_scale=logit_scale,
+                         bias=None if bias is None else bias(), names=names)
+    attn = qmatmul(m1_site, q, kT, mode=m1_mode, training=training, name=nm1)
+    _tap(taps, nm1, q, kT, attn)
+    if logit_scale != 1.0:
+        attn = attn * logit_scale
+    if add_bias is not None:
+        attn = add_bias(attn)
+    if fused and m2_site is not None \
+            and fq_attn.supports_softmax(m2_site, m2_mode):
+        # softmax, AdaLog and the product with uq(v) fused; the logits are
+        # still a device-memory operand
+        return fq_attn.run_softmax(m2_site, attn, v, name=nm2)
+    attn = torch.softmax(attn, dim=-1)
+    out = qmatmul(m2_site, attn, v, mode=m2_mode, training=training, name=nm2)
+    _tap(taps, nm2, attn, v, out)
+    return out
 
 
 def layer_norm(p: torch.nn.LayerNorm, x):

@@ -34,9 +34,9 @@ import torch
 from torch import nn
 
 from adalog_tpu_torch.models.layers import (
-    qlinear, qconv2d, qmatmul, layer_norm, gelu,
+    _tap, gelu, layer_norm, qconv2d, qlinear, quant_attention,
 )
-from adalog_tpu_torch.models.vit import mode_of, site_of, _tap
+from adalog_tpu_torch.models.vit import mode_of, site_of
 from adalog_tpu_torch.ops import fq_attn
 from adalog_tpu_torch.utils.profiling import span
 
@@ -289,9 +289,11 @@ def swin_window_attention(ap: WindowAttention, qstate, prefix: str, x, heads,
                           mask, modes, taps, *, training: bool = False,
                           soft: bool = False):
     """x: (B_, N, C) windows; mask: None or (nW, N, N) constant in x's
-    dtype. The same three tiers as ``vit_attention``: K1, then K3 for
-    matmul1 with K2 for the rest, then the plain ops (always in
-    training)."""
+    dtype. The attention's three tiers are ``quant_attention``'s; the
+    rel-pos bias (+ shifted-window mask) reaches K1 as a (P, N, N) additive
+    logit bias with period P over the flattened (B, nW, heads) slices
+    (``flash_bias``) and the unfused path's logits through
+    ``add_window_bias``."""
     B_, N, C = x.shape
     hd = C // heads
 
@@ -305,39 +307,13 @@ def swin_window_attention(ap: WindowAttention, qstate, prefix: str, x, heads,
         q, k, v = qkv[0], qkv[1], qkv[2]
         q = q * (hd ** -0.5)
 
-        nm = f"{prefix}.matmul1"
-        kT = k.transpose(-2, -1)
-        m1_site, m1_mode = site_of(qstate, nm), mode_of(modes, nm)
-        nm2 = f"{prefix}.matmul2"
-        m2_site, m2_mode = site_of(qstate, nm2), mode_of(modes, nm2)
-
-        out = attn = None
-        fused = taps is None and not training
-        if fused and fq_attn.supports_flash(
-                m1_site, m2_site, m1_mode, m2_mode,
-                shape=(q.shape[-2], q.shape[-1]), dtype=q.dtype):
-            # the whole quantized window attention in one kernel; the
-            # rel-pos bias (+ shifted-window mask) folds into a (P, N, N)
-            # additive logit bias with period P over the flattened
-            # (B, nW, heads) slices
-            out = fq_attn.run_flash(m1_site, m2_site, q, kT, v,
-                                    logit_scale=1.0,
-                                    bias=flash_bias(ap, mask))
-        if out is None:
-            attn = qmatmul(m1_site, q, kT, mode=m1_mode, training=training)
-            _tap(taps, nm, q, kT, attn)
-            attn = add_window_bias(ap, attn, mask)
-            if fused and m2_site is not None \
-                    and fq_attn.supports_softmax(m2_site, m2_mode):
-                # partial fast path: softmax, AdaLog and the product with
-                # uq(v) fused; the logits (carrying bias and mask) are still
-                # a device-memory operand
-                out = fq_attn.run_softmax(m2_site, attn, v)
-                attn = None
-        if attn is not None:
-            attn = torch.softmax(attn, dim=-1)
-            out = qmatmul(m2_site, attn, v, mode=m2_mode, training=training)
-            _tap(taps, nm2, attn, v, out)
+        nm, nm2 = f"{prefix}.matmul1", f"{prefix}.matmul2"
+        out = quant_attention(
+            q, k.transpose(-2, -1), v, site_of(qstate, nm),
+            site_of(qstate, nm2), mode_of(modes, nm), mode_of(modes, nm2),
+            taps, (nm, nm2), training=training, logit_scale=1.0,
+            run_flash=fq_attn.run_flash, bias=lambda: flash_bias(ap, mask),
+            add_bias=lambda attn: add_window_bias(ap, attn, mask))
         out = out.transpose(1, 2).reshape(B_, N, heads * hd)
 
     nm = f"{prefix}.proj"

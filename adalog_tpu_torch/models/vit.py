@@ -20,7 +20,7 @@ import torch
 from torch import nn
 
 from adalog_tpu_torch.models.layers import (
-    qlinear, qconv2d, qmatmul, layer_norm, gelu,
+    _tap, gelu, layer_norm, qconv2d, qlinear, quant_attention,
 )
 from adalog_tpu_torch.ops import fq_attn
 from adalog_tpu_torch.utils.profiling import span
@@ -109,11 +109,6 @@ def site_of(qstate, name: str):
     return None if qstate is None else qstate.get(name)
 
 
-def _tap(taps, name, *tensors):
-    if taps is not None:
-        taps[name] = tensors
-
-
 def vit_attention(cfg: ViTConfig, ap: Attention, qstate, prefix: str, x,
                   modes, taps, *, training: bool = False, soft: bool = False):
     B, N, C = x.shape
@@ -130,38 +125,12 @@ def vit_attention(cfg: ViTConfig, ap: Attention, qstate, prefix: str, x,
         q = q if ap.q_norm is None else layer_norm(ap.q_norm, q)
         k = k if ap.k_norm is None else layer_norm(ap.k_norm, k)
 
-        nm = f"{prefix}.matmul1"
-        kT = k.transpose(-2, -1)
-        m1_site, m1_mode = site_of(qstate, nm), mode_of(modes, nm)
-        nm2 = f"{prefix}.matmul2"
-        m2_site, m2_mode = site_of(qstate, nm2), mode_of(modes, nm2)
-
-        out = attn = None
-        # no kernel in training (block reconstruction differentiates the
-        # plain ops)
-        fused = taps is None and not training
-        if fused and fq_attn.supports_flash(
-                m1_site, m2_site, m1_mode, m2_mode,
-                shape=(q.shape[-2], q.shape[-1]), dtype=q.dtype):
-            # the whole quantized attention, uq(q) @ uq(kT) -> scale ->
-            # softmax -> AdaLog -> @ uq(v), in one kernel: the (B, H, N, N)
-            # logits never reach device memory
-            out = fq_attn.run_flash(m1_site, m2_site, q, kT, v,
-                                    logit_scale=hd ** -0.5)
-        if out is None:
-            attn = qmatmul(m1_site, q, kT, mode=m1_mode, training=training)
-            _tap(taps, nm, q, kT, attn)
-            attn = attn * (hd ** -0.5)
-            if fused and m2_site is not None \
-                    and fq_attn.supports_softmax(m2_site, m2_mode):
-                # partial fast path: softmax, AdaLog and the product with
-                # uq(v) fused; the logits are still a device-memory operand
-                out = fq_attn.run_softmax(m2_site, attn, v)
-                attn = None
-        if attn is not None:
-            attn = torch.softmax(attn, dim=-1)
-            out = qmatmul(m2_site, attn, v, mode=m2_mode, training=training)
-            _tap(taps, nm2, attn, v, out)
+        nm, nm2 = f"{prefix}.matmul1", f"{prefix}.matmul2"
+        out = quant_attention(
+            q, k.transpose(-2, -1), v, site_of(qstate, nm),
+            site_of(qstate, nm2), mode_of(modes, nm), mode_of(modes, nm2),
+            taps, (nm, nm2), training=training, logit_scale=hd ** -0.5,
+            run_flash=fq_attn.run_flash)
         out = out.transpose(1, 2).reshape(B, N, H * hd)
 
     nm = f"{prefix}.proj"

@@ -15,30 +15,27 @@ the kernel or raises. ``fq_act_quant.launches`` counts kernel launches,
 "adalog"), ``fq_act_quant.calls`` every call on either device.
 
 Which sites take it is decided once per loaded model, from what the state
-shows: ``prepare`` builds {site: ActSite} for every Linear site whose
-activation quantizer is uniform (either sign) or AdaLog (shifted or not),
-of at most ``MAX_BITS`` bits, with one-element float32 parameters and a
-positive normal scale; each entry holds every value that depends on the
-state alone, from PyTorch's own evaluation on the state's device (the
-scale, the rounded zero point, k = 37 / q, the shift and its shift-back
-term, the value of each AdaLog code times the scale), read on the host
-there, once. A predictor always builds the table and enters
-``activate(table)`` around its forward; ``models.layers.qlinear`` looks its
-site up and, outside training and soft rounding, sends the input to
-``fq_act_quant``, which launches K6 or raises (a float16 input, rows that
-fold into no single stride: neither occurs in a served forward). Sites
-of other kinds or with per-channel parameters stay on ``apply_quantizer``.
-Calibration and BRECQ never enter a table. Nothing on the forward reads a
-device tensor on the host, and the input is never written.
+shows: ``act_site`` builds the ``ActSite`` of an activation quantizer that
+is uniform (either sign) or AdaLog (shifted or not), of at most
+``MAX_BITS`` bits, with one-element float32 parameters and a positive
+normal scale; it holds every value that depends on the state alone, from
+PyTorch's own evaluation on the state's device (the scale, the rounded zero
+point, k = 37 / q, the shift and its shift-back term, the value of each
+AdaLog code times the scale), read on the host there, once. A predictor's
+plan (ops/routes.py) gives every Linear site K6 takes one, and
+``models.layers.qlinear`` sends such a site's input to ``fq_act_quant``
+outside training and soft rounding, which launches K6 or raises (a float16
+input, rows that fold into no single stride: neither occurs in a served
+forward). Sites of other kinds or with per-channel parameters stay on
+``apply_quantizer``. Calibration and BRECQ enter no plan. Nothing on the
+forward reads a device tensor on the host, and the input is never written.
 """
 
 from __future__ import annotations
 
-import contextvars
 import ctypes
 import functools
 import math
-from contextlib import contextmanager
 from typing import NamedTuple, Optional
 
 import torch
@@ -78,7 +75,7 @@ class ActSite(NamedTuple):
 
 
 # ---------------------------------------------------------------------------
-# Sites, and the load-time table
+# Sites
 # ---------------------------------------------------------------------------
 
 def _state_tensors(aq):
@@ -148,54 +145,17 @@ def site_params(aq) -> Optional[Params]:
     return p
 
 
-def prepare(qstate, skip=()) -> dict:
-    """{site_name: ActSite} for every Linear site of ``qstate`` but those in
-    ``skip`` (the int8 sites, which quantize inside their product) whose
-    activation quantizer K6 takes. Reads each such site's parameters on the
-    host once, so it belongs where a predictor is built."""
-    from adalog_tpu_torch.models.layers import LinearSite
-
-    table = {}
-    with torch.no_grad():
-        for nm, site in qstate.items():
-            if nm in skip or not isinstance(site, LinearSite) \
-                    or refusal(site.aq) is not None:
-                continue
-            aq = site.aq
-            prm = site_params(aq)
-            if prm is not None:
-                code = 2 if aq.kind == "adalog" else int(bool(aq.symmetric))
-                table[nm] = ActSite(aq, aq.kind, code, prm)
-    return table
-
-
-_ACTIVE: contextvars.ContextVar = contextvars.ContextVar(
-    "adalog_fq_act_table", default=None)
-
-
-@contextmanager
-def activate(table):
-    """Send the sites of ``table`` (a ``prepare`` result) through K6 inside
-    the block; None leaves every site on ``apply_quantizer``."""
-    tok = _ACTIVE.set(table)
-    try:
-        yield
-    finally:
-        _ACTIVE.reset(tok)
-
-
-def lookup(name, qs):
-    """The ``ActSite`` of site ``name`` in the active table, else None.
-    Raises where the entry was prepared from another quantizer state than
-    ``qs``: its parameters would not be this site's."""
-    table = _ACTIVE.get()
-    if name is None or table is None:
+def act_site(aq) -> Optional[ActSite]:
+    """The ``ActSite`` of an activation quantizer that K6 takes (``refusal``
+    and ``site_params`` let it through), else None. Reads its parameters on
+    the host once, so it belongs where a predictor is built."""
+    if refusal(aq) is not None:
         return None
-    hit = table.get(name)
-    if hit is not None and hit.qs is not qs:
-        raise RuntimeError(f"fq_act: site {name!r} of the active table was "
-                           f"prepared from another quantizer state")
-    return hit
+    prm = site_params(aq)
+    if prm is None:
+        return None
+    code = 2 if aq.kind == "adalog" else int(bool(aq.symmetric))
+    return ActSite(aq, aq.kind, code, prm)
 
 
 # ---------------------------------------------------------------------------

@@ -42,22 +42,23 @@ K2 and K3 have the same two variants in their one source
 has one body a mode (K2: the row of logits in registers, as K1; K3 with
 AdaLog A: A streamed through registers; K3 with uniform A: the wide output
 stored in row runs), with the same code table and integer operands; "fma"
-is their first kernel. ``prepare(qstate)`` flattens each matmul site's
-per-head parameters once; ``activate(..., site_params=)`` carries the table
-to ``run`` and ``run_softmax``.
+is their first kernel.
+
+Whether the kernels serve a forward is its predictor's plan (ops/routes.py),
+which also holds the verdict of ``integers_exact`` and each matmul site's
+per-head parameter rows (``site_params``), flattened once; ``run_flash``,
+``run`` and ``run_softmax`` take them from the plan by site name.
 """
 
 from __future__ import annotations
 
-import contextvars
 import ctypes
 import functools
-from contextlib import contextmanager
 from typing import Optional
 
 import torch
 
-from adalog_tpu_torch.ops import cuda_build, fq_gemm
+from adalog_tpu_torch.ops import cuda_build, routes
 from adalog_tpu_torch.quantizers.logarithm import ADALOG_R
 
 # must match fq_flash_attn.cu and fq_attn_matmul.cu
@@ -405,7 +406,7 @@ def integers_exact(qstate) -> bool:
     """One verdict for a quantizer state, taken once where a predictor is
     built: True when the zero points of every uniform quantizer of every
     attention matmul site keep c - z exact in bf16, which variant "mma"
-    needs of fp32 inputs (``activate`` carries it to ``run_flash``)."""
+    needs of fp32 inputs (a predictor's plan carries it to the calls)."""
     for site in qstate.values():
         for qs in (getattr(site, "Aq", None), getattr(site, "Bq", None)):
             if qs is None or qs.kind != "uniform" or qs.bits == 32 \
@@ -956,55 +957,20 @@ def matmul_phase_cycles(mode: str, A, B, a_params, b_params, *, a_bits: int,
 # Dispatch from the model forward
 # ---------------------------------------------------------------------------
 
-_ENABLED: contextvars.ContextVar = contextvars.ContextVar(
-    "adalog_fq_attn_enabled", default=False)
-_EXACT_INTS: contextvars.ContextVar = contextvars.ContextVar(
-    "adalog_fq_attn_exact_ints", default=None)
-_SITE_PARAMS: contextvars.ContextVar = contextvars.ContextVar(
-    "adalog_fq_attn_site_params", default=None)
-
-
-@contextmanager
-def activate(flag: bool, exact_ints: Optional[bool] = None,
-             site_params: Optional[dict] = None):
-    """Route supported attention sites through the kernels inside the block
-    (a predictor enters it around its forward). ``exact_ints`` is the
-    verdict of ``integers_exact`` on the quantizer state the forward runs
-    with, taken once by the caller; with None, each fp32 call that could
-    take a variant "mma" reads its own zero points. ``site_params`` is the
-    table of ``prepare`` for that state; without it ``run`` and
-    ``run_softmax`` flatten a site's parameters on every call."""
-    tok = _ENABLED.set(bool(flag))
-    tok_exact = _EXACT_INTS.set(exact_ints)
-    tok_params = _SITE_PARAMS.set(site_params)
-    try:
-        yield
-    finally:
-        _SITE_PARAMS.reset(tok_params)
-        _EXACT_INTS.reset(tok_exact)
-        _ENABLED.reset(tok)
-
-
-def enabled() -> bool:
-    """On inside ``activate(True)``, and wherever the GEMM kernel's table is
-    active: turning the GEMM kernels on turns these on too."""
-    return _ENABLED.get() or fq_gemm.enabled()
-
-
 def supports(site, mode: str) -> bool:
     """K3: a quant-mode matmul site with uniform B and uniform or AdaLog
-    A."""
-    if not enabled() or mode != "quant":
+    A. (Whether the kernels are on is the predictor's plan.)"""
+    if mode != "quant":
         return False
     Aq, Bq = site.Aq, site.Bq
     if Bq.kind != "uniform" or Bq.bits == 32 or Aq.bits == 32:
         return False
-    return Aq.kind in ("uniform", "adalog")
+    return Aq.kind in A_KINDS
 
 
 def supports_softmax(site, mode: str) -> bool:
     """K2, the fused-softmax variant: AdaLog A at frozen scale 1.0 only."""
-    if not enabled() or mode != "quant":
+    if mode != "quant":
         return False
     Aq, Bq = site.Aq, site.Bq
     return (Aq.kind == "adalog" and Aq.bits != 32 and not Aq.shifted
@@ -1012,14 +978,15 @@ def supports_softmax(site, mode: str) -> bool:
 
 
 def supports_flash(m1_site, m2_site, m1_mode: str, m2_mode: str,
-                   shape, dtype) -> bool:
+                   shape, dtype, exact_ints: Optional[bool] = None) -> bool:
     """K1, the fully fused path: matmul1 both-uniform, matmul2 AdaLog A
     (unshifted) and uniform B, both sites in quant mode (the shipped eval
     configuration), and a variant of the kernel that takes the call's
     ``shape`` (S, D) and ``dtype`` on a card (``flash_takes``), so that a
-    forward takes the unfused path where neither does; the verdict on the
-    zero points is ``activate``'s, or read from the two sites."""
-    if not enabled() or m1_mode != "quant" or m2_mode != "quant":
+    forward takes the unfused path where neither does. ``exact_ints`` is
+    the plan's verdict on the zero points; None reads it from the two
+    sites."""
+    if m1_mode != "quant" or m2_mode != "quant":
         return False
     if m1_site is None or m2_site is None:
         return False
@@ -1030,11 +997,10 @@ def supports_flash(m1_site, m2_site, m1_mode: str, m2_mode: str,
         return False
     if not supports_softmax(m2_site, m2_mode):
         return False
-    exact = _EXACT_INTS.get()
-    if exact is None and dtype == torch.float32:
-        exact = integers_exact({"m1": m1_site, "m2": m2_site})
+    if exact_ints is None and dtype == torch.float32:
+        exact_ints = integers_exact({"m1": m1_site, "m2": m2_site})
     bits = (m1a.bits, m1b.bits, m2_site.Aq.bits, m2_site.Bq.bits)
-    return flash_takes(shape[0], shape[1], dtype, bits, bool(exact))
+    return flash_takes(shape[0], shape[1], dtype, bits, bool(exact_ints))
 
 
 def _period_params(qs):
@@ -1056,23 +1022,19 @@ def site_params(site):
     return _period_params(site.Aq), _period_params(site.Bq)
 
 
-def prepare(qstate) -> dict:
-    """{id(site): ``site_params(site)``} of every attention matmul site of a
-    quantizer state, built once where a predictor is built and carried by
-    ``activate(..., site_params=)``: the served calls of K2 / K3 then start
-    no small device work of their own. The table is good for the state's
-    own site objects while their tensors are not replaced."""
-    return {id(site): site_params(site) for site in qstate.values()
-            if getattr(site, "Aq", None) is not None
-            and getattr(site, "Bq", None) is not None
-            and site.Bq.kind == "uniform" and site.Bq.bits != 32
-            and site.Aq.kind in A_KINDS and site.Aq.bits != 32}
+def _exact_ints():
+    """The active plan's verdict on the zero points; None (each wrapper
+    reads its own) without a plan."""
+    plan = routes.current()
+    return None if plan is None else plan.exact_ints
 
 
-def _site_params(site, G: int):
-    table = _SITE_PARAMS.get()
-    entry = None if table is None else table.get(id(site))
-    ap, bp = site_params(site) if entry is None else entry
+def _site_params(site, G: int, name):
+    """A call's (A rows, B rows) of ``site``: the active plan's for
+    ``name``, where it holds them, else flattened here."""
+    plan = routes.current()
+    rows = None if plan is None else plan.attn_rows(name, site)
+    ap, bp = site_params(site) if rows is None else rows
     if G % ap.shape[0] or G % bp.shape[0]:
         raise ValueError(
             f"a site with {ap.shape[0]} and {bp.shape[0]} parameter rows "
@@ -1080,20 +1042,21 @@ def _site_params(site, G: int):
     return ap, bp
 
 
-def _flat_params(site, N: int, H: int):
+def _flat_params(site, N: int, H: int, name):
     """A site's parameter rows repeated over the batch, (N * H, 2) each, as
     ``fq_flash_attn`` takes them; per-tensor layouts broadcast across
     heads."""
     return tuple(p.expand(H, 2).repeat(N, 1)
-                 for p in _site_params(site, N * H))
+                 for p in _site_params(site, N * H, name))
 
 
-def flash_args(m1_site, m2_site, q, kT, v):
+def flash_args(m1_site, m2_site, q, kT, v, names=(None, None)):
     """The (G, ...) tensors and bit widths ``fq_flash_attn`` takes for 4D
-    q, v: (N, H, S, D) and kT: (N, H, D, S) of the two attention sites."""
+    q, v: (N, H, S, D) and kT: (N, H, D, S) of the two attention sites
+    (``names`` in the active plan)."""
     N, H, S, D = q.shape
-    m1a, m1b = _flat_params(m1_site, N, H)
-    m2a, m2b = _flat_params(m2_site, N, H)
+    m1a, m1b = _flat_params(m1_site, N, H, names[0])
+    m2a, m2b = _flat_params(m2_site, N, H, names[1])
     args = (q.reshape(N * H, S, D), kT.reshape(N * H, D, S),
             v.reshape(N * H, S, D), m1a, m1b, m2a[:, 0], m2b)
     bits = dict(m1a_bits=m1_site.Aq.bits, m1b_bits=m1_site.Bq.bits,
@@ -1101,40 +1064,44 @@ def flash_args(m1_site, m2_site, q, kT, v):
     return args, bits
 
 
-def run_flash(m1_site, m2_site, q, kT, v, *, logit_scale: float, bias=None):
+def run_flash(m1_site, m2_site, q, kT, v, *, logit_scale: float, bias=None,
+              names=(None, None)):
     """Run 4D q/kT/v through the fused kernel.
 
     q, v: (N, H, S, D); kT: (N, H, D, S); bias: None or (P, S, S) with P
-    dividing N*H. Returns (N, H, S, D) in q's dtype."""
-    args, bits = flash_args(m1_site, m2_site, q, kT, v)
+    dividing N*H; ``names`` the two sites' names in the active plan. Returns
+    (N, H, S, D) in q's dtype."""
+    args, bits = flash_args(m1_site, m2_site, q, kT, v, names)
     out = fq_flash_attn(*args, bias, logit_scale=logit_scale,
-                        exact_ints=_EXACT_INTS.get(), **bits)
+                        exact_ints=_exact_ints(), **bits)
     return out.reshape(q.shape).to(q.dtype)
 
 
-def run(site, A, B):
+def run(site, A, B, *, name=None):
     """Run a 4D (N, H, S, K) @ (N, H, K, C) attention matmul of ``site``
-    through K3. Returns (N, H, S, C) in A's dtype."""
+    (``name`` in the active plan) through K3. Returns (N, H, S, C) in A's
+    dtype."""
     N, H, S, K = A.shape
     C = B.shape[-1]
-    ap, bp = _site_params(site, N * H)
+    ap, bp = _site_params(site, N * H, name)
     A3, B3 = A.reshape(N * H, S, K), B.reshape(N * H, K, C)
     _check_matmul("fq_attn_matmul", A3, B3, ap, bp, site.Aq.kind,
                   site.Aq.bits, site.Bq.bits, periodic=True)
     out = _attn_matmul(fq_attn_matmul, site.Aq.kind, A3, B3, ap, bp,
-                       site.Aq.bits, site.Bq.bits, "auto", _EXACT_INTS.get())
+                       site.Aq.bits, site.Bq.bits, "auto", _exact_ints())
     return out.reshape(N, H, S, C).to(A.dtype)
 
 
-def run_softmax(site, L, B):
+def run_softmax(site, L, B, *, name=None):
     """Run 4D logits (N, H, S, K) and values (N, H, K, C) of the matmul2
-    ``site`` through K2. Returns (N, H, S, C) in L's dtype."""
+    ``site`` (``name`` in the active plan) through K2. Returns (N, H, S, C)
+    in L's dtype."""
     N, H, S, K = L.shape
     C = B.shape[-1]
-    ap, bp = _site_params(site, N * H)
+    ap, bp = _site_params(site, N * H, name)
     L3, B3 = L.reshape(N * H, S, K), B.reshape(N * H, K, C)
     _check_matmul("fq_softmax_attn_matmul", L3, B3, ap, bp, "adalog",
                   site.Aq.bits, site.Bq.bits, periodic=True)
     out = _attn_matmul(fq_softmax_attn_matmul, "softmax", L3, B3, ap, bp,
-                       site.Aq.bits, site.Bq.bits, "auto", _EXACT_INTS.get())
+                       site.Aq.bits, site.Bq.bits, "auto", _exact_ints())
     return out.reshape(N, H, S, C).to(L.dtype)

@@ -3,7 +3,7 @@
 The counterpart of ``adalog_tpu.ops.fq_gemm``. The eval forward of a
 quantized Linear is y = fq_a(x) @ fq_w(W)ᵀ + b. The weight half does not
 depend on the input and is prepared once per loaded model
-(ops/weight_prep.py); the activation half is fused into the GEMM: the kernel
+(ops/routes.py); the activation half is fused into the GEMM: the kernel
 fake-quantizes each x tile as it loads it (fp32 math) and the quantized
 activations never reach device memory. Unfused, the quantizer is 7 (uniform)
 to 20+ (AdaLog) elementwise passes over x.
@@ -34,17 +34,15 @@ Two hand-written variants (``gemm_variant`` routes; ``variant=`` forces):
          without weight codes or with integers that are not exact.
 
 Which Linear sites take the kernel, and which variant, is decided once per
-loaded model: ``prepare`` builds {site: GemmSite}, a predictor enters
-``activate(table)`` around its forward, and ``qlinear`` looks its site up
-and calls ``run``. Nothing on the forward reads a device tensor on the host.
+loaded model: a predictor's plan (ops/routes.py) holds the ``GemmSite`` of
+each (``gemm_site``), and ``qlinear`` calls ``run`` with it. Nothing on the
+forward reads a device tensor on the host.
 """
 
 from __future__ import annotations
 
-import contextvars
 import ctypes
 import functools
-from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
@@ -214,7 +212,7 @@ def activation_ints_exact(params, kind: str, bits: int) -> bool:
     in bf16: uniform codes of at most 8 bits with |c - round(z)| <= 256 for
     every c in 0..2^bits - 1; adalog_shift of at most 7 bits. Reads the zero
     point (on a CUDA tensor that waits for the device), so it belongs where
-    a table is built, not on a served path."""
+    a predictor is built, not on a served path."""
     if kind == "adalog_shift":
         return bits <= _MMA_INT_CODE_BITS
     if bits > _MMA_INT_BITS:
@@ -347,7 +345,7 @@ def fq_gemm(x, w, params, bias=None, *, kind: str, bits: int,
     w: (O, K) the prepared fake-quantized weight, in x's dtype; params: (4,)
     float32 [scale, zero_point, shift, log_q] (``site_params``; for
     adalog_shift the kernel needs log_q a positive integer with
-    (2^bits - 1) * log_q < 2^24, which ``prepare`` checks); bias: None or
+    (2^bits - 1) * log_q < 2^24, which ``gemm_site`` checks); bias: None or
     (O,) in x's dtype. Returns (T, O) in x's dtype, accumulated in fp32.
 
     CPU tensors run the plain version; CUDA tensors launch a kernel; any
@@ -426,7 +424,7 @@ def gemm_phase_cycles(x, w, params, bias=None, *, kind: str, bits: int,
 
 
 # ---------------------------------------------------------------------------
-# Sites, and the load-time dispatch table
+# Sites
 # ---------------------------------------------------------------------------
 
 def site_params(aq) -> torch.Tensor:
@@ -445,8 +443,8 @@ def supports(site, mode: str) -> bool:
     """Can this Linear site's eval forward run through the fused kernel?
     Per-tensor asymmetric uniform sites always; shifted AdaLog sites once
     the GeLU shift has been folded into the bias. (JAX's ``supports`` also
-    asks whether the kernels are on; here that is whether a table is
-    active, and ``prepare`` calls this once per site at load time.)"""
+    asks whether the kernels are on; here that is the predictor's switch,
+    and ``routes.build`` calls this once per site at load time.)"""
     if mode != "quant":
         return False
     aq = site.aq
@@ -476,8 +474,8 @@ def _check_base(name, aq):
 
 @dataclass(frozen=True)
 class GemmSite:
-    """One entry of the dispatch table: what ``run`` needs of a site, all
-    decided and checked where the table is built. ``params`` is the (4,)
+    """What ``run`` needs of a site, all decided and checked where the
+    predictor is built. ``params`` is the (4,)
     float32 vector on the device; ``codes`` the site's ``WeightCodes`` or
     None; ``mma_fp32`` whether fp32 inputs take variant "mma" (codes known
     and every staged integer exact in bf16). bf16 inputs always do."""
@@ -491,42 +489,29 @@ class GemmSite:
         return "mma" if dtype == torch.bfloat16 or self.mma_fp32 else "fma"
 
 
-def prepare(qstate, weight_codes=None, skip=()) -> dict:
-    """{site name: GemmSite} for every Linear site of ``qstate`` that takes
-    the kernel but those in ``skip`` (the int8 sites, dispatched before this
-    table is read), params on the qstate's device. ``weight_codes`` is
-    ``weight_prep.weight_codes``'s table, without which fp32 inputs stay on
-    variant "fma". Reads each AdaLog site's base and each uniform site's
-    zero point on the host, once, and raises if the kernel cannot take a
-    site."""
-    from adalog_tpu_torch.models.layers import LinearSite
-
-    table = {}
-    with torch.no_grad():
-        for name, site in qstate.items():
-            if not (isinstance(site, LinearSite) and supports(site, "quant")) \
-                    or name in skip:
-                continue
-            kind, bits = kernel_kind(site), site.aq.bits
-            if kind == "adalog_shift":
-                _check_base(name, site.aq)
-            params = site_params(site.aq).contiguous()
-            codes = None if weight_codes is None else weight_codes.get(name)
-            if codes is not None:
-                codes = WeightCodes(
-                    codes.codes.to(params.device).contiguous(),
-                    codes.scale.to(params.device).contiguous())
-            mma_fp32 = codes is not None and mma_refusal(
-                torch.float32, kind, bits, codes,
-                activation_ints_exact(params, kind, bits)) is None
-            table[name] = GemmSite(kind, bits, params, codes, mma_fp32)
-    return table
+def gemm_site(name, site, codes: Optional[WeightCodes] = None) -> GemmSite:
+    """The ``GemmSite`` of a Linear site that ``supports`` takes, params on
+    the state's device. ``codes`` are the site's ``weight_prep.weight_codes``,
+    without which fp32 inputs stay on variant "fma". Reads an AdaLog site's
+    base and a uniform site's zero point on the host, once, and raises if
+    the kernel cannot take the site."""
+    kind, bits = kernel_kind(site), site.aq.bits
+    if kind == "adalog_shift":
+        _check_base(name, site.aq)
+    params = site_params(site.aq).contiguous()
+    if codes is not None:
+        codes = WeightCodes(codes.codes.to(params.device).contiguous(),
+                            codes.scale.to(params.device).contiguous())
+    mma_fp32 = codes is not None and mma_refusal(
+        torch.float32, kind, bits, codes,
+        activation_ints_exact(params, kind, bits)) is None
+    return GemmSite(kind, bits, params, codes, mma_fp32)
 
 
 def run(site: GemmSite, x, w, bias=None):
-    """The served call of a table entry: ``fq_gemm`` with the variant, the
-    codes and every check on the site's own tensors taken from ``site``,
-    where ``prepare`` settled them; w (O, K) and bias come prepared
+    """The served call of a site: ``fq_gemm`` with the variant, the codes and
+    every check on the site's own tensors taken from ``site``, where
+    ``gemm_site`` settled them; w (O, K) and bias come prepared
     (contiguous, in x's dtype, on its device)."""
     fq_gemm.calls += 1
     if x.device.type == "cpu":
@@ -551,30 +536,3 @@ def run(site: GemmSite, x, w, bias=None):
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
     return _launch(x, w, site.params, bias, site.kind, site.bits,
                    site.variant(x.dtype), site.codes)
-
-
-_ACTIVE: contextvars.ContextVar = contextvars.ContextVar(
-    "adalog_fq_gemm_table", default=None)
-
-
-@contextmanager
-def activate(table):
-    """Route the Linear sites of ``table`` (from ``prepare``) through
-    ``fq_gemm`` inside the block; None leaves every site on the plain path."""
-    tok = _ACTIVE.set(table)
-    try:
-        yield
-    finally:
-        _ACTIVE.reset(tok)
-
-
-def enabled() -> bool:
-    return _ACTIVE.get() is not None
-
-
-def lookup(name):
-    """The ``GemmSite`` of site ``name`` in the active table, or None."""
-    table = _ACTIVE.get()
-    if table is None or name is None:
-        return None
-    return table.get(name)

@@ -41,25 +41,24 @@ takes the call; ``variant=`` forces one):
                  (bf16 outputs of an odd number of 8-column groups, such as
                  eva02's fc1 in bf16).
 All equal ``int8_gemm_plain`` bit for bit. The kernels read w's rows a
-multiple of 16 bytes apart (TMA's pitch): a table keeps each site's codes
-so (``pitched_codes``), and a call with other codes pads a copy.
+multiple of 16 bytes apart (TMA's pitch): ``site_weights`` keeps each
+site's codes so (``pitched_codes``), and a call with other codes pads a
+copy.
 
-Which sites run here is decided once per loaded model: ``prepare`` builds
-{site: Int8Weights} from the module the predictor runs (already cast to the
-eval dtype, so bf16 serving derives its codes from bf16 weights), a
-predictor enters ``activate(table)`` around its forward, and ``qlinear``
-sends every supported site to ``int8_qlinear`` while a table is active.
-There is no process-global switch: JAX's ``set_enabled`` turns int8 on for
+Which sites run here is decided once per loaded model: a predictor's plan
+(ops/routes.py) holds the ``Int8Weights`` of every supported site
+(``site_weights``), from the module the predictor runs (already cast to
+the eval dtype, so bf16 serving derives its codes from bf16 weights), and
+``qlinear`` hands them to ``int8_qlinear``. There is no process-global
+switch: JAX's ``set_enabled`` turns int8 on for
 every later forward of the process, here only the predictor's own calls
 take it.
 """
 
 from __future__ import annotations
 
-import contextvars
 import ctypes
 import functools
-from contextlib import contextmanager
 from typing import NamedTuple, Optional
 
 import torch
@@ -91,7 +90,7 @@ class Int8Weights(NamedTuple):
     ``scale_row`` (O,) float32 is s_a * s_w[o], the one
     fp32 product JAX forms per call; ``a_params`` (2,) float32 is the
     activation quantizer's [scale, zero point]; ``w_map`` the tensor map of
-    w_int (``weight_map``), encoded once where the table is built, on the
+    w_int (``weight_map``), encoded once where the predictor is built, on the
     card only (None on the CPU)."""
     w_int: torch.Tensor
     scale_row: torch.Tensor
@@ -422,7 +421,7 @@ def int8_phase_cycles(x, w_int, a_params, scale_row, bias=None, *,
 
 
 # ---------------------------------------------------------------------------
-# Sites, and the load-time table
+# Sites
 # ---------------------------------------------------------------------------
 
 def supports(site, mode: str) -> bool:
@@ -430,7 +429,7 @@ def supports(site, mode: str) -> bool:
     Uniform asymmetric per-tensor activations and uniform weights without
     an AdaRound alpha, both at most 7 bits, as in JAX's ``supports``; the
     weights asymmetric too (JAX's codes read their zero point). Whether int8
-    is on is whether a table is active (``enabled``)."""
+    is on is the predictor's switch (``routes.build``)."""
     if mode != "quant":
         return False
     aq, wq = site.aq, site.wq
@@ -464,11 +463,11 @@ def site_weights(weight, site) -> Int8Weights:
                        a_params.to(weight.device).contiguous(), w_map)
 
 
-def _check_fits_int8(name, site):
+def check_fits_int8(name, site):
     """Raise unless every code of the site fits int8: c - round(z) for every
     code c in 0..2^bits - 1 of the activation and of each weight row, which
     holds when every rounded zero point lies in [2^bits - 1 - 127, 127].
-    Reads the zero points on the host, once, where a table is built."""
+    Reads the zero points on the host, once, where a predictor is built."""
     for what, q in (("activation", site.aq), ("weight", site.wq)):
         z = torch.round(q.zero_point.float())
         if not bool(((z >= 2 ** q.bits - 1 - _INT8_MAX)
@@ -479,68 +478,14 @@ def _check_fits_int8(name, site):
                              "take this site")
 
 
-def prepare(spec, params, qstate, cfg, skip=()) -> dict:
-    """{site_name: Int8Weights} for every supported Linear site of a loaded
-    model but those in ``skip`` (a tp rank's row-parallel sites), from the
-    module the predictor runs (cast, on its device); the caller keeps the
-    table and enters ``activate(table)`` around its forward. Raises if a
-    site's codes do not fit int8."""
-    from adalog_tpu_torch.calib.layout import quant_layout, tree_get
-    from adalog_tpu_torch.models.layers import LinearSite
-
-    table = {}
-    with torch.no_grad():
-        for nm, ss in quant_layout(spec, cfg).items():
-            site = qstate.get(nm)
-            if not isinstance(site, LinearSite) \
-                    or not supports(site, "quant") or nm in skip:
-                continue
-            _check_fits_int8(nm, site)
-            table[nm] = site_weights(tree_get(params, ss.param_path).weight,
-                                     site)
-    return table
-
-
-_ACTIVE: contextvars.ContextVar = contextvars.ContextVar(
-    "adalog_int8_table", default=None)
-
-
-@contextmanager
-def activate(table):
-    """Run every supported Linear site as an integer product inside the
-    block, with the weights of ``table`` (a ``prepare`` result); None leaves
-    every site on the fake-quant path."""
-    tok = _ACTIVE.set(table)
-    try:
-        yield
-    finally:
-        _ACTIVE.reset(tok)
-
-
-def enabled() -> bool:
-    return _ACTIVE.get() is not None
-
-
-def lookup(name, shape):
-    """The ``Int8Weights`` of site ``name`` in the active table when its
-    codes have ``shape``, else None."""
-    table = _ACTIVE.get()
-    if name is None or table is None:
-        return None
-    hit = table.get(name)
-    if hit is not None and hit.w_int.shape == shape:
-        return hit
-    return None
-
-
-def int8_qlinear(p: torch.nn.Linear, site, x, name=None):
+def int8_qlinear(p: torch.nn.Linear, site, x, weights=None):
     """The integer forward of a supported Linear site: x (..., K) ->
-    (..., O) in x's dtype. The weights come from the active table when it
-    holds ``name`` at the weight's shape, else they are computed here, per
-    call (JAX's fallback on a shape mismatch)."""
-    hit = lookup(name, p.weight.shape)
-    if hit is None:
-        hit = site_weights(p.weight, site)
-    y = int8_gemm(x.reshape(-1, x.shape[-1]), hit.w_int, hit.a_params,
-                  hit.scale_row, p.bias, bits=site.aq.bits, w_map=hit.w_map)
+    (..., O) in x's dtype, with the site's ``Int8Weights`` (a served call
+    hands its route's over), or with weights computed here, per call, where
+    ``weights`` is None (JAX's ``int8_qlinear`` called directly)."""
+    if weights is None:
+        weights = site_weights(p.weight, site)
+    y = int8_gemm(x.reshape(-1, x.shape[-1]), weights.w_int,
+                  weights.a_params, weights.scale_row, p.bias,
+                  bits=site.aq.bits, w_map=weights.w_map)
     return y.reshape(*x.shape[:-1], y.shape[-1])

@@ -49,11 +49,6 @@ SCORE_BUDGET_BYTES = 1 << 30
 # Config.search_dtype.
 _SCORE_DTYPE = torch.float32
 
-# Config.search_precision: 'highest' or 'default'. In the JAX package
-# 'default' lets the TPU round fp32 operands; here both run exact fp32 (the
-# field is kept so that config files load and mean the same).
-_SCORE_PRECISION = "highest"
-
 
 def set_score_dtype(name: str):
     """Select the scoring products' operand dtype: 'float32' or
@@ -62,13 +57,12 @@ def set_score_dtype(name: str):
     _SCORE_DTYPE = torch.bfloat16 if name == "bfloat16" else torch.float32
 
 
-def set_score_precision(name: str):
-    """Record Config.search_precision ('highest' or 'default'); both run
-    exact fp32 products."""
-    global _SCORE_PRECISION
+def check_score_precision(name: str):
+    """Check Config.search_precision: 'highest' or 'default'. In the JAX
+    package 'default' lets the TPU round fp32 operands; here both run exact
+    fp32 products (the field is kept so that config files load)."""
     if name not in ("highest", "default"):
         raise ValueError(f"search_precision {name!r}: want highest or default")
-    _SCORE_PRECISION = name
 
 
 def tdiv(a, d):

@@ -1,65 +1,15 @@
-"""Load-time fake quantization of Linear weights.
+"""Linear weights as integers, for the fused GEMM kernel.
 
-The quantized forward would otherwise recompute ``w_q = dequant(quant(w))``
-over every O×I weight matrix on each call. ``prepare`` computes the table
-once per loaded model; a predictor enters ``activate(table)`` around its
-forward and ``qlinear`` takes each site's prepared weight from it. The
-active table is a context variable, so two predictors never see each
-other's weights. ``weight_codes`` gives the same weights as integers with
-their row scales, for the fused GEMM kernel's integer operands
-(ops/fq_gemm.py, variant "mma" with fp32 inputs).
+A served Linear site's fake-quantized weight ``w_q = dequant(quant(w))`` is
+computed once per loaded model where its route is built (ops/routes.py),
+so the forward never recomputes it. ``weight_codes`` gives the same weight
+as integers with their row scales, for the fused GEMM kernel's integer
+operands (ops/fq_gemm.py, variant "mma" with fp32 inputs).
 """
 
 from __future__ import annotations
 
-import contextvars
-from contextlib import contextmanager
-
 import torch
-
-_ACTIVE: contextvars.ContextVar = contextvars.ContextVar(
-    "adalog_weight_prep", default=None)
-
-
-@contextmanager
-def activate(table):
-    tok = _ACTIVE.set(table)
-    try:
-        yield
-    finally:
-        _ACTIVE.reset(tok)
-
-
-def lookup(name, shape):
-    """The prepared quantized weight for site ``name``, or None."""
-    table = _ACTIVE.get()
-    if name is None or table is None:
-        return None
-    hit = table.get(name)
-    if hit is not None and hit.shape == shape:
-        return hit
-    return None
-
-
-def prepare(spec, params, qstate, cfg, skip=()) -> dict:
-    """{site_name: w_fakequant} for every quantized Linear site but those in
-    ``skip`` (the int8 sites, which read no fake-quantized weight), computed
-    from the same (already cast) module the predictor runs, so it equals
-    what the per-call path would produce."""
-    from adalog_tpu_torch.calib.layout import quant_layout, tree_get
-    from adalog_tpu_torch.models.layers import LinearSite, quant_linear_weight
-
-    table = {}
-    with torch.no_grad():
-        for nm, ss in quant_layout(spec, cfg).items():
-            site = qstate.get(nm)
-            if not isinstance(site, LinearSite) or site.wq.bits == 32 \
-                    or nm in skip:
-                continue
-            table[nm] = quant_linear_weight(tree_get(params, ss.param_path),
-                                            site)
-    return table
-
 
 # integers |c_w - z_w| <= 256 of at most 8 bits are exact in bf16
 _CODE_BITS = 8
@@ -91,27 +41,19 @@ def site_weight_codes(weight, site):
     return codes.reshape(weight.shape), scale.reshape(weight.shape[0])
 
 
-def weight_codes(spec, params, qstate, cfg) -> dict:
-    """{site_name: fq_gemm.WeightCodes} for every quantized Linear site
-    whose weight integers c_w - z_w are exact in bf16: at most 8 bits, whole
-    numbers (a hard AdaRound site with a fractional zero point is not) and
-    of magnitude at most 256. Reads each site's codes on the host once, so
-    it belongs where a predictor is built."""
-    from adalog_tpu_torch.calib.layout import quant_layout, tree_get
-    from adalog_tpu_torch.models.layers import LinearSite
+def weight_codes(weight, site):
+    """The ``fq_gemm.WeightCodes`` of a quantized Linear site whose weight
+    integers c_w - z_w are exact in bf16: at most 8 bits, whole numbers (a
+    hard AdaRound site with a fractional zero point is not) and of magnitude
+    at most 256; else None. Reads the codes on the host, so it belongs where
+    a predictor is built."""
     from adalog_tpu_torch.ops.fq_gemm import WeightCodes
 
-    table = {}
-    with torch.no_grad():
-        for nm, ss in quant_layout(spec, cfg).items():
-            site = qstate.get(nm)
-            if not isinstance(site, LinearSite) \
-                    or site.wq.bits > _CODE_BITS:
-                continue
-            codes, scale = site_weight_codes(
-                tree_get(params, ss.param_path).weight, site)
-            if bool(((codes == torch.round(codes))
-                     & (codes.abs() <= _CODE_MAX)).all()):
-                table[nm] = WeightCodes(codes.to(torch.bfloat16).contiguous(),
-                                        scale.contiguous())
-    return table
+    if site.wq.bits > _CODE_BITS:
+        return None
+    codes, scale = site_weight_codes(weight, site)
+    if not bool(((codes == torch.round(codes))
+                 & (codes.abs() <= _CODE_MAX)).all()):
+        return None
+    return WeightCodes(codes.to(torch.bfloat16).contiguous(),
+                       scale.contiguous())

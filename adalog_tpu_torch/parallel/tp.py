@@ -2,8 +2,9 @@
 
 Every rank of a tp group runs the whole forward, fused kernels included, on
 its slice of the weights and heads; the only collective is one sum over the
-tp group after each row-parallel Linear (``models.layers.qlinear`` under
-``tp_row_context``). The placement is Megatron's:
+tp group after each row-parallel Linear (``models.layers.qlinear``, by the
+site's route in the rank's plan, ops/routes.py). The placement is
+Megatron's:
 
   qkv   column-parallel, its rows pre-permuted chunk-interleaved, [q|k|v]
         per rank, so that the local (3, D/tp, I) row-group view and the
@@ -207,9 +208,9 @@ def make_tp_plan(spec, qstate, tp: int) -> TPPlan:
 def tp_eval_fn(spec, params, qstate, mesh, **predictor_kw):
     """This rank's forward over the (dp, tp) mesh: (run, plan). ``run(x)``
     takes the rank's batch slice and returns its float32 logits, computed on
-    the rank's slices of ``params`` and ``qstate`` under the row-parallel
-    context of the mesh's tp group; ``predictor_kw`` are those of
-    ``serve.make_predictor`` (dtype, kernels, device), whose tables are built
+    the rank's slices of ``params`` and ``qstate``, the row-parallel sites
+    summed over the mesh's tp group; ``predictor_kw`` are those of
+    ``serve.make_predictor`` (dtype, kernels, device), whose plan is built
     from the slices, so every kernel sees local shapes."""
     from adalog_tpu_torch.serve import local_forward
 

@@ -4,18 +4,17 @@ over a mesh of ranks.
 ``load_quantized`` reads a v2 .ckpt (written by this package or by
 ``adalog_tpu``), a round-1 pickle of ``adalog_tpu``, or a reference-format
 state dict (.pth/.pt/.bin, utils/ref_checkpoint.py) and returns ``predict(images) -> logits``: NHWC float32
-images in, float32 logits out. Fake-quantized Linear weights are prepared
-once at load time (ops/weight_prep.py); on a CUDA device every Linear
-site's activation quantizer that ops/fq_act.py takes runs in one
-hand-written pass, the attention of
-every block (ViT/DeiT) or window (Swin) runs in the hand-written fused
-kernels (ops/fq_attn.py) unless the caller turns them off, and, when the
-caller turns it on (``Config``'s ``use_pallas_gemm``, off by default as in
-the JAX package), every supported Linear site runs in the fused
-activation-quant GEMM kernel (ops/fq_gemm.py). With ``Config``'s
-``eval_int8`` every uniform Linear site of at most 7 bits runs as an
-integer product in the int8 GEMM kernel (ops/int8_linear.py), ahead of
-both.
+images in, float32 logits out. Which kernel serves each site is decided
+once, at load time, into the predictor's plan (ops/routes.py), with the
+fake-quantized Linear weights: on a CUDA device every Linear site's
+activation quantizer that ops/fq_act.py takes runs in one hand-written
+pass, the attention of every block runs in the hand-written fused kernels
+(ops/fq_attn.py) unless the caller turns them off, and, when the caller
+turns it on (``Config``'s ``use_pallas_gemm``, off by default as in the JAX
+package), every supported Linear site runs in the fused activation-quant
+GEMM kernel (ops/fq_gemm.py). With ``Config``'s ``eval_int8`` every
+uniform Linear site of at most 7 bits runs as an integer product in the
+int8 GEMM kernel (ops/int8_linear.py), ahead of both.
 
 Over a mesh (parallel/mesh.py; one process per rank, each calling the same
 entry point with the same batches) every rank's ``predict`` takes the whole
@@ -64,15 +63,11 @@ def local_forward(spec, params, qstate, *, eval_dtype: str = "float32",
                   device=None, row_group=None, row_sites=frozenset()):
     """``forward(images) -> logits`` on one device: ``make_predictor``'s body
     without the mesh, and each rank's forward over one. ``row_group`` and
-    ``row_sites`` mark the row-parallel sites of a tp rank
-    (``models.layers.tp_row_context``); those take neither the int8 nor the
-    fused GEMM table."""
+    ``row_sites`` mark the row-parallel sites of a tp rank; those take
+    neither the int8 nor the fused GEMM (``ops.routes.build``)."""
     from adalog_tpu_torch.calib.calibrator import _resolve_device
-    from adalog_tpu_torch.models.layers import tp_row_context
     from adalog_tpu_torch.models.zoo import model_forward_fn
-    from adalog_tpu_torch.ops import (
-        fq_act, fq_attn, fq_gemm, int8_linear, weight_prep,
-    )
+    from adalog_tpu_torch.ops import routes
     from adalog_tpu_torch.quantizers.state import map_tensors
     from adalog_tpu_torch.utils.config import Config
 
@@ -87,43 +82,19 @@ def local_forward(spec, params, qstate, *, eval_dtype: str = "float32",
     model = copy.deepcopy(params).to(device=device, dtype=dtype)
     model.requires_grad_(False)
     qs = map_tensors(lambda t: t.to(device), qstate)
-    cfg = cfg or Config()
-    row_sites = frozenset(row_sites)
-    int8_table = None
+    plan = routes.build(spec, model, qs, cfg or Config(), dtype,
+                        use_kernels=use_kernels,
+                        use_gemm_kernels=use_gemm_kernels, use_int8=use_int8,
+                        row_group=row_group, row_sites=row_sites)
     if use_int8:
-        int8_table = int8_linear.prepare(spec, model, qs, cfg, skip=row_sites)
         log.info("int8 eval: weight codes materialized for %d sites",
-                 len(int8_table))
-    skip = set(int8_table or ())
-    wprep = weight_prep.prepare(spec, model, qs, cfg, skip=skip)
-    gemm_table = None
-    if use_gemm_kernels:
-        # the weights as integers let fp32 inputs take the tensor-core
-        # variant of the GEMM kernel; bf16 inputs take it as they are
-        codes = weight_prep.weight_codes(spec, model, qs, cfg) \
-            if dtype == torch.float32 else None
-        gemm_table = fq_gemm.prepare(qs, codes, skip=skip | row_sites)
-    # every other site's activation quantizer in one pass (K6) where its
-    # kind and parameters allow
-    act_table = fq_act.prepare(qs, skip=skip | set(gemm_table or ()))
-    # read once here, so that no served call waits for the device to learn
-    # which variant of the attention kernel its zero points allow
-    exact_ints = fq_attn.integers_exact(qs) \
-        if use_kernels or use_gemm_kernels else None
-    # and each attention matmul site's per-head parameters flattened once
-    attn_params = fq_attn.prepare(qs) \
-        if use_kernels or use_gemm_kernels else None
+                 plan.count("int8"))
 
     def forward(x):
         with span("serve.h2d"):
             x = torch.as_tensor(x).to(device=device, dtype=dtype)
         with span("serve.forward"), torch.inference_mode(), \
-                weight_prep.activate(wprep), \
-                fq_attn.activate(use_kernels, exact_ints, attn_params), \
-                fq_gemm.activate(gemm_table), \
-                int8_linear.activate(int8_table), \
-                fq_act.activate(act_table), \
-                tp_row_context(row_group, row_sites):
+                routes.activate(plan):
             return fwd(spec.cfg, model, x, qs, {"*": "quant"}).float()
 
     return forward
@@ -143,12 +114,13 @@ def make_predictor(spec, params, qstate, *, eval_dtype: str = "float32",
     the sites allow it, else the matmul kernels); False runs the plain
     PyTorch ops of the unfused path. ``use_gemm_kernels`` routes every
     Linear site that ``ops.fq_gemm.supports`` through the fused
-    activation-quant GEMM, and the attention through its kernels too; which
-    sites take it is decided here, once. ``use_int8`` runs every Linear site
-    that ``ops.int8_linear.supports`` as an integer product (the int8 GEMM
-    kernel on a CUDA device), with weight codes computed here from the cast
-    module; those sites then take neither the weight-prep table nor the
-    fused GEMM. The table belongs to this predictor alone.
+    activation-quant GEMM, and the attention through its kernels too.
+    ``use_int8`` runs every Linear site that ``ops.int8_linear.supports``
+    as an integer product (the int8 GEMM kernel on a CUDA device), with
+    weight codes computed here from the cast module; those sites then take
+    neither a fake-quantized weight nor the fused GEMM. Which site takes
+    which kernel is decided here, once, into a plan (``ops.routes.build``)
+    that belongs to this predictor alone.
 
     ``mesh`` (parallel/mesh.py): every rank of the mesh calls this with the
     same arguments and then ``predict`` with the same batches; the model
@@ -206,12 +178,12 @@ def load_quantized(model: str, checkpoint: str, *, config=None,
 
     ``config``: a Config, a path to a config .py, or None for the shipped
     4-bit values. ``use_pallas`` (the config field's name) turns the fused
-    attention kernel on or off; None takes ``config.use_pallas``, resolved
-    by ops/kernel_defaults.py. ``config.use_pallas_gemm`` (default False)
-    turns the fused activation-quant GEMM kernel on, and with it the
-    attention kernel. ``config.eval_int8`` (None = auto, resolved the same
-    way) serves the uniform Linear sites as integer products
-    (``make_predictor``'s ``use_int8``). Returns (predict, spec, model,
+    attention kernel on or off; None takes ``config.use_pallas``, where
+    None means on. ``config.use_pallas_gemm`` (default False) turns the
+    fused activation-quant GEMM kernel on, and with it the attention
+    kernel. ``config.eval_int8`` (None means off) serves the uniform Linear
+    sites as integer products (``make_predictor``'s ``use_int8``); see
+    ``ops.routes.switches``. Returns (predict, spec, model,
     qstate).
 
     ``mesh_devices`` > 1 (or -1: every rank of the run) serves over a mesh
@@ -222,7 +194,7 @@ def load_quantized(model: str, checkpoint: str, *, config=None,
     CPU (parallel/mesh.py).
     """
     from adalog_tpu_torch.models.zoo import model_spec
-    from adalog_tpu_torch.ops.kernel_defaults import resolve_kernel_config
+    from adalog_tpu_torch.ops.routes import switches
     from adalog_tpu_torch.utils.checkpoint import load_checkpoint
     from adalog_tpu_torch.utils.config import Config, load_config
 
@@ -250,9 +222,7 @@ def load_quantized(model: str, checkpoint: str, *, config=None,
                                 backend=backend)
             device = mesh.device
     spec = model_spec(model)
-    resolve_kernel_config(cfg, spec)
-    enable = cfg.use_pallas if use_pallas is None else use_pallas
-    gemm = bool(cfg.use_pallas_gemm)
+    kernels = switches(cfg, use_pallas)
 
     if checkpoint.endswith((".pth", ".pt", ".bin")):
         from adalog_tpu_torch.utils.ref_checkpoint import \
@@ -260,13 +230,12 @@ def load_quantized(model: str, checkpoint: str, *, config=None,
         params, qstate = load_reference_checkpoint(spec, cfg, checkpoint)
     else:
         params, qstate, _ = load_checkpoint(checkpoint, spec.cfg)
+    gemm, int8 = kernels["use_gemm_kernels"], kernels["use_int8"]
     log.info("loaded %s (%s) on %s, fused attention kernel %s, fused GEMM "
              "kernel %s, int8 %s", spec.name, eval_dtype, device,
-             "on" if enable or gemm else "off", "on" if gemm else "off",
-             "on" if cfg.eval_int8 else "off")
+             "on" if kernels["use_kernels"] or gemm else "off",
+             "on" if gemm else "off", "on" if int8 else "off")
     predict = make_predictor(spec, params, qstate, eval_dtype=eval_dtype,
-                             cfg=cfg, use_kernels=bool(enable),
-                             use_gemm_kernels=gemm,
-                             use_int8=bool(cfg.eval_int8),
-                             device=None if mesh else device, mesh=mesh)
+                             cfg=cfg, device=None if mesh else device,
+                             mesh=mesh, **kernels)
     return predict, spec, params, qstate

@@ -56,13 +56,13 @@ class Config:
     recon_group_bytes: int = 1 << 29
     recon_seg_iters: int = 1000
     # Hand-written fused attention kernel (ops/fq_attn.py). The name is the
-    # JAX package's, so config files keep loading. None = auto through
-    # ops/kernel_defaults.py; an explicit True/False wins.
+    # JAX package's, so config files keep loading. None means on
+    # (ops/routes.py::switches); an explicit True/False wins.
     use_pallas: Optional[bool] = None
     use_pallas_gemm: bool = False
     # true-int8 GEMMs for uniform Linear sites (ops/int8_linear.py, the
-    # int8 GEMM kernel on a GPU). None = auto through ops/kernel_defaults.py
-    # (False for every model until one is measured); True/False wins.
+    # int8 GEMM kernel on a GPU). None means off (ops/routes.py::switches);
+    # True/False wins.
     eval_int8: Optional[bool] = None
 
     @classmethod

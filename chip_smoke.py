@@ -73,14 +73,15 @@ Phases, each a hard check (any failure raises and exits non-zero):
      post_softmax_quantizer='log2' state served through load_quantized (K3
      12 times a batch), a quant-mode forward with capture=True (K3 24
      times), and the forward's modes with every matmul1 site 'raw' (K2 12
-     times); every one of these launches is variant "mma", asserted;
+     times), both under a predictor's plan (K6 49 times each); every K2
+     and K3 launch is variant "mma", asserted;
   8. calibration phase: deit_small at full depth and width, random weights
      from the numpy seed (no smoke state, no hand fold), calibrated on the
      card through QuantCalibrator.calibrate and finish_calibration at the
      shipped configs/4bit.py numbers from 32 images, twice (cold, then
      warm): wall-clock, the capture and each search family apart, peak
      device memory, the card's name and power limit; every layout site has
-     a state and every AdaLog base is a positive integer fq_gemm.prepare
+     a state and every AdaLog base is a positive integer fq_gemm.gemm_site
      takes; on 32 held-out images its logit MSE to the raw model must be
      below the min/max smoke state's; then the state saved, block-checked
      and served as in phase 6 (K1 12 and K4 49 launches a batch asserted;
@@ -201,7 +202,7 @@ Phases, each a hard check (any failure raises and exits non-zero):
  15. bits phase (run after phase 13): deit_small calibrated on the card at
      the shipped configs/3bit.py and configs/6bit.py (cut to BITS_DEPTH
      blocks, PERF.md section 4), timed, every site at the config's widths
-     and every AdaLog base an integer fq_gemm.prepare takes, its held-out
+     and every AdaLog base an integer fq_gemm.gemm_site takes, its held-out
      logit MSE to the raw model printed beside phase 8's W4A4; served as in
      phase 6 (every K1 and K4 launch "mma") and with eval_int8 as in phase
      9 (K5 at every uniform Linear site, all "wgmma"); and test_tiny
@@ -1168,10 +1169,9 @@ def fq_act_case(torch, fq_act, qs, x, tag):
     "ms": one call a timing, "ms_back_to_back": ten in a row, "ms_graph":
     ten replayed from a CUDA graph (the device alone), "plain_ms":
     apply_quantizer, "bound_ms", "bound_by"}."""
-    from adalog_tpu_torch.models.layers import LinearSite
     from adalog_tpu_torch.quantizers.apply import apply_quantizer
 
-    site = fq_act.prepare({tag: LinearSite(wq=None, aq=qs)})[tag]
+    site = fq_act.act_site(qs)
     T, K = x.shape
     err = 0.0
     for xt in (x, x.to(torch.bfloat16)):
@@ -1441,29 +1441,29 @@ def attention_bias(spec, model, path, stage, blk, dtype):
 
 
 def block_check(torch, fq_attn, fq_gemm, spec, model, qstate, x, dt,
-                require_mma=True, n_linear=None, skip=(), bits=4):
+                require_mma=True, n_linear=None, bits=4, row_group=None,
+                row_sites=()):
     """Hold K1 against its plain version on the q/kT/v (and, for Swin, the
     rel-pos bias and shift mask) that every block of the quantized model
     gives it for images x (as the wrapper routes it: variant "mma",
     asserted; max|diff| of each block at most its largest |uq(v)|), and K4
     on the input of every Linear site that takes it, called as the served
-    path calls it (``fq_gemm.run`` on the table entry, weight codes
+    path calls it (``fq_gemm.run`` on the route's entry, weight codes
     included for fp32; every launch variant "mma", asserted), from one
-    capture pass with the served path's tables active; returns {kernel: (largest
-    max|diff|, largest share past tolerance)}. With ``require_mma`` False a
-    call of variant "fma" is reported with the reason, not failed. On a tp
-    rank's slices the caller enters the row-parallel context and names the
-    row-parallel sites (``skip``, which take no K4) and the count of the
-    rest that do (``n_linear``)."""
+    capture pass under the served path's plan with the GEMM switch on;
+    returns {kernel: (largest max|diff|, largest share past tolerance)}.
+    With ``require_mma`` False a call of variant "fma" is reported with the
+    reason, not failed. On a tp rank's slices the caller names the
+    row-parallel sites (``row_sites``, which take no K4, summed over
+    ``row_group``) and the count of the rest that do (``n_linear``)."""
     from adalog_tpu_torch.models.zoo import model_forward_fn
-    from adalog_tpu_torch.ops import weight_prep
+    from adalog_tpu_torch.ops import routes
 
-    cfg = quant_config(bits)
-    wprep = weight_prep.prepare(spec, model, qstate, cfg)
     # as make_predictor builds it: fp32 sites carry their weight codes
-    table = fq_gemm.prepare(
-        qstate, weight_prep.weight_codes(spec, model, qstate, cfg)
-        if dt == "float32" else None, skip=skip)
+    plan = routes.build(spec, model, qstate, quant_config(bits),
+                        getattr(torch, dt), use_gemm_kernels=True,
+                        row_group=row_group, row_sites=row_sites)
+    table = {n: r for n, r in plan.linear.items() if r.kind == "fq_gemm"}
     if n_linear is None:
         n_linear = MODELS[spec.name]["K4"]
     check(len(table) == n_linear,
@@ -1475,8 +1475,7 @@ def block_check(torch, fq_attn, fq_gemm, spec, model, qstate, x, dt,
     def note(k, d, share):
         worst[k] = (max(worst[k][0], d), max(worst[k][1], share))
 
-    with torch.inference_mode(), weight_prep.activate(wprep), \
-            fq_gemm.activate(table):
+    with torch.inference_mode(), routes.activate(plan):
         _, taps = model_forward_fn(spec)(spec.cfg, model, x, qstate,
                                          {"*": "quant"}, capture=True)
         for p, path, stage, blk in attention_blocks(spec):
@@ -1495,10 +1494,11 @@ def block_check(torch, fq_attn, fq_gemm, spec, model, qstate, x, dt,
             check(d <= cap, f"{p} {dt}: K1 max|diff| {d} above the largest "
                   f"|uq(v)| {cap}")
             note("K1", d, share)
-        for name, site in table.items():
+        for name, route in table.items():
             xin = taps[name][0]
             xin = xin.reshape(-1, xin.shape[-1])
-            w, bias = wprep[name], model.get_submodule(name).bias
+            site, w = route.gemm, route.weight
+            bias = model.get_submodule(name).bias
             got = fq_gemm.run(site, xin, w, bias)      # the served call
             want = fq_gemm.fq_gemm_plain(xin, w, site.params, bias,
                                          kind=site.kind, bits=site.bits)
@@ -1521,7 +1521,7 @@ def block_check(torch, fq_attn, fq_gemm, spec, model, qstate, x, dt,
 def fma_reasons(torch, fq_attn, fq_gemm, spec, model, qstate, dt, bits=4):
     """{site: why variant "mma" refuses it} for every attention (K1) and
     Linear (K4) site of a served model in dtype ``dt``."""
-    from adalog_tpu_torch.ops import weight_prep
+    from adalog_tpu_torch.ops import routes
 
     dtype = getattr(torch, dt)
     cfg = spec.cfg
@@ -1531,13 +1531,16 @@ def fma_reasons(torch, fq_attn, fq_gemm, spec, model, qstate, dt, bits=4):
     why = {}
     for p, *_ in attention_blocks(spec):
         m1, m2 = qstate[f"{p}.matmul1"], qstate[f"{p}.matmul2"]
-        bits = (m1.Aq.bits, m1.Bq.bits, m2.Aq.bits, m2.Bq.bits)
-        reason = fq_attn.mma_refusal(S, D, dtype, bits, exact)
+        site_bits = (m1.Aq.bits, m1.Bq.bits, m2.Aq.bits, m2.Bq.bits)
+        reason = fq_attn.mma_refusal(S, D, dtype, site_bits, exact)
         if reason is not None:
             why[p] = reason
-    codes = weight_prep.weight_codes(spec, model, qstate, quant_config(bits)) \
-        if dt == "float32" else None
-    for name, site in fq_gemm.prepare(qstate, codes).items():
+    plan = routes.build(spec, model, qstate, quant_config(bits), dtype,
+                        use_gemm_kernels=True)
+    for name, route in plan.linear.items():
+        if route.kind != "fq_gemm":
+            continue
+        site = route.gemm
         reason = fq_gemm.mma_refusal(
             dtype, site.kind, site.bits, site.codes,
             fq_gemm.activation_ints_exact(site.params, site.kind, site.bits))
@@ -1872,13 +1875,14 @@ def fallback_phase(torch, fq_attn, fq_gemm, device, ckpt_dir, name):
     bfloat16, launch counts asserted:
       - post_softmax_quantizer='log2', served through load_quantized: the
         fused paths decline and matmul1 of every block takes K3;
-      - a quant-mode forward with capture=True inside fq_attn.activate: both
-        matmuls of every block take K3;
+      - a quant-mode forward with capture=True under a predictor's plan:
+        both matmuls of every block take K3 (and every Linear site K6);
       - the forward's modes with every matmul1 site 'raw': K2 once a block;
     every one of these launches is variant "mma". Before that, matmul_block_check on the served model's own tensors.
     Returns ({"K2" | "K3": launches of these paths}, {"K2" | "K3": largest
     block-check max|diff|})."""
     from adalog_tpu_torch.models.zoo import model_forward_fn
+    from adalog_tpu_torch.ops import routes
 
     n_attn = MODELS[name]["K1"]
     spec, model, qstate, ckpt, batches = smoke_model(torch, device, ckpt_dir,
@@ -1890,10 +1894,7 @@ def fallback_phase(torch, fq_attn, fq_gemm, device, ckpt_dir, name):
                                for p, *_ in attention_blocks(spec)}}
     worst = {"K2": 0.0, "K3": 0.0}
     total = {"K2": 0, "K3": 0}
-    # as make_predictor does: the verdict on the zero points and the sites'
-    # flattened parameters taken once, not by every call
-    exact = fq_attn.integers_exact(qstate)
-    site_params = fq_attn.prepare(qstate)
+    n_linear = MODELS[name]["K4"]
 
     def drove(path, want):
         got = read_launches(fq_attn, fq_gemm)
@@ -1927,21 +1928,24 @@ def fallback_phase(torch, fq_attn, fq_gemm, device, ckpt_dir, name):
                   f"{name} {dt} {k} share to the forward {fwd_share}")
             worst[k] = max(worst[k], d)
 
+        # as make_predictor does: the verdict on the zero points and the
+        # sites' flattened parameters taken once, not by every call; every
+        # Linear site's input quantizer on K6
+        plan = routes.build(spec, m, qstate, quant_config(), dtype)
         zero_launches(fq_attn, fq_gemm)
-        with torch.inference_mode(), fq_attn.activate(True, exact,
-                                                      site_params):
+        with torch.inference_mode(), routes.activate(plan):
             y, _ = fwd(spec.cfg, m, x, qstate, {"*": "quant"}, capture=True)
         torch.cuda.synchronize()
         check_logits(torch, y, spec, BATCH, f"{name} {dt} capture")
-        drove(f"capture=True, {dt}", {"K2": 0, "K3": 2 * n_attn})
+        drove(f"capture=True, {dt}",
+              {"K2": 0, "K3": 2 * n_attn, "K6": n_linear})
 
         zero_launches(fq_attn, fq_gemm)
-        with torch.inference_mode(), fq_attn.activate(True, exact,
-                                                      site_params):
+        with torch.inference_mode(), routes.activate(plan):
             y = fwd(spec.cfg, m, x, qstate, raw_m1)
         torch.cuda.synchronize()
         check_logits(torch, y, spec, BATCH, f"{name} {dt} matmul1 raw")
-        drove(f"matmul1 raw, {dt}", {"K2": n_attn, "K3": 0})
+        drove(f"matmul1 raw, {dt}", {"K2": n_attn, "K3": 0, "K6": n_linear})
     del model, qstate, m
     torch.cuda.empty_cache()
 
@@ -2048,7 +2052,7 @@ def calibrate_on(torch, spec, model, images, device, cfg=None):
 
 def check_calibrated(torch, fq_gemm, calib, qstate):
     """Every site of the layout has a state and every AdaLog base is a
-    positive integer that fq_gemm.prepare takes; returns the bases."""
+    positive integer that fq_gemm.gemm_site takes; returns the bases."""
     check(set(qstate) == set(calib.layout),
           f"calibrated sites {len(qstate)} != layout {len(calib.layout)}")
     bases = []
@@ -2058,7 +2062,9 @@ def check_calibrated(torch, fq_gemm, calib, qstate):
                 q = float(v)
                 check(q >= 1 and q == int(q), f"{name} {k}: base {q}")
                 bases.append(int(q))
-    fq_gemm.prepare(qstate)        # raises on a base the kernel cannot take
+    for name, site in qstate.items():   # raises on a base K4 cannot take
+        if hasattr(site, "n_V") and fq_gemm.supports(site, "quant"):
+            fq_gemm.gemm_site(name, site)
     return bases
 
 
@@ -2104,7 +2110,7 @@ def calibration_phase(torch, fq_attn, fq_gemm, device, ckpt_dir):
         peak = torch.cuda.max_memory_allocated(device)
         got = read_launches(fq_attn, fq_gemm)
         print(f"calibration {CALIB_MODEL} ({run}): kernel launches {got} "
-              f"(want K6 0: calibration enters no K6 table)")
+              f"(want K6 0: calibration enters no plan)")
         check(got["K6"] == 0, f"calibration launched K6 {got['K6']} times")
         runs.append(dict(wall_s=wall, peak_bytes=peak, seconds=calib.seconds))
         print(f"calibration {CALIB_MODEL} W4A4 ({run}): wall {wall:.2f} s "
@@ -2224,7 +2230,7 @@ def check_bits(qstate, bits):
 def bits_phase(torch, fq_attn, fq_gemm, device, ckpt_dir, start):
     """CALIB_MODEL (the calibration phase's raw model and images) calibrated
     on the card at each of BITS_CONFIGS, timed; the state checked (every
-    layout site, the widths, every AdaLog base an integer fq_gemm.prepare
+    layout site, the widths, every AdaLog base an integer fq_gemm.gemm_site
     takes), its held-out logit MSE to the raw model printed beside that of
     BITS_BASELINE calibrated at the same depth, then saved and served
     through load_quantized: block checks, fp32 and bf16 in every setting
@@ -2378,31 +2384,35 @@ EXPORT_ATOL = 1e-5
 DIAG_TOP = 5
 
 
-def int8_block_check(torch, spec, model, qstate, x, n_sites=None, skip=(),
-                     cfg=None):
+def int8_block_check(torch, spec, model, qstate, x, n_sites=None, cfg=None,
+                     row_group=None, row_sites=()):
     """Each int8 site of ``model`` (fp32) through K5, as the served path
-    calls it (the table entry), against the fake-quant qlinear on the same
-    inputs: every Linear site's input captured from the raw model on images
-    x, each site's codes at its own width (``cfg``, quant_config() when
-    None, gives the layout); K5 must also equal its plain version on those
-    inputs bit for bit. On a tp rank's slices the caller enters the
-    row-parallel context and names the row-parallel sites (``skip``) and
-    the count of int8 sites left (``n_sites``). Returns (sites, largest
+    calls it (the route's entry), against the fake-quant qlinear on the
+    same inputs: every Linear site's input captured from the raw model on
+    images x, each site's codes at its own width (``cfg``, quant_config()
+    when None, gives the layout); K5 must also equal its plain version on
+    those inputs bit for bit. On a tp rank's slices the caller names the
+    row-parallel sites (``row_sites``, summed over ``row_group``) and the
+    count of int8 sites left (``n_sites``). Returns (sites, largest
     max|diff|, largest share past tolerance)."""
     from adalog_tpu_torch.calib.layout import quant_layout, tree_get
     from adalog_tpu_torch.models.layers import qlinear
     from adalog_tpu_torch.models.zoo import model_forward_fn
-    from adalog_tpu_torch.ops import int8_linear
+    from adalog_tpu_torch.ops import int8_linear, routes
 
     cfg = cfg or quant_config()
     layout = quant_layout(spec, cfg)
-    table = int8_linear.prepare(spec, model, qstate, cfg, skip=skip)
+    plan = routes.build(spec, model, qstate, cfg, use_int8=True,
+                        row_group=row_group, row_sites=row_sites)
+    table = {nm: r.int8 for nm, r in plan.linear.items() if r.kind == "int8"}
     if n_sites is None:
         n_sites = INT8_MODELS[spec.name]
     check(len(table) == n_sites,
           f"{spec.name}: {len(table)} int8 sites, want {n_sites}")
-    with torch.no_grad():
-        _, taps = model_forward_fn(spec)(spec.cfg, model, x, capture=True)
+    with torch.no_grad(), routes.activate(plan):
+        # raw, the row-parallel sites summed over the tp group by the plan
+        _, taps = model_forward_fn(spec)(spec.cfg, model, x, qstate,
+                                         {"*": "raw"}, capture=True)
     worst = share_max = 0.0
     with torch.no_grad():
         for nm, hit in table.items():
@@ -2680,11 +2690,9 @@ def mesh_block_check(torch, fq_attn, fq_gemm, case, spec, model, qstate,
                      batch, want):
     """K1 and K4 (K5 with eval_int8) against their plain versions on this
     rank's own inputs: its dp slice of ``batch`` and, under tp, its slices
-    of the model and state, the forward in the row-parallel context.
-    Returns {kernel: (largest max|diff|, largest share past tolerance)}."""
-    from contextlib import nullcontext
-
-    from adalog_tpu_torch.models.layers import tp_row_context
+    of the model and state, the row-parallel sites summed over the tp
+    group. Returns {kernel: (largest max|diff|, largest share past
+    tolerance)}."""
     from adalog_tpu_torch.parallel.mesh import make_mesh_2d, shard_batch
     from adalog_tpu_torch.parallel.tp import make_tp_plan
     from adalog_tpu_torch.quantizers.state import map_tensors
@@ -2695,22 +2703,20 @@ def mesh_block_check(torch, fq_attn, fq_gemm, case, spec, model, qstate,
     dtype = getattr(torch, case["dtype"])
     x = shard_batch(torch.from_numpy(batch), mesh).to(device=device,
                                                       dtype=dtype)
-    skip, ctx = frozenset(), nullcontext()
+    rows = dict(row_group=None, row_sites=frozenset())
     if mesh.tp > 1:
         plan = make_tp_plan(spec, qstate, mesh.tp)
         model = plan.shard_module(model, mesh.tp_index)
         qstate = plan.shard_qstate(qstate, mesh.tp_index)
-        skip = plan.row_sites
-        ctx = tp_row_context(mesh.tp_group, skip)
+        rows = dict(row_group=mesh.tp_group, row_sites=plan.row_sites)
     model = model.to(device=device, dtype=dtype)      # the rank's own copy
     qstate = map_tensors(lambda t: t.to(device), qstate)
-    with ctx:
-        if case["int8"]:
-            _, d, share = int8_block_check(torch, spec, model, qstate, x,
-                                           n_sites=want["K5"], skip=skip)
-            return {"K5": (d, share)}
-        return block_check(torch, fq_attn, fq_gemm, spec, model, qstate, x,
-                           case["dtype"], n_linear=want["K4"], skip=skip)
+    if case["int8"]:
+        _, d, share = int8_block_check(torch, spec, model, qstate, x,
+                                       n_sites=want["K5"], **rows)
+        return {"K5": (d, share)}
+    return block_check(torch, fq_attn, fq_gemm, spec, model, qstate, x,
+                       case["dtype"], n_linear=want["K4"], **rows)
 
 
 def mesh_rank(work, cases):

@@ -43,11 +43,11 @@ from adalog_tpu.models.zoo import build_model as j_build_model
 from adalog_tpu.ops import fq_attn as jfa
 from adalog_tpu.quantizers.state import QuantizerState as JQS
 from adalog_tpu.utils.config import Config as JConfig
-from adalog_tpu_torch.models import zoo
+from adalog_tpu_torch.models import layers, zoo
 from adalog_tpu_torch.models.layers import MatMulSite
 from adalog_tpu_torch.models.swin import swin_forward
 from adalog_tpu_torch.models.vit import vit_forward
-from adalog_tpu_torch.ops import fq_attn
+from adalog_tpu_torch.ops import fq_attn, routes
 from adalog_tpu_torch.quantizers.state import QuantizerState
 from adalog_tpu_torch.utils.interop import from_jax
 
@@ -199,10 +199,18 @@ def _qs_pair(kind, bits, shifted):
 
 
 def test_supports_truth_tables_equal_jax(monkeypatch):
-    """supports and supports_softmax decide as the JAX package's do for every
-    combination of A kind, B kind, bit widths, shift flag and mode; with the
-    kernels off both say no."""
+    """supports and supports_softmax decide as the JAX package's do (its
+    switch on) for every combination of A kind, B kind, bit widths, shift
+    flag and mode; ``qmatmul`` takes K3 where supports says yes under a
+    plan with the kernels on, and nowhere with them off."""
     monkeypatch.setattr(jfa, "enabled", lambda: True)
+    taken = []
+    monkeypatch.setattr(fq_attn, "run",
+                        lambda site, A, B, name=None: taken.append(site) or A)
+    monkeypatch.setattr(layers, "_act_quant",
+                        lambda qs, x, training, act=None: x)
+    A = B = torch.zeros(1, 1, 2, 2)
+    on, off = routes.Plan(attn=True), routes.Plan(attn=False)
     kinds = ("uniform", "adalog", "log2", "logsqrt2", "twin")
     n = 0
     for a_kind, b_kind, a_bits, b_bits, shifted, mode in itertools.product(
@@ -211,12 +219,14 @@ def test_supports_truth_tables_equal_jax(monkeypatch):
         ja, ta = _qs_pair(a_kind, a_bits, shifted)
         jb, tb = _qs_pair(b_kind, b_bits, False)
         js, ts = JMatMulSite(Aq=ja, Bq=jb), MatMulSite(Aq=ta, Bq=tb)
-        with fq_attn.activate(True):
-            assert fq_attn.supports(ts, mode) == jfa.supports(js, mode)
-            assert fq_attn.supports_softmax(ts, mode) == \
-                jfa.supports_softmax(js, mode)
-        assert not fq_attn.supports(ts, mode)
-        assert not fq_attn.supports_softmax(ts, mode)
+        assert fq_attn.supports(ts, mode) == jfa.supports(js, mode)
+        assert fq_attn.supports_softmax(ts, mode) == \
+            jfa.supports_softmax(js, mode)
+        for plan in (on, off):
+            taken.clear()
+            with routes.activate(plan):
+                layers.qmatmul(ts, A, B, mode=mode)
+            assert bool(taken) == (plan.attn and jfa.supports(js, mode))
         n += jfa.supports(js, mode) + jfa.supports_softmax(js, mode)
     assert n > 0
 
@@ -287,7 +297,7 @@ def test_vit_fallback_chain_matches_jax(name, monkeypatch):
     wrappers = (fq_attn.fq_flash_attn, fq_attn.fq_softmax_attn_matmul,
                 fq_attn.fq_attn_matmul)
     before = [w.calls for w in wrappers]
-    with torch.no_grad(), fq_attn.activate(True):
+    with torch.no_grad(), routes.activate(routes.build(SPEC, model, tq)):
         got = vit_forward(SPEC.cfg, model, torch.from_numpy(x), tq, modes,
                           capture=capture)
     got = (got[0] if capture else got).numpy()
@@ -312,7 +322,7 @@ def test_qmatmul_dispatch_needs_4d_operands():
     A = torch.from_numpy(rng.standard_normal((2, 1, 8, 4)).astype(np.float32))
     B = torch.from_numpy(rng.standard_normal((2, 1, 4, 8)).astype(np.float32))
     before = fq_attn.fq_attn_matmul.calls
-    with fq_attn.activate(True):
+    with routes.activate(routes.Plan(attn=True)):
         y4 = qmatmul(site, A, B, mode="quant")
         assert fq_attn.fq_attn_matmul.calls == before + 1
         y3 = qmatmul(site, A[:, 0], B[:, 0], mode="quant")
@@ -650,10 +660,11 @@ def test_matmul_mma_shared_memory_bytes():
 
 @pytest.mark.parametrize("verdict", [None, True, False])
 def test_run_carries_the_verdict_and_the_site_params(verdict, monkeypatch):
-    """run and run_softmax hand ``activate``'s verdict on the zero points on
-    as ``run_flash`` does, and take the site's (P, 2) parameter rows from
-    ``activate``'s table when it has them (unrepeated: the kernel reads row
-    g % P), else flatten them on the call."""
+    """run and run_softmax hand the plan's verdict on the zero points on as
+    ``run_flash`` does, and take the site's (P, 2) parameter rows from the
+    plan by its name when it has them (unrepeated: the kernel reads row
+    g % P), else flatten them on the call; rows built from another site
+    raise."""
     rng = np.random.default_rng(14)
     N, H, S, D = 2, 3, 16, 8
     _, site = _site_pair(rng, H, "adalog")
@@ -669,21 +680,30 @@ def test_run_carries_the_verdict_and_the_site_params(verdict, monkeypatch):
                     exact)
 
     monkeypatch.setattr(fq_attn, "_attn_matmul", spy)
-    table = fq_attn.prepare({"blocks.0.attn.matmul2": site, "other": object()})
-    assert set(table) == {id(site)}
+    name = "blocks.0.attn.matmul2"
+    rows = fq_attn.site_params(site)
+    plan = routes.Plan(attn=True, exact_ints=verdict,
+                       attn_params={name: (site, *rows)})
     want2 = fq_attn.run_softmax(site, L, v)
     want3 = fq_attn.run(site, torch.softmax(L, -1), v)
     seen.clear()
-    with fq_attn.activate(True, verdict, table):
-        got2 = fq_attn.run_softmax(site, L, v)
-        got3 = fq_attn.run(site, torch.softmax(L, -1), v)
+    with routes.activate(plan):
+        got2 = fq_attn.run_softmax(site, L, v, name=name)
+        got3 = fq_attn.run(site, torch.softmax(L, -1), v, name=name)
     assert torch.equal(got2, want2) and torch.equal(got3, want3)
     assert [(s[0], s[1], s[4], s[5]) for s in seen] == [
         ("fq_softmax_attn_matmul", "softmax", "auto", verdict),
         ("fq_attn_matmul", "adalog", "auto", verdict)]
     for _, _, ap, bp, _, _ in seen:
-        assert ap is table[id(site)][0] and bp is table[id(site)][1]
+        assert ap is rows[0] and bp is rows[1]
         assert tuple(ap.shape) == (1, 2) and tuple(bp.shape) == (H, 2)
+    seen.clear()
+    with routes.activate(plan):
+        assert torch.equal(fq_attn.run(site, torch.softmax(L, -1), v), want3)
+        with pytest.raises(RuntimeError, match="another quantizer state"):
+            fq_attn.run(_site_pair(rng, H, "adalog")[1],
+                        torch.softmax(L, -1), v, name=name)
+    assert seen[0][2] is not rows[0] and torch.equal(seen[0][2], rows[0])
     with pytest.raises(ValueError, match="tile"):
         fq_attn.run(site, torch.softmax(L, -1)[:, :2], v[:, :2])
 
@@ -753,8 +773,7 @@ def test_fallback_forward_in_mma_formulation_matches_jax(model_name, config,
             do_softmax=do_softmax)
 
     monkeypatch.setattr(fq_attn, "_attn_matmul_plain", mma_plain)
-    with torch.no_grad(), fq_attn.activate(True, fq_attn.integers_exact(tq),
-                                           fq_attn.prepare(tq)):
+    with torch.no_grad(), routes.activate(routes.build(spec, model, tq)):
         got = fwd(spec.cfg, model, torch.from_numpy(x), tq, modes,
                   capture=capture)
     got = (got[0] if capture else got).numpy()

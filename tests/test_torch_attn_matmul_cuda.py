@@ -23,7 +23,7 @@ import torch
 
 import chip_smoke
 from chip_smoke import ATOL, RTOL, FLIP_SHARE
-from adalog_tpu_torch.ops import fq_attn
+from adalog_tpu_torch.ops import fq_attn, routes
 
 
 @pytest.fixture
@@ -334,8 +334,8 @@ def test_softmax_fma_equals_flash_fma_bit_for_bit(cuda_device, G, S, D):
 @pytest.mark.cuda
 def test_periodic_site_params_on_device(cuda_device):
     """run / run_softmax hand a site's per-head rows over unrepeated, from
-    the table of ``prepare`` when ``activate`` carries one: the same output
-    as the public wrappers on parameters repeated over the batch."""
+    the plan by the site's name when it holds them: the same output as the
+    public wrappers on parameters repeated over the batch."""
     from adalog_tpu_torch.models.layers import MatMulSite
     from adalog_tpu_torch.quantizers.state import QuantizerState
 
@@ -359,13 +359,14 @@ def test_periodic_site_params_on_device(cuda_device):
     want = fq_attn.fq_softmax_attn_matmul(
         L.reshape(N * H, S, S), v.reshape(N * H, S, D), ap.repeat(N * H, 1),
         bp.repeat(N, 1), **flat).reshape(N, H, S, D)
-    table = fq_attn.prepare({"blocks.0.attn.matmul2": site})
-    assert set(table) == {id(site)}
-    for params in (None, table):
-        with fq_attn.activate(True, True, params):
-            assert torch.equal(fq_attn.run_softmax(site, L, v), want)
+    name = "blocks.0.attn.matmul2"
+    for params in ({}, {name: (site, ap, bp)}):
+        with routes.activate(routes.Plan(attn=True, exact_ints=True,
+                                         attn_params=params)):
+            assert torch.equal(fq_attn.run_softmax(site, L, v, name=name),
+                               want)
             probs = torch.softmax(L, -1)
-            got = fq_attn.run(site, probs, v)
+            got = fq_attn.run(site, probs, v, name=name)
         ref = fq_attn.fq_attn_matmul(
             probs.reshape(N * H, S, S), v.reshape(N * H, S, D),
             ap.repeat(N * H, 1), bp.repeat(N, 1), a_kind="adalog",

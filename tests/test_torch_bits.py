@@ -96,7 +96,7 @@ from adalog_tpu_torch.calib.calibrator import QuantCalibrator
 from adalog_tpu_torch.calib.layout import quant_layout, tree_get
 from adalog_tpu_torch.models import zoo
 from adalog_tpu_torch.models.layers import LinearSite, MatMulSite
-from adalog_tpu_torch.ops import fq_attn, fq_gemm, int8_linear
+from adalog_tpu_torch.ops import fq_attn, fq_gemm, int8_linear, routes
 from adalog_tpu_torch.recon import brecq as T
 from adalog_tpu_torch.serve import make_predictor
 from adalog_tpu_torch.utils.checkpoint import save_checkpoint
@@ -542,8 +542,9 @@ def test_kernel_paths_match_jax(both, served, path):
     spec, model, tq, x = both["spec"], served["model"], served["tq"], \
         served["x"]
     want, n_blocks = served["want"], _blocks(spec)
+    plan = routes.build(spec, model, tq, use_gemm_kernels=path == "K4")
     if path == "K1":
-        with fq_attn.activate(True):
+        with routes.activate(plan):
             got, n = _counting(fq_attn.fq_flash_attn,
                                lambda: _quant(spec, model, tq, x))
         assert n == n_blocks
@@ -552,24 +553,25 @@ def test_kernel_paths_match_jax(both, served, path):
                                   if nm.endswith("matmul1")}}
         j_model, j_q = from_jax(spec.cfg, *both["j"])
         want = _quant(spec, j_model, j_q, x, modes)
-        with fq_attn.activate(True):
+        with routes.activate(plan):
             got, n = _counting(fq_attn.fq_softmax_attn_matmul,
                                lambda: _quant(spec, model, tq, x, modes))
         assert n == n_blocks
     elif path == "K3":
-        with fq_attn.activate(True):
+        with routes.activate(plan):
             got, n = _counting(fq_attn.fq_attn_matmul,
                                lambda: _quant(spec, model, tq, x,
                                               capture=True))
         assert n == 2 * n_blocks
     elif path == "K4":
-        table = fq_gemm.prepare(tq)
+        table = {nm: r.gemm for nm, r in plan.linear.items()
+                 if r.kind == "fq_gemm"}
         assert len(table) == len(_linear_sites(tq))
         fc2 = {nm for nm, s in table.items() if s.kind == "adalog_shift"}
         assert fc2 and all(nm.endswith("fc2") for nm in fc2)
         assert all(s.bits == both["bits"] for nm, s in table.items()
                    if not nm.startswith("patch_embed"))
-        with fq_gemm.activate(table):
+        with routes.activate(plan):
             got, n = _counting(fq_gemm.fq_gemm,
                                lambda: _quant(spec, model, tq, x))
         assert n == len(table)
@@ -590,17 +592,19 @@ def test_kernel_paths_match_jax(both, served, path):
                                  use_gemm_kernels=True, device="cpu")
         got, n = _counting(int8_linear.int8_gemm, lambda: predict(x).numpy())
         assert n == len(prep) and len(prep) >= 4
-        assert set(prep) == set(int8_linear.prepare(spec, model, tq, cfg))
+        plan = routes.build(spec, model, tq, cfg, use_int8=True)
+        assert set(prep) == {nm for nm, r in plan.linear.items()
+                             if r.kind == "int8"}
     np.testing.assert_allclose(got, want, rtol=LOGIT_TOL, atol=LOGIT_TOL)
 
 
 def test_k4_on_the_adalog_fc2_site_matches_jax_kernel(both, served):
     """K4's plain version on the calibrated AdaLog fc2 site of the first
-    block, its table entry as prepare builds it, against the JAX package's
+    block, its entry as the plan builds it, against the JAX package's
     Pallas fq_gemm (interpret mode) with the site's parameters."""
     tq, model = served["tq"], served["model"]
     name = next(nm for nm in tq if nm.endswith("mlp.fc2"))
-    entry = fq_gemm.prepare(tq)[name]
+    entry = fq_gemm.gemm_site(name, tq[name])
     jsite = both["j"][1][name]
     jparams = np.asarray(jfg.site_params(jax.tree_util.tree_map(
         jnp.asarray, jsite.aq)))

@@ -280,6 +280,25 @@ def score_dtype(request):
     TSC.set_score_dtype("float32")
 
 
+@pytest.mark.parametrize("precision", ["highest", "default", "fast"])
+def test_search_precision_is_checked(precision):
+    """Config.search_precision takes 'highest' or 'default' (both exact
+    fp32 products here); anything else raises where a calibrator is
+    built."""
+    from adalog_tpu_torch.calib.calibrator import QuantCalibrator
+    from adalog_tpu_torch.models import zoo
+    from adalog_tpu_torch.utils.config import Config
+
+    spec, model = zoo.build_model("test_tiny", seed=0)
+    cfg = Config(w_bit=4, a_bit=4, s_bit=4, qhead_a_bit=4,
+                 search_precision=precision)
+    if precision == "fast":
+        with pytest.raises(ValueError, match="search_precision"):
+            QuantCalibrator(spec, model, cfg, device="cpu")
+    else:
+        QuantCalibrator(spec, model, cfg, device="cpu")
+
+
 def test_score_weight_self(linear_case):
     c = linear_case
     _close_scores(

@@ -17,7 +17,7 @@ from adalog_tpu_torch.calib.layout import quant_layout
 from adalog_tpu_torch.models import eva, zoo
 from adalog_tpu_torch.models.layers import LinearSite, MatMulSite
 from adalog_tpu_torch.models.load import load_timm_state_dict
-from adalog_tpu_torch.ops import int8_linear
+from adalog_tpu_torch.ops import routes
 from adalog_tpu_torch.utils.config import Config, load_config
 
 TINY = "test_tiny_eva"
@@ -348,16 +348,18 @@ def test_layout_and_initial_state():
 
 
 def test_int8_table_covers_every_linear_site(calibrated):
-    """int8_linear.prepare builds codes for every Linear site of the family
-    (qkv, proj, fc1, fc2 of each block and the head), and the int8 path
-    serves the same logits as the fake-quant path to 1e-5."""
+    """The plan with int8 on routes every Linear site of the family (qkv,
+    proj, fc1, fc2 of each block and the head) to int8 with its codes, and
+    the int8 path serves the same logits as the fake-quant path to 1e-5."""
     from adalog_tpu_torch.serve import make_predictor
 
     spec, _, params, qstate = calibrated
     cfg = small_cfg()
-    table = int8_linear.prepare(spec, params, qstate, cfg)
+    plan = routes.build(spec, params, qstate, cfg, use_int8=True)
+    table = {n for n, r in plan.linear.items()
+             if r.kind == "int8" and r.int8.w_int.dtype == torch.int8}
     linear = {n for n, s in qstate.items() if isinstance(s, LinearSite)}
-    assert set(table) == linear and len(linear) == 4 * spec.cfg.depth + 1
+    assert table == linear and len(linear) == 4 * spec.cfg.depth + 1
     x = images(2, spec.cfg, 5).numpy()
     fq = make_predictor(spec, params, qstate, cfg=cfg, device="cpu")(x)
     i8 = make_predictor(spec, params, qstate, cfg=cfg, device="cpu",

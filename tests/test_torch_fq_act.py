@@ -1,5 +1,5 @@
 """K6's wrapper (adalog_tpu_torch/ops/fq_act.py) on the CPU: which sites
-its table takes, the parameters it prepares from PyTorch's own evaluation
+a predictor's plan sends to it, the parameters it prepares from PyTorch's own evaluation
 (the AdaLog table, k = 37 / q, the rounded zero point, the shift-back
 term), the input layouts it reads, and the routing in ``qlinear``: a CPU
 tensor, training and soft rounding never reach the kernel, and importing
@@ -18,7 +18,7 @@ import torch
 from adalog_tpu_torch.calib.init_state import init_qstate
 from adalog_tpu_torch.models import layers, zoo
 from adalog_tpu_torch.models.layers import LinearSite
-from adalog_tpu_torch.ops import fq_act, int8_linear
+from adalog_tpu_torch.ops import fq_act, routes
 from adalog_tpu_torch.quantizers.apply import apply_quantizer
 from adalog_tpu_torch.quantizers.logarithm import adalog_dequant_code
 from adalog_tpu_torch.quantizers.state import GELU_MIN, QuantizerState
@@ -37,13 +37,19 @@ def _linear(qstate):
     return {n for n, s in qstate.items() if isinstance(s, LinearSite)}
 
 
+def _k6(model, qstate, **kw):
+    """{site: ActSite} of the Linear sites a predictor's plan sends to K6."""
+    plan = routes.build(zoo.model_spec("test_tiny"), model, qstate, **kw)
+    return {n: r.act for n, r in plan.linear.items() if r.kind == "fq_act"}
+
+
 def _bits(a):
     return np.asarray(a, dtype=np.float32).view(np.int32)
 
 
 def test_prepare_takes_every_served_linear_site():
-    _, _, _, qstate = _tiny()
-    table = fq_act.prepare(qstate)
+    _, model, _, qstate = _tiny()
+    table = _k6(model, qstate)
     assert set(table) == _linear(qstate)
     kinds = {n: s.kind for n, s in table.items()}
     assert {n for n, k in kinds.items() if k == "adalog"} == \
@@ -57,8 +63,8 @@ def test_prepare_takes_every_served_linear_site():
 def test_prepare_leaves_other_kinds_eager(post):
     """log2, logsqrt2 and twin (PTQ4ViT) post-GeLU sites stay on
     apply_quantizer; every other Linear site is taken."""
-    _, _, _, qstate = _tiny(post_gelu_quantizer=post)
-    table = fq_act.prepare(qstate)
+    _, model, _, qstate = _tiny(post_gelu_quantizer=post)
+    table = _k6(model, qstate)
     fc2 = {n for n in _linear(qstate) if n.endswith("mlp.fc2")}
     assert fc2 and set(table) == _linear(qstate) - fc2
     for n in fc2:
@@ -74,41 +80,46 @@ def test_prepare_leaves_other_kinds_eager(post):
      "promote"),
 ])
 def test_prepare_refuses_a_uniform_site(change, why):
-    _, _, _, qstate = _tiny()
+    _, model, _, qstate = _tiny()
     name = "blocks.0.attn.qkv"
     change(qstate[name].aq)
     assert why in fq_act.refusal(qstate[name].aq)
-    assert set(fq_act.prepare(qstate)) == _linear(qstate) - {name}
+    assert fq_act.act_site(qstate[name].aq) is None
+    assert set(_k6(model, qstate)) == _linear(qstate) - {name}
 
 
 def test_prepare_refuses_per_channel_adalog_and_skips():
-    _, _, _, qstate = _tiny()
+    """A per-channel AdaLog site stays eager; the sites K4 takes skip K6."""
+    _, model, _, qstate = _tiny()
     name = "blocks.1.mlp.fc2"
     qstate[name].aq.log_q = torch.full((4,), 20.0)
     assert "per-channel" in fq_act.refusal(qstate[name].aq)
-    skip = {"head", "blocks.0.mlp.fc1"}
-    assert set(fq_act.prepare(qstate, skip=skip)) == \
-        _linear(qstate) - {name} - skip
+    gemm = {n for n in _linear(qstate) if not n.endswith("mlp.fc2")}
+    assert set(_k6(model, qstate)) == _linear(qstate) - {name}
+    assert set(_k6(model, qstate, use_gemm_kernels=True)) == \
+        _linear(qstate) - {name} - gemm
 
 
 @pytest.mark.parametrize("scale", [0.0, -0.5, float("inf"), 1e-39])
 def test_prepare_refuses_a_scale_that_is_not_positive_normal(scale):
-    _, _, _, qstate = _tiny()
+    _, model, _, qstate = _tiny()
     name = "blocks.0.mlp.fc1"
     qstate[name].aq.scale = torch.tensor([scale])
     assert fq_act.refusal(qstate[name].aq) is None
     assert fq_act.site_params(qstate[name].aq) is None
-    assert name not in fq_act.prepare(qstate)
+    assert fq_act.act_site(qstate[name].aq) is None
+    assert name not in _k6(model, qstate)
 
 
 def test_prepare_skips_the_int8_sites():
     """With eval_int8 only the AdaLog fc2 sites are left to K6."""
     spec, model, cfg, qstate = _tiny()
-    int8 = int8_linear.prepare(spec, model, qstate, cfg)
-    table = fq_act.prepare(qstate, skip=set(int8))
+    plan = routes.build(spec, model, qstate, cfg, use_int8=True)
+    int8 = {n for n, r in plan.linear.items() if r.kind == "int8"}
+    table = _k6(model, qstate, use_int8=True)
     assert set(table) == {n for n in _linear(qstate)
                           if n.endswith("mlp.fc2")}
-    assert not set(table) & set(int8)
+    assert not set(table) & int8 and set(table) | int8 == _linear(qstate)
 
 
 def _adalog(q, bits, scale=1.0, shifted=False, reparamed=False):
@@ -165,7 +176,7 @@ def test_uniform_params(zp, want):
     assert _bits(p.scale) == _bits(0.05)
     sym = QuantizerState(scale=torch.tensor([0.05]), kind="uniform", bits=4,
                          symmetric=True)
-    assert fq_act.prepare({"s": LinearSite(wq=None, aq=sym)})["s"].code == 1
+    assert fq_act.act_site(sym).code == 1
     p = fq_act.site_params(sym)
     assert (p.lo, p.hi) == (-8, 7)
 
@@ -188,18 +199,18 @@ def test_row_layout(make, want):
 
 
 def test_act_quant_sends_a_table_site_to_the_wrapper():
-    """Inside the table every one of its sites goes to K6's wrapper, which
-    runs apply_quantizer for a CPU tensor and launches nothing; outside it
-    and in training the same site stays on apply_quantizer."""
-    _, _, _, qstate = _tiny()
+    """A site's ActSite goes to K6's wrapper, which runs apply_quantizer for
+    a CPU tensor and launches nothing; without one the same site stays on
+    apply_quantizer."""
+    _, model, _, qstate = _tiny()
     name = "blocks.1.mlp.fc2"
     qs = qstate[name].aq
     x = torch.randn(2, 5, 128)
+    act = _k6(model, qstate)[name]
     calls, launches = fq_act.fq_act_quant.calls, fq_act.fq_act_quant.launches
-    with fq_act.activate(fq_act.prepare(qstate)):
-        y = layers._act_quant(qs, x, False, name)
-        layers._act_quant(qs, x, True, name)
-    layers._act_quant(qs, x, False, name)
+    y = layers._act_quant(qs, x, False, act)
+    layers._act_quant(qs, x, True)
+    layers._act_quant(qs, x, False)
     assert fq_act.fq_act_quant.calls == calls + 1
     assert fq_act.fq_act_quant.launches == launches
     assert torch.equal(y, apply_quantizer(qs, x))
@@ -207,7 +218,7 @@ def test_act_quant_sends_a_table_site_to_the_wrapper():
 
 def test_plain_version_is_apply_quantizer_on_the_cpu():
     qs = _adalog(20, 4, 2.5, shifted=True)
-    site = fq_act.prepare({"s": LinearSite(wq=None, aq=qs)})["s"]
+    site = fq_act.act_site(qs)
     x = torch.randn(6, 10)
     calls, launches = fq_act.fq_act_quant.calls, fq_act.fq_act_quant.launches
     assert torch.equal(fq_act.fq_act_quant(site, x), apply_quantizer(qs, x))
@@ -218,18 +229,31 @@ def test_plain_version_is_apply_quantizer_on_the_cpu():
 
 
 def test_lookup_needs_the_same_state():
-    """A table site looked up with another quantizer state raises: the
-    table's parameters would not be that state's."""
-    _, _, _, qstate = _tiny()
-    table = fq_act.prepare(qstate)
+    """A route asked for with another quantizer state, another weight shape
+    or no name raises: its parameters would not be that site's. Under no
+    plan ``qlinear`` reads no route."""
+    spec, model, _, qstate = _tiny()
+    plan = routes.build(spec, model, qstate)
     name = "blocks.0.attn.qkv"
-    assert fq_act.lookup(name, qstate[name].aq) is None
-    with fq_act.activate(table):
-        assert fq_act.lookup(name, qstate[name].aq) is table[name]
-        with pytest.raises(RuntimeError, match="another quantizer state"):
-            fq_act.lookup(name, qstate["head"].aq)
-        assert fq_act.lookup(None, qstate[name].aq) is None
-    assert fq_act.lookup(name, qstate[name].aq) is None
+    w = model.get_submodule(name).weight
+    route = plan.route(name, qstate[name], w)
+    assert route.act.qs is qstate[name].aq and route.kind == "fq_act"
+    with pytest.raises(RuntimeError, match="another model or state"):
+        plan.route(name, qstate["head"], w)
+    with pytest.raises(RuntimeError, match="another model or state"):
+        plan.route(name, qstate[name], w[:, :4])
+    with pytest.raises(RuntimeError, match="another model or state"):
+        plan.route(None, qstate[name], w)
+    x = torch.randn(2, 5, w.shape[1])
+    p = model.get_submodule(name)
+    with routes.activate(plan), pytest.raises(RuntimeError,
+                                              match="another model"):
+        layers.qlinear(p, qstate["head"], x, mode="quant", name=name)
+    assert routes.current() is None
+    with routes.activate(plan):
+        y = layers.qlinear(p, qstate[name], x, mode="quant", name=name)
+    assert torch.equal(y, layers.qlinear(p, qstate[name], x, mode="quant",
+                                         name=name))
 
 
 @pytest.mark.parametrize("training,soft,hit", [
@@ -246,28 +270,33 @@ def test_qlinear_routing(monkeypatch, training, soft, hit):
     got = []
     monkeypatch.setattr(fq_act, "fq_act_quant",
                         lambda s, x: got.append(s) or apply_quantizer(s.qs, x))
-    table = fq_act.prepare(qstate)
-    with fq_act.activate(table):
+    plan = routes.build(zoo.model_spec("test_tiny"), model, qstate)
+    with routes.activate(plan):
         y = layers.qlinear(p, site, x, mode="quant", training=training,
                            soft=soft, name=name)
-    assert got == ([table[name]] if hit else [])
+    assert got == ([plan.linear[name].act] if hit else [])
     want = layers.qlinear(p, site, x, mode="quant", training=training,
                           soft=soft, name=name)
     assert torch.equal(y, want)
 
 
 def test_cpu_predictor_builds_the_table_and_never_launches(monkeypatch):
-    """A CPU predictor builds its table (every Linear site; only the fc2
-    sites with eval_int8) and sends each of its sites once a forward to
-    K6's wrapper, which runs apply_quantizer: no kernel launch."""
+    """A CPU predictor builds its plan (every Linear site on K6; only the
+    fc2 sites with eval_int8) and sends each of its K6 sites once a forward
+    to K6's wrapper, which runs apply_quantizer: no kernel launch."""
     spec, model, cfg, qstate = _tiny()
     from adalog_tpu_torch.serve import make_predictor
 
     built = []
-    real = fq_act.prepare
-    monkeypatch.setattr(fq_act, "prepare",
-                        lambda *a, **k: built.append(real(*a, **k))
-                        or built[-1])
+    real = routes.build
+
+    def spy(*a, **k):
+        plan = real(*a, **k)
+        built.append({n for n, r in plan.linear.items()
+                      if r.kind == "fq_act"})
+        return plan
+
+    monkeypatch.setattr(routes, "build", spy)
     x = np.random.default_rng(0).standard_normal(
         (2, 32, 32, 3)).astype(np.float32)
     calls, launches = fq_act.fq_act_quant.calls, fq_act.fq_act_quant.launches

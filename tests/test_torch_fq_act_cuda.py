@@ -59,9 +59,9 @@ def _state(kind, bits, device, *, scale=0.05, zp=7.0, symmetric=False,
 
 
 def _site(qs):
-    table = fq_act.prepare({"s": LinearSite(wq=None, aq=qs)})
-    assert set(table) == {"s"}, fq_act.refusal(qs)
-    return table["s"]
+    site = fq_act.act_site(qs)
+    assert site is not None, fq_act.refusal(qs)
+    return site
 
 
 def _assert_same(got, want, what=""):
@@ -275,10 +275,10 @@ def test_served_forward_takes_k6_at_every_site(cuda_device, monkeypatch,
     named = []
     real = layers._act_quant
 
-    def spy(qs, x, training, name=None):
+    def spy(qs, x, training, act=None):
         before = fq_act.fq_act_quant.launches
-        y = real(qs, x, training, name)
-        named.append((name, fq_act.fq_act_quant.launches - before))
+        y = real(qs, x, training, act)
+        named.append((act, fq_act.fq_act_quant.launches - before))
         return y
 
     monkeypatch.setattr(layers, "_act_quant", spy)
@@ -295,7 +295,7 @@ def test_served_forward_takes_k6_at_every_site(cuda_device, monkeypatch,
     # 12 post-GeLU fc2 sites in both models (swin_tiny: 2 + 2 + 6 + 2)
     assert fq_act.fq_act_quant.variant_launches == {
         "adalog": 12, "uniform": want - 12}
-    monkeypatch.setattr(fq_act, "prepare", lambda *a, **k: {})
+    monkeypatch.setattr(fq_act, "act_site", lambda aq: None)  # all eager
     plain = make_predictor(spec, model, qstate, device=cuda_device,
                            eval_dtype=dt, use_int8=int8)
     before = fq_act.fq_act_quant.launches

@@ -28,8 +28,9 @@ import chip_smoke
 from adalog_tpu.models.layers import MatMulSite as JMatMulSite
 from adalog_tpu.ops import fq_attn as jfa
 from adalog_tpu.quantizers.state import QuantizerState as JQS
-from adalog_tpu_torch.models.layers import MatMulSite, qmatmul
-from adalog_tpu_torch.ops import fq_attn
+from adalog_tpu_torch.models.layers import MatMulSite, qmatmul, \
+    quant_attention
+from adalog_tpu_torch.ops import fq_attn, routes
 from adalog_tpu_torch.quantizers.state import QuantizerState
 
 torch.set_num_threads(1)
@@ -160,19 +161,34 @@ def test_flash_matches_unfused_port_path():
 
 
 def test_flash_gate():
-    """supports_flash needs the kernels switched on, both-uniform matmul1
-    and AdaLog matmul2, both sites in quant mode."""
+    """supports_flash needs both-uniform matmul1 and AdaLog matmul2, both
+    sites in quant mode; ``quant_attention`` takes K1 only where the plan
+    switches the kernels on, and never in training."""
     rng = np.random.default_rng(0)
     _, (m1, m2) = _sites(rng, 2, 29.0)
     call = dict(shape=(197, 64), dtype=F32)
-    assert not fq_attn.supports_flash(m1, m2, "quant", "quant", **call)
-    with fq_attn.activate(True):
-        assert fq_attn.supports_flash(m1, m2, "quant", "quant", **call)
-        assert not fq_attn.supports_flash(m1, m2, "quant", "raw", **call)
-        assert not fq_attn.supports_flash(None, m2, "quant", "quant", **call)
-        assert not fq_attn.supports_flash(m2, m2, "quant", "quant", **call)
-        assert not fq_attn.supports_flash(m1, m1, "quant", "quant", **call)
-    assert not fq_attn.enabled()
+    assert fq_attn.supports_flash(m1, m2, "quant", "quant", **call)
+    assert not fq_attn.supports_flash(m1, m2, "quant", "raw", **call)
+    assert not fq_attn.supports_flash(None, m2, "quant", "quant", **call)
+    assert not fq_attn.supports_flash(m2, m2, "quant", "quant", **call)
+    assert not fq_attn.supports_flash(m1, m1, "quant", "quant", **call)
+    q = torch.zeros(1, 2, 16, 8)
+    flashed = []
+
+    def run_flash(*a, **k):
+        flashed.append(k["names"])
+        return fq_attn.run_flash(*a, **k)
+
+    for plan, training, want in ((None, False, 0),
+                                 (routes.Plan(attn=False), False, 0),
+                                 (routes.Plan(attn=True), True, 0),
+                                 (routes.Plan(attn=True), False, 1)):
+        flashed.clear()
+        with routes.activate(plan):
+            quant_attention(q, q.transpose(-2, -1), q, m1, m2, "quant",
+                            "quant", None, ("m1", "m2"), training=training,
+                            logit_scale=1.0, run_flash=run_flash)
+        assert flashed == [("m1", "m2")] * want
 
 
 def test_wrapper_cpu_runs_plain_and_counts_nothing():
@@ -418,19 +434,19 @@ def test_flash_gate_declines_shapes_neither_variant_takes():
     """With the call's shape, supports_flash also asks whether a variant of
     K1 takes it: D=256 (past both) and D=128 past 256 tokens are declined,
     so a forward takes the unfused path instead of raising inside K1; the
-    zero points' verdict is activate's, or read from the sites."""
+    zero points' verdict is the plan's, or read from the sites."""
     rng = np.random.default_rng(0)
     _, (m1, m2) = _sites(rng, 2, 29.0)
-    gate = functools.partial(fq_attn.supports_flash, m1, m2, "quant",
-                             "quant", dtype=F32)
     for exact in (True, None):
-        with fq_attn.activate(True, exact_ints=exact):
-            assert gate(shape=(197, 64)) and gate(shape=(1025, 64))
-            assert gate(shape=(49, 32)) and gate(shape=(256, 128))
-            assert not gate(shape=(64, 256))
-            assert not gate(shape=(1025, 128))
-    with fq_attn.activate(True, exact_ints=False):    # "fma" where it fits
-        assert gate(shape=(197, 64)) and not gate(shape=(1025, 64))
+        gate = functools.partial(fq_attn.supports_flash, m1, m2, "quant",
+                                 "quant", dtype=F32, exact_ints=exact)
+        assert gate(shape=(197, 64)) and gate(shape=(1025, 64))
+        assert gate(shape=(49, 32)) and gate(shape=(256, 128))
+        assert not gate(shape=(64, 256))
+        assert not gate(shape=(1025, 128))
+    gate = functools.partial(fq_attn.supports_flash, m1, m2, "quant",
+                             "quant", dtype=F32, exact_ints=False)
+    assert gate(shape=(197, 64)) and not gate(shape=(1025, 64))  # "fma"
 
 
 def test_forward_past_both_variants_takes_the_unfused_path():
@@ -449,7 +465,9 @@ def test_forward_past_both_variants_takes_the_unfused_path():
     x = torch.from_numpy(np.random.default_rng(1).standard_normal(
         (2, 16, 16, 3)).astype(np.float32))
     calls = fq_attn.fq_flash_attn.calls
-    with torch.no_grad(), fq_attn.activate(True, exact_ints=True):
+    plan = routes.build(spec, model, qs)
+    assert plan.attn and plan.exact_ints
+    with torch.no_grad(), routes.activate(plan):
         got = vit_forward(spec.cfg, model, x, qs, {"*": "quant"})
     assert fq_attn.fq_flash_attn.calls == calls
     with torch.no_grad():
@@ -498,7 +516,7 @@ def test_forced_mma_refuses_inexact_inputs():
 
 def test_integers_exact_reads_every_matmul_site():
     """The predictor's one verdict: every uniform quantizer of every matmul
-    site; run_flash hands it to the wrapper through activate."""
+    site; run_flash hands the plan's to the wrapper."""
     rng = np.random.default_rng(5)
     _, (m1, m2) = _sites(rng, 2, 29.0)
     state = {"blocks.0.attn.matmul1": m1, "blocks.0.attn.matmul2": m2}
@@ -518,7 +536,7 @@ def test_integers_exact_reads_every_matmul_site():
     fq_attn.fq_flash_attn = spy
     try:
         for verdict in (None, True, False):
-            with fq_attn.activate(True, verdict):
+            with routes.activate(routes.Plan(attn=True, exact_ints=verdict)):
                 fq_attn.run_flash(m1, m2, q, q.transpose(-2, -1), q,
                                   logit_scale=1.0)
         fq_attn.run_flash(m1, m2, q, q.transpose(-2, -1), q, logit_scale=1.0)

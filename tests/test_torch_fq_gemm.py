@@ -37,7 +37,7 @@ from adalog_tpu.utils.config import Config as JConfig
 from adalog_tpu_torch.calib import reparam
 from adalog_tpu_torch.models import zoo
 from adalog_tpu_torch.models.layers import LinearSite, quant_linear_weight
-from adalog_tpu_torch.ops import fq_gemm, weight_prep
+from adalog_tpu_torch.ops import fq_gemm, routes, weight_prep
 from adalog_tpu_torch.quantizers.state import (QuantizerState,
                                                WeightQuantizerState)
 from adalog_tpu_torch.utils.interop import from_jax, qstate_from_tree
@@ -166,12 +166,15 @@ def _w4a4_qstates():
 
 def test_site_logic_matches_jax(monkeypatch):
     """supports / kernel_kind / site_params give JAX's answers on every site
-    (JAX's enabled() needs a TPU backend, so it is patched on here)."""
+    (JAX's enabled() needs a TPU backend, so it is patched on here), and
+    the plan with the GEMM switch on routes exactly those sites to K4."""
     monkeypatch.setattr(jfg, "enabled", lambda: True)
-    _, qstates = _w4a4_qstates()
+    params, qstates = _w4a4_qstates()
     taken = []
     for jq in qstates:
-        tq = qstate_from_tree(jax.tree_util.tree_map(np.asarray, jq))
+        model, tq = from_jax(SPEC.cfg,
+                             jax.tree_util.tree_map(np.asarray, params),
+                             jax.tree_util.tree_map(np.asarray, jq))
         n = 0
         for name, jsite in jq.items():
             if not hasattr(jsite, "aq") or not hasattr(jsite, "n_V"):
@@ -187,8 +190,8 @@ def test_site_logic_matches_jax(monkeypatch):
                     fq_gemm.site_params(tsite.aq).numpy(),
                     np.asarray(jfg.site_params(jsite.aq)))
         taken.append(n)
-        table = fq_gemm.prepare(tq)
-        assert len(table) == n
+        plan = routes.build(SPEC, model, tq, use_gemm_kernels=True)
+        assert plan.count("fq_gemm") == n
     depth = SPEC.cfg.depth
     # unfolded: fc2 stays plain; folded: every Linear; twin fc2: plain
     assert taken == [3 * depth + 1, 4 * depth + 1, 3 * depth + 1]
@@ -304,15 +307,29 @@ def test_wrapper_rejects_bad_inputs():
 
 
 def test_gemm_switch_turns_attention_kernel_on():
-    """As in JAX, an active GEMM table turns the attention kernel on."""
-    from adalog_tpu_torch.ops import fq_attn
-    assert not fq_attn.enabled() and not fq_gemm.enabled()
-    with fq_gemm.activate({}):
-        assert fq_attn.enabled() and fq_gemm.enabled()
-        assert fq_gemm.lookup("head") is None
-    with fq_gemm.activate(None):
-        assert not fq_attn.enabled()
-    assert not fq_gemm.enabled()
+    """As in JAX, the GEMM switch turns the attention kernel on: a plan
+    built with it alone has the attention kernels on, one built with
+    neither has them off; no plan is active outside ``activate``."""
+    from adalog_tpu_torch.calib.init_state import init_qstate
+    from adalog_tpu_torch.utils.config import Config
+
+    spec, model = zoo.build_model("test_tiny", seed=0)
+    cfg = Config(**W4A4)
+    tq = init_qstate(spec, cfg, model)
+    gemm = routes.build(spec, model, tq, cfg, use_kernels=False,
+                        use_gemm_kernels=True)
+    off = routes.build(spec, model, tq, cfg, use_kernels=False)
+    assert gemm.attn and gemm.exact_ints is not None and gemm.attn_params
+    assert not off.attn and off.exact_ints is None and not off.attn_params
+    assert gemm.linear["head"].kind == "fq_gemm"
+    assert off.linear["head"].kind == "fq_act"
+    assert routes.current() is None
+    with routes.activate(gemm):
+        assert routes.current() is gemm
+        with routes.activate(None):
+            assert routes.current() is None
+        assert routes.current() is gemm
+    assert routes.current() is None
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """The port's serving slice with the fused activation-quant GEMM dispatch
 (ops/fq_gemm.py) against adalog_tpu, on the CPU at test_tiny size.
 
-With a GEMM table active every supported Linear site runs through
-``fq_gemm`` (its plain version on the CPU); logits are held to the JAX
+Under a plan with the GEMM switch on every supported Linear site runs
+through ``fq_gemm`` (its plain version on the CPU); logits are held to the JAX
 package's quantized logits (its unfused path) at LOGIT_TOL, and a call
 counter shows which sites took the route.
 """
@@ -15,7 +15,7 @@ from adalog_tpu.calib.init_state import init_qstate as j_init_qstate
 from adalog_tpu.utils import checkpoint as j_checkpoint
 from adalog_tpu.utils.config import Config as JConfig
 from adalog_tpu_torch.models.vit import vit_forward
-from adalog_tpu_torch.ops import fq_gemm, weight_prep
+from adalog_tpu_torch.ops import fq_gemm, routes, weight_prep
 from adalog_tpu_torch.serve import load_quantized
 from adalog_tpu_torch.utils.config import Config
 from adalog_tpu_torch.utils.interop import from_jax, qstate_from_tree
@@ -29,12 +29,20 @@ torch.set_num_threads(1)
 DEPTH = SPEC.cfg.depth
 
 
+def _gemm_table(model, tq, **kw):
+    """(plan with the GEMM switch on, {site: GemmSite} of its K4 routes)."""
+    plan = routes.build(SPEC, model, tq, Config(**W4A4),
+                        use_gemm_kernels=True, **kw)
+    return plan, {n: r.gemm for n, r in plan.linear.items()
+                  if r.kind == "fq_gemm"}
+
+
 def _gemm_logits(model, tq, x):
-    """Quantized logits with the GEMM table of ``tq`` active; returns
-    (logits, fq_gemm calls in the forward, table)."""
-    table = fq_gemm.prepare(tq)
+    """Quantized logits under the plan of ``tq`` with the GEMM switch on;
+    returns (logits, fq_gemm calls in the forward, its K4 sites)."""
+    plan, table = _gemm_table(model, tq)
     before = fq_gemm.fq_gemm.calls
-    with torch.no_grad(), fq_gemm.activate(table):
+    with torch.no_grad(), routes.activate(plan):
         y = vit_forward(SPEC.cfg, model, torch.from_numpy(x), tq,
                         {"*": "quant"}).numpy()
     return y, fq_gemm.fq_gemm.calls - before, table
@@ -101,16 +109,17 @@ def test_load_quantized_gemm_switch(jax_calibrated, tmp_path, eval_dtype):
                                        (1118482.0, False)])
 def test_prepare_checks_adalog_base(jax_calibrated, log_q, ok):
     """The kernel's AdaLog quantizer needs an integer base q >= 1 with
-    (2^bits - 1) * q < 2^24 (at 4 bits: q <= 1118481); ``prepare`` reads
-    each fc2 base once and raises for any other."""
+    (2^bits - 1) * q < 2^24 (at 4 bits: q <= 1118481); ``gemm_site`` reads
+    each fc2 base once where the plan is built and raises for any other."""
     params, qstate = jax_calibrated
-    _, tq = from_jax(SPEC.cfg, params, qstate)
+    model, tq = from_jax(SPEC.cfg, params, qstate)
     tq["blocks.0.mlp.fc2"].aq.log_q = torch.tensor(log_q)
     if ok:
-        assert fq_gemm.prepare(tq)["blocks.0.mlp.fc2"].params[3] == log_q
+        assert _gemm_table(model, tq)[1]["blocks.0.mlp.fc2"].params[3] \
+            == log_q
     else:
         with pytest.raises(ValueError, match="blocks.0.mlp.fc2"):
-            fq_gemm.prepare(tq)
+            _gemm_table(model, tq)
 
 
 def _mma_formulation(site, x, w, bias=None):
@@ -125,26 +134,25 @@ def _mma_formulation(site, x, w, bias=None):
 def test_weight_codes_table_matches_prepared_weights(jax_calibrated):
     """weight_codes gives every Linear site of the W4A4 model (qkv with
     n_V = 3 among them) codes exact in bf16 whose product with the row
-    scales is the prepared weight bit for bit; the table built with them
-    routes every site to "mma" in both dtypes, and without them fp32 to
-    "fma"."""
+    scales is the prepared weight bit for bit; the fp32 plan routes every
+    site to "mma" in both dtypes with them, and the bf16 plan, which builds
+    none, fp32 to "fma"."""
     params, qstate = jax_calibrated
     model, tq = from_jax(SPEC.cfg, params, qstate)
-    cfg = Config(**W4A4)
-    wprep = weight_prep.prepare(SPEC, model, tq, cfg)
-    codes = weight_prep.weight_codes(SPEC, model, tq, cfg)
-    assert set(codes) == set(wprep) and len(codes) == 4 * DEPTH + 1
+    plan, table = _gemm_table(model, tq)
+    assert len(table) == len(plan.linear) == 4 * DEPTH + 1
     assert tq["blocks.0.attn.qkv"].n_V == 3
-    for name, c in codes.items():
+    for name, route in plan.linear.items():
+        c = weight_prep.weight_codes(model.get_submodule(name).weight,
+                                     tq[name])
         assert c.codes.dtype == torch.bfloat16
-        assert torch.equal(c.codes.float() * c.scale[:, None], wprep[name])
-    table = fq_gemm.prepare(tq, codes)
-    assert len(table) == 4 * DEPTH + 1
+        assert torch.equal(c.codes.float() * c.scale[:, None], route.weight)
+        assert torch.equal(route.gemm.codes.codes, c.codes)
     for site in table.values():
         assert site.mma_fp32 and site.codes is not None
         assert site.variant(torch.float32) == "mma"
         assert site.variant(torch.bfloat16) == "mma"
-    for site in fq_gemm.prepare(tq).values():
+    for site in _gemm_table(model, tq, dtype=torch.bfloat16)[1].values():
         assert not site.mma_fp32 and site.codes is None
         assert site.variant(torch.float32) == "fma"
         assert site.variant(torch.bfloat16) == "mma"
@@ -169,8 +177,7 @@ def test_inexact_sites_stay_on_fma(jax_calibrated, what, value):
         w = model.get_submodule(name).weight
         site.wq.alpha = torch.zeros_like(w).reshape(site.n_V, -1, w.shape[1])
         site.wq.zero_point = torch.full_like(site.wq.zero_point, value)
-    cfg = Config(**W4A4)
-    table = fq_gemm.prepare(tq, weight_prep.weight_codes(SPEC, model, tq, cfg))
+    table = _gemm_table(model, tq)[1]
     assert {k for k, s in table.items() if not s.mma_fp32} == {name}
     assert table[name].variant(torch.float32) == "fma"
     assert (table[name].codes is None) == (what == "w_zero_point")
@@ -183,13 +190,11 @@ def test_gemm_dispatch_mma_formulation_matches_jax(jax_calibrated,
     sums): the JAX package's logits at LOGIT_TOL."""
     params, qstate = jax_calibrated
     model, tq = from_jax(SPEC.cfg, params, qstate)
-    cfg = Config(**W4A4)
     x = _images(15)
-    table = fq_gemm.prepare(tq, weight_prep.weight_codes(SPEC, model, tq, cfg))
+    plan, _ = _gemm_table(model, tq)
     monkeypatch.setattr(fq_gemm, "run", _mma_formulation)
     before = fq_gemm.fq_gemm.calls
-    with torch.no_grad(), fq_gemm.activate(table), weight_prep.activate(
-            weight_prep.prepare(SPEC, model, tq, cfg)):
+    with torch.no_grad(), routes.activate(plan):
         y = vit_forward(SPEC.cfg, model, torch.from_numpy(x), tq,
                         {"*": "quant"}).numpy()
     assert fq_gemm.fq_gemm.calls - before == 4 * DEPTH + 1

@@ -1,5 +1,5 @@
 """The port's int8 path (ops/int8_linear.py, its dispatch in qlinear and the
-predictor's table) against adalog_tpu's on the CPU, case for case of
+predictor's plan) against adalog_tpu's on the CPU, case for case of
 tests/test_int8_path.py.
 
 The same numpy inputs go to both packages. JAX's ``int8_qlinear`` runs
@@ -28,7 +28,7 @@ from adalog_tpu.serve import make_predictor as j_make_predictor
 from adalog_tpu.utils.config import Config as JConfig
 from adalog_tpu_torch.models import zoo
 from adalog_tpu_torch.models.layers import LinearSite, qlinear
-from adalog_tpu_torch.ops import fq_gemm, int8_linear, weight_prep
+from adalog_tpu_torch.ops import int8_linear, routes
 from adalog_tpu_torch.serve import make_predictor
 from adalog_tpu_torch.utils.config import Config
 from adalog_tpu_torch.utils.interop import from_jax, qstate_from_tree
@@ -42,6 +42,19 @@ LOGIT_TOL = 1e-5
 # products are fp32-rounded, the integer ones exact (JAX's own bound)
 FAKE_QUANT_TOL = 2e-5
 MODELS = ("test_tiny", "test_tiny_swin")
+
+
+def _int8_plan(lin, site, weights=None):
+    """A plan of the one int8 site "ln" of Linear ``lin``."""
+    if weights is None:
+        weights = int8_linear.site_weights(lin.weight, site)
+    return routes.Plan({"ln": routes.Route("int8", site, lin.weight.shape,
+                                           int8=weights)})
+
+
+def _int8_table(plan):
+    """{site: Int8Weights} of a plan's int8 routes."""
+    return {n: r.int8 for n, r in plan.linear.items() if r.kind == "int8"}
 
 
 @pytest.fixture(autouse=True)
@@ -153,7 +166,7 @@ def test_int8_matches_fake_quant(rng, bits, n_V):
 
 @pytest.mark.parametrize("bits,n_V", [(4, 3), (6, 1)])
 def test_int8_prepared_weights_identical(rng, bits, n_V):
-    """Codes from the active table give the per-call result bit for bit."""
+    """Codes from the plan give the per-call result bit for bit."""
     T, I, O = 24, 16, 12
     _, lin = _linear(rng, O, I)
     _, site = _site(rng, O, n_V, bits)
@@ -164,16 +177,18 @@ def test_int8_prepared_weights_identical(rng, bits, n_V):
     assert torch.equal(hit.w_int, w_int)
     assert torch.equal(hit.scale_row, site.aq.scale.reshape(()) * s_row)
     calls = int8_linear.int8_gemm.calls
-    with int8_linear.activate({"ln": hit}):
-        got = int8_linear.int8_qlinear(lin, site, x, name="ln")
+    got = int8_linear.int8_qlinear(lin, site, x, hit)
+    with routes.activate(_int8_plan(lin, site, hit)):
         via_qlinear = qlinear(lin, site, x, mode="quant", name="ln")
     assert int8_linear.int8_gemm.calls == calls + 2
     assert torch.equal(got, want) and torch.equal(via_qlinear, want)
 
 
 def test_int8_prepared_shape_mismatch_recomputes(rng):
-    """A table entry of another shape is not used: the codes of the weight
-    at hand are computed per call (JAX's fallback for a weight shard)."""
+    """A route built for a weight of another shape raises where it is asked
+    for: each predictor builds its plan from the weights it runs (a tp
+    rank's from its shard). Codes of the weight at hand, computed per call,
+    equal JAX's fallback for a weight shard."""
     T, I, O, bits = 24, 16, 12, 4
     jp, lin = _linear(rng, O, I)
     jsite, site = _site(rng, O, 1, bits)
@@ -187,14 +202,14 @@ def test_int8_prepared_shape_mismatch_recomputes(rng):
                                     zero_point=wq.zero_point[:, : O // 2],
                                     bits=wq.bits, symmetric=False),
                         aq=site.aq, n_V=1)
-    want = int8_linear.int8_qlinear(half, site_h, torch.from_numpy(x))
-    table = {"ln": int8_linear.site_weights(lin.weight, site)}   # full (O, I)
-    with int8_linear.activate(table):
-        assert int8_linear.lookup("ln", half.weight.shape) is None
-        got = int8_linear.int8_qlinear(half, site_h, torch.from_numpy(x),
-                                       name="ln")
+    got = int8_linear.int8_qlinear(half, site_h, torch.from_numpy(x))
+    full = int8_linear.site_weights(lin.weight, site)            # (O, I)
+    plan = routes.Plan({"ln": routes.Route("int8", site_h, lin.weight.shape,
+                                           int8=full)})
+    with routes.activate(plan), pytest.raises(RuntimeError,
+                                              match="another model"):
+        qlinear(half, site_h, torch.from_numpy(x), mode="quant", name="ln")
     assert got.shape == (T, O // 2)
-    assert torch.equal(got, want)
     # and the same shard through JAX's fallback
     jp_h = JLinearP(w=jp.w[: O // 2], b=jp.b[: O // 2])
     jsite_h = jsite.replace(wq=jsite.wq.replace(
@@ -206,7 +221,7 @@ def test_int8_prepared_shape_mismatch_recomputes(rng):
 
 
 def test_int8_tables_isolated_across_predictors(rng):
-    """Two models' tables, each entered by its own predictor, never mix, in
+    """Two models' plans, each entered by its own predictor, never mix, in
     whatever order the predictors first run; outside both, qlinear takes the
     fake-quant path."""
     T, I, O, bits = 8, 16, 12, 4
@@ -215,10 +230,10 @@ def test_int8_tables_isolated_across_predictors(rng):
 
     def make_model(seed):
         _, lin = _linear(np.random.default_rng(seed), O, I, bias=False)
-        table = {"ln": int8_linear.site_weights(lin.weight, site)}
+        plan = _int8_plan(lin, site)
 
         def predict(xx):
-            with int8_linear.activate(table):
+            with routes.activate(plan):
                 return qlinear(lin, site, xx, mode="quant", name="ln")
         return lin, predict
 
@@ -228,7 +243,7 @@ def test_int8_tables_isolated_across_predictors(rng):
     assert torch.equal(out1, int8_linear.int8_qlinear(lin1, site, x))
     assert torch.equal(out2, int8_linear.int8_qlinear(lin2, site, x))
     assert not torch.equal(out1, out2)
-    assert not int8_linear.enabled()
+    assert routes.current() is None
     calls = int8_linear.int8_gemm.calls
     with torch.no_grad():
         qlinear(lin1, site, x, mode="quant", name="ln")
@@ -253,10 +268,9 @@ def test_int8_bf16_codes_from_cast_weights(rng):
     np.testing.assert_array_equal(s_row.numpy(), np.asarray(j_s))
     p_bf = JLinearP(w=jp.w.astype(jnp.bfloat16), b=jp.b)
     want = np.asarray(j_int8.int8_qlinear(p_bf, jsite, jnp.asarray(x)))
-    with int8_linear.activate({"ln": int8_linear.site_weights(lin_bf.weight,
-                                                              site)}):
-        got = int8_linear.int8_qlinear(lin_bf, site, torch.from_numpy(x),
-                                       name="ln")
+    with routes.activate(_int8_plan(lin_bf, site)):
+        got = qlinear(lin_bf, site, torch.from_numpy(x), mode="quant",
+                      name="ln")
     np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -306,14 +320,16 @@ def _images(spec, seed, n=2):
 
 
 @pytest.mark.parametrize("name", MODELS)
-def test_int8_prepare_walks_model_as_jax(name):
-    """The port's table holds the sites of JAX's prepare with their codes
-    bit for bit, and the forward with it equals the forward with per-call
+def test_int8_prepare_walks_model_as_jax(name, monkeypatch):
+    """The port's plan routes the sites of JAX's prepare to int8 with their
+    codes bit for bit, each entry equal to ``site_weights`` computed
+    directly, and the forward with it equals the forward with per-call
     codes bit for bit."""
     jspec, jparams, jq, spec, model, tq = _uniform_state(name)
     cfg = Config(**W4A4)
     j_table = j_int8.prepare(jspec, jparams, jq, JConfig(**W4A4))
-    table = int8_linear.prepare(spec, model, tq, cfg)
+    plan = routes.build(spec, model, tq, cfg, use_int8=True)
+    table = _int8_table(plan)
     assert set(table) == set(j_table) and len(table) >= 4, sorted(table)
     for nm, (j_w, j_s) in j_table.items():
         np.testing.assert_array_equal(table[nm].w_int.numpy(),
@@ -321,13 +337,18 @@ def test_int8_prepare_walks_model_as_jax(name):
         np.testing.assert_array_equal(
             table[nm].scale_row.numpy(),
             np.asarray(jq[nm].aq.scale.reshape(()) * j_s))
+        direct = int8_linear.site_weights(model.get_submodule(nm).weight,
+                                          tq[nm])
+        for a, b in zip(table[nm][:3], direct[:3]):
+            assert torch.equal(a, b), nm
     fwd = zoo.model_forward_fn(spec)
     x = torch.from_numpy(_images(spec, 3))
-    with torch.no_grad():
-        with int8_linear.activate(table):
-            got = fwd(spec.cfg, model, x, tq, {"*": "quant"})
-        with int8_linear.activate({}):
-            per_call = fwd(spec.cfg, model, x, tq, {"*": "quant"})
+    with torch.no_grad(), routes.activate(plan):
+        got = fwd(spec.cfg, model, x, tq, {"*": "quant"})
+        real = int8_linear.int8_qlinear
+        monkeypatch.setattr(int8_linear, "int8_qlinear",
+                            lambda p, site, x, weights: real(p, site, x))
+        per_call = fwd(spec.cfg, model, x, tq, {"*": "quant"})
     assert torch.equal(got, per_call)
 
 
@@ -336,7 +357,7 @@ def test_int8_prepare_walks_model_as_jax(name):
 def test_int8_predictor_matches_jax(name, eval_dtype):
     """make_predictor(use_int8=True) against JAX's predictor with its
     int8_prep table on the same state and images; the int8 sites take
-    neither the weight-prep table nor the fused GEMM."""
+    neither a fake-quantized weight nor the fused GEMM."""
     jspec, jparams, jq, spec, model, tq = _uniform_state(name)
     x = _images(spec, 4)
     j_int8.set_enabled(True)
@@ -358,18 +379,21 @@ def test_int8_predictor_matches_jax(name, eval_dtype):
 
 
 def test_int8_sites_skip_weight_prep_and_fused_gemm():
-    """The skip sets: an int8 site holds no fake-quantized weight and no
+    """Int8 before K4: an int8 site holds no fake-quantized weight and no
     fused GEMM entry; every other Linear site keeps both."""
     _, _, _, spec, model, tq = _uniform_state("test_tiny")
     cfg = Config(**W4A4)
-    table = int8_linear.prepare(spec, model, tq, cfg)
-    skip = set(table)
-    full = weight_prep.prepare(spec, model, tq, cfg)
-    kept = weight_prep.prepare(spec, model, tq, cfg, skip=skip)
-    assert set(kept) == set(full) - skip and skip <= set(full)
-    gemm_full = fq_gemm.prepare(tq)
-    gemm_kept = fq_gemm.prepare(tq, skip=skip)
-    assert skip & set(gemm_full) and set(gemm_kept) == set(gemm_full) - skip
+    both = routes.build(spec, model, tq, cfg, use_int8=True,
+                        use_gemm_kernels=True)
+    gemm = routes.build(spec, model, tq, cfg, use_gemm_kernels=True)
+    skip = set(_int8_table(both))
+    assert skip and all(both.linear[n].weight is None
+                        and both.linear[n].gemm is None for n in skip)
+    full = {n for n, r in gemm.linear.items() if r.kind == "fq_gemm"}
+    kept = {n for n, r in both.linear.items() if r.kind == "fq_gemm"}
+    assert skip <= full and kept == full - skip
+    for n in kept:
+        assert torch.equal(both.linear[n].weight, gemm.linear[n].weight)
 
 
 def test_int8_supports_as_jax(rng):
@@ -393,7 +417,7 @@ def test_int8_supports_as_jax(rng):
 
 
 def test_int8_prepare_refuses_codes_past_int8():
-    """A zero point that would give codes past ±127 raises where the table
+    """A zero point that would give codes past ±127 raises where the plan
     is built, not in a served call."""
     _, _, _, spec, model, tq = _uniform_state("test_tiny")
     name = "blocks.0.attn.qkv"
@@ -402,7 +426,7 @@ def test_int8_prepare_refuses_codes_past_int8():
                           aq=type(aq)(**{**aq.__dict__, "bits": 7,
                                          "zero_point": aq.zero_point - 10.0}))
     with pytest.raises(ValueError, match="past int8"):
-        int8_linear.prepare(spec, model, tq, Config(**W4A4))
+        routes.build(spec, model, tq, Config(**W4A4), use_int8=True)
 
 
 def test_int8_wrapper_checks():
@@ -461,9 +485,10 @@ def _int8_site_shapes(spec, batch=32):
 @pytest.mark.parametrize("name", MODELS)
 def test_int8_site_shapes_match_prepare(name):
     """The shape arithmetic of the routing test lists the (K, O) of every
-    entry of the port's int8 table, on the tiny models that do build."""
+    int8 route of the port's plan, on the tiny models that do build."""
     *_, spec, model, tq = _uniform_state(name)
-    table = int8_linear.prepare(spec, model, tq, Config(**W4A4))
+    table = _int8_table(routes.build(spec, model, tq, Config(**W4A4),
+                                     use_int8=True))
     want = sorted((K, O) for _, _, K, O in _int8_site_shapes(spec))
     assert sorted(tuple(hit.w_int.shape[::-1]) for hit in table.values()) \
         == want

@@ -27,7 +27,7 @@ from chip_smoke import INT8_SHAPES
 from adalog_tpu_torch.calib.calibrator import QuantCalibrator
 from adalog_tpu_torch.calib.layout import quant_layout
 from adalog_tpu_torch.models import zoo
-from adalog_tpu_torch.ops import fq_attn, fq_gemm, int8_linear
+from adalog_tpu_torch.ops import fq_attn, fq_gemm, int8_linear, routes
 from adalog_tpu_torch.recon import brecq
 from adalog_tpu_torch.utils.config import Config
 
@@ -199,9 +199,9 @@ def test_unsupported_cuda_calls_raise(cuda_device):
 
 @pytest.mark.cuda
 def test_reconstruction_inside_the_int8_table_launches_nothing(cuda_device):
-    """A whole reconstruction inside every kernel context of a predictor,
-    the int8 table's included, launches no kernel; the eval forward in the
-    same contexts launches K5 at every int8 site."""
+    """A whole reconstruction inside a predictor's plan with every switch
+    on, int8 included, launches no kernel; the eval forward under the same
+    plan launches K5 at every int8 site."""
     spec, model = zoo.build_model("test_tiny", seed=0)
     x = np.random.default_rng(3).standard_normal(
         (8, 32, 32, 3)).astype(np.float32)
@@ -212,13 +212,11 @@ def test_reconstruction_inside_the_int8_table_launches_nothing(cuda_device):
     r = brecq.BlockReconstructor(spec, p, model, q, quant_layout(spec, cfg),
                                  cfg, device=cuda_device)
     qs = r.qstate
-    table = int8_linear.prepare(spec, r.params, qs, cfg)
+    plan = routes.build(spec, r.params, qs, cfg, use_int8=True,
+                        use_gemm_kernels=True)
     chip_smoke.zero_launches(fq_attn, fq_gemm)
     xt = torch.from_numpy(x).to(cuda_device)
-    with torch.no_grad(), int8_linear.activate(table), \
-            fq_attn.activate(True, fq_attn.integers_exact(qs),
-                             fq_attn.prepare(qs)), \
-            fq_gemm.activate(fq_gemm.prepare(qs, skip=set(table))):
+    with torch.no_grad(), routes.activate(plan):
         zoo.model_forward_fn(spec)(spec.cfg, r.params, xt, qs,
                                    {"*": "quant"})
         served = chip_smoke.read_launches(fq_attn, fq_gemm)
@@ -226,5 +224,6 @@ def test_reconstruction_inside_the_int8_table_launches_nothing(cuda_device):
         with torch.enable_grad():
             r.reconstruct([x])
         got = chip_smoke.read_launches(fq_attn, fq_gemm)
-    assert served["K5"] == len(table) > 0 and served["K1"] == 2, served
+    assert served["K5"] == plan.count("int8") > 0 and served["K1"] == 2, \
+        served
     assert not any(got.values()), got

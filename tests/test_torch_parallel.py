@@ -383,7 +383,7 @@ def _per_batch(meta, kernel):
 def test_tp_ranks_leave_row_sites_unfused(states, served, case):
     """With the GEMM switch on, each tp rank runs K1 once a block on its
     local heads and K4 at the column-parallel and replicated sites only:
-    the row-parallel sites (proj, fc2) never ask the GEMM table."""
+    the row-parallel sites (proj, fc2) never take K4."""
     work, _ = served
     _, m, dp, tp, *_ = CASE[case]
     *_, spec, _, qs = states[MODEL[m]]

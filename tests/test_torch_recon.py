@@ -61,7 +61,7 @@ from adalog_tpu_torch.calib.calibrator import QuantCalibrator
 from adalog_tpu_torch.calib.layout import quant_layout, tree_get
 from adalog_tpu_torch.models import zoo
 from adalog_tpu_torch.models.layers import MatMulSite
-from adalog_tpu_torch.ops import fq_attn, fq_gemm, weight_prep
+from adalog_tpu_torch.ops import fq_attn, fq_gemm, routes
 from adalog_tpu_torch.quantizers import adaround as t_ada
 from adalog_tpu_torch.quantizers import apply as t_apply
 from adalog_tpu_torch.quantizers import ste as t_ste
@@ -784,9 +784,9 @@ def test_affine_nodes_round_trip(state):
 # ---------------------------------------------------------------------------
 
 def test_training_dispatches_no_kernel(state):
-    """Inside every kernel context a serving forward enters (weight prep,
-    the GEMM table, the attention kernels), a reconstruction calls no
-    kernel wrapper: the training forwards take the plain ops."""
+    """Inside a serving plan with every switch on that applies (prepared
+    weights, the GEMM kernel, the attention kernels), a reconstruction
+    calls no kernel wrapper: the training forwards take the plain ops."""
     s = state
     qs = s["qc"]
     wrappers = (fq_attn.fq_flash_attn, fq_attn.fq_softmax_attn_matmul,
@@ -794,11 +794,10 @@ def test_training_dispatches_no_kernel(state):
     before = [w.calls for w in wrappers]
     r = _port_recon(s)
     r.cfg = Config(**dict(SMALL, recon_iters=3))
-    wprep = weight_prep.prepare(s["spec"], r.params, r.qstate, r.cfg)
-    with weight_prep.activate(wprep), \
-            fq_attn.activate(True, True, fq_attn.prepare(r.qstate)), \
-            fq_gemm.activate(fq_gemm.prepare(r.qstate)):
-        # the eval forward in the same contexts does reach the kernels
+    plan = routes.build(s["spec"], r.params, qs, r.cfg,
+                        use_gemm_kernels=True)
+    with routes.activate(plan):
+        # the eval forward under the same plan does reach the kernels
         zoo.model_forward_fn(s["spec"])(s["spec"].cfg, r.params,
                                         torch.from_numpy(s["x"]), qs,
                                         {"*": "quant"})

@@ -27,7 +27,7 @@ from adalog_tpu_torch.calib.calibrator import QuantCalibrator
 from adalog_tpu_torch.calib.init_state import init_qstate
 from adalog_tpu_torch.calib.layout import quant_layout
 from adalog_tpu_torch.models import zoo
-from adalog_tpu_torch.ops import fq_attn, fq_gemm, weight_prep
+from adalog_tpu_torch.ops import fq_attn, fq_gemm, routes
 from adalog_tpu_torch.quantizers.state import map_tensors
 from adalog_tpu_torch.recon import brecq as T
 from adalog_tpu_torch.recon.blocks import block_units
@@ -85,13 +85,9 @@ def test_reconstruction_launches_no_kernel(cuda_device):
                              device=cuda_device)
     qs = r.qstate
     chip_smoke.zero_launches(fq_attn, fq_gemm)
-    wprep = weight_prep.prepare(spec, r.params, qs, cfg)
-    codes = weight_prep.weight_codes(spec, r.params, qs, cfg)
+    plan = routes.build(spec, r.params, qs, cfg, use_gemm_kernels=True)
     xt = torch.from_numpy(x).to(cuda_device)
-    with torch.no_grad(), weight_prep.activate(wprep), \
-            fq_attn.activate(True, fq_attn.integers_exact(qs),
-                             fq_attn.prepare(qs)), \
-            fq_gemm.activate(fq_gemm.prepare(qs, codes)):
+    with torch.no_grad(), routes.activate(plan):
         zoo.model_forward_fn(spec)(spec.cfg, r.params, xt, qs,
                                    {"*": "quant"})
         served = chip_smoke.read_launches(fq_attn, fq_gemm)

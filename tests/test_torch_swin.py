@@ -33,7 +33,7 @@ from adalog_tpu_torch.calib.layout import quant_layout, tree_get
 from adalog_tpu_torch.models import swin, zoo
 from adalog_tpu_torch.models.load import load_swin, read_state_dict
 from adalog_tpu_torch.models.swin import swin_forward
-from adalog_tpu_torch.ops import fq_attn, fq_gemm
+from adalog_tpu_torch.ops import fq_attn, fq_gemm, routes
 from adalog_tpu_torch.serve import load_quantized, make_predictor
 from adalog_tpu_torch.utils import checkpoint
 from adalog_tpu_torch.utils.config import Config
@@ -71,7 +71,8 @@ def _jax_logits(params, x, qstate=None, modes=None):
 
 
 def _port_logits(model, x, qstate=None, modes=None, kernels=False):
-    with torch.no_grad(), fq_attn.activate(kernels):
+    plan = routes.build(SPEC, model, qstate or {}) if kernels else None
+    with torch.no_grad(), routes.activate(plan):
         return swin_forward(SPEC.cfg, model, torch.from_numpy(x), qstate,
                             modes).numpy()
 
@@ -334,7 +335,7 @@ def test_swin_fallback_chain_matches_jax(name, monkeypatch):
     wrappers = (fq_attn.fq_flash_attn, fq_attn.fq_softmax_attn_matmul,
                 fq_attn.fq_attn_matmul)
     before = [w.calls for w in wrappers]
-    with torch.no_grad(), fq_attn.activate(True):
+    with torch.no_grad(), routes.activate(routes.build(SPEC, model, tq)):
         got = swin_forward(SPEC.cfg, model, torch.from_numpy(x), tq, modes,
                            capture=capture)
     got = (got[0] if capture else got).numpy()
@@ -396,16 +397,14 @@ def test_gemm_dispatch_mma_formulation_matches_jax(jax_calibrated,
                                                    monkeypatch):
     """The fp32 Swin forward with every Linear site (the bias-free reduction
     and head.fc among them) computed as variant "mma" of the GEMM kernel
-    computes it, from the table's weight codes: the JAX package's logits."""
-    from adalog_tpu_torch.ops import weight_prep
-
+    computes it, from the plan's weight codes: the JAX package's logits."""
     params, qstate = jax_calibrated
     model, tq = from_jax(SPEC.cfg, params, qstate)
-    cfg = Config(**W4A4)
     x = _images(9)
-    wprep = weight_prep.prepare(SPEC, model, tq, cfg)
-    table = fq_gemm.prepare(tq, weight_prep.weight_codes(SPEC, model, tq, cfg))
-    assert len(table) == 4 * 3 + 2
+    plan = routes.build(SPEC, model, tq, Config(**W4A4),
+                        use_gemm_kernels=True)
+    table = {n: r.gemm for n, r in plan.linear.items() if r.kind == "fq_gemm"}
+    assert len(table) == len(plan.linear) == 4 * 3 + 2
     assert all(site.mma_fp32 for site in table.values())
 
     def mma_formulation(site, x2, w, bias=None):
@@ -416,8 +415,7 @@ def test_gemm_dispatch_mma_formulation_matches_jax(jax_calibrated,
 
     monkeypatch.setattr(fq_gemm, "run", mma_formulation)
     before = fq_gemm.fq_gemm.calls
-    with torch.no_grad(), fq_gemm.activate(table), \
-            weight_prep.activate(wprep):
+    with torch.no_grad(), routes.activate(plan):
         y = swin_forward(SPEC.cfg, model, torch.from_numpy(x), tq,
                          {"*": "quant"}).numpy()
     assert fq_gemm.fq_gemm.calls - before == len(table)

@@ -29,8 +29,7 @@ from adalog_tpu_torch.calib.init_state import init_qstate
 from adalog_tpu_torch.models import zoo
 from adalog_tpu_torch.models.load import load_vit, read_state_dict
 from adalog_tpu_torch.models.vit import vit_forward
-from adalog_tpu_torch.ops import fq_attn
-from adalog_tpu_torch.ops.kernel_defaults import resolve_kernel_config
+from adalog_tpu_torch.ops import routes
 from adalog_tpu_torch.serve import load_quantized, make_predictor
 from adalog_tpu_torch.utils import checkpoint
 from adalog_tpu_torch.utils.config import Config
@@ -66,7 +65,8 @@ def _jax_logits(params, x, qstate=None, modes=None):
 
 
 def _port_logits(model, x, qstate=None, modes=None, kernels=False):
-    with torch.no_grad(), fq_attn.activate(kernels):
+    plan = routes.build(SPEC, model, qstate or {}) if kernels else None
+    with torch.no_grad(), routes.activate(plan):
         return vit_forward(SPEC.cfg, model, torch.from_numpy(x), qstate,
                            modes).numpy()
 
@@ -261,11 +261,23 @@ def test_load_vit_from_npz(jax_model, tmp_path):
 
 
 def test_kernel_defaults_start_empty():
-    cfg = resolve_kernel_config(Config(), zoo.model_spec("deit_small"))
-    assert cfg.use_pallas is True and cfg.eval_int8 is False
-    cfg = resolve_kernel_config(Config(use_pallas=False),
-                                zoo.model_spec("vit_large"))
-    assert cfg.use_pallas is False
+    """No model has a measured default of its own: None turns the attention
+    kernels on and int8 off, for every model; an explicit True or False
+    wins, and so does ``load_quantized``'s ``use_pallas``."""
+    assert routes.switches(Config()) == dict(
+        use_kernels=True, use_gemm_kernels=False, use_int8=False)
+    assert routes.switches(Config(use_pallas=False, eval_int8=True,
+                                  use_pallas_gemm=True)) == dict(
+        use_kernels=False, use_gemm_kernels=True, use_int8=True)
+    assert routes.switches(Config(use_pallas=True, eval_int8=False)) == \
+        routes.switches(Config())
+    assert routes.switches(Config(use_pallas=False), use_pallas=True)[
+        "use_kernels"]
+    assert not routes.switches(Config(use_pallas=True), use_pallas=False)[
+        "use_kernels"]
+    cfg = Config()
+    routes.switches(cfg)
+    assert cfg.use_pallas is None and cfg.eval_int8 is None
 
 
 def test_unported_paths_raise(jax_calibrated, tmp_path):

@@ -27,21 +27,23 @@ def small_synthetic_init(n_val):
 
 
 class _Spy:
-    """Counts wrapper calls and records the site names each dispatch table
-    is asked for, in this rank."""
+    """Counts wrapper calls and records the site names whose route the
+    forward reads, by the kernel it names (K4 or K5), in this rank."""
 
     def __init__(self):
-        from adalog_tpu_torch.ops import fq_attn, fq_gemm, int8_linear
+        from adalog_tpu_torch.ops import fq_attn, fq_gemm, int8_linear, routes
 
         self.looked_up = {"K4": set(), "K5": set()}
-        for key, mod in (("K4", fq_gemm), ("K5", int8_linear)):
-            real = mod.lookup
+        kernel = {"fq_gemm": "K4", "int8": "K5"}
+        real = routes.Plan.route
 
-            def lookup(name, *a, _real=real, _key=key):
-                self.looked_up[_key].add(name)
-                return _real(name, *a)
+        def route(plan, name, *a):
+            r = real(plan, name, *a)
+            if r.kind in kernel:
+                self.looked_up[kernel[r.kind]].add(name)
+            return r
 
-            mod.lookup = lookup
+        routes.Plan.route = route
         self.wrappers = {"K1": fq_attn.fq_flash_attn, "K4": fq_gemm.fq_gemm,
                          "K5": int8_linear.int8_gemm}
 
@@ -56,8 +58,8 @@ class _Spy:
 def predictor_cases(workdir, cases):
     """Serve each case's checkpoint through ``load_quantized`` over the
     case's mesh and write, per rank, the logits of each input batch and the
-    calls of K1, K4 and K5 for each batch, and the sites whose entry in the
-    GEMM (K4) and int8 (K5) tables was asked for."""
+    calls of K1, K4 and K5 for each batch, and the sites whose route took
+    the GEMM (K4) and int8 (K5) kernels."""
     from adalog_tpu_torch.serve import load_quantized
     from adalog_tpu_torch.utils.config import Config
 
