@@ -238,7 +238,7 @@ def eva_mlp(mp: SwiGLU, qstate, prefix: str, x, modes, taps, *,
     with span("eva.glu"):
         g, u = h.chunk(2, dim=-1)
         h = F.silu(g) * u
-    h = layer_norm(mp.norm, h)
+    h = layer_norm(mp.norm, h, training=training)
     nm = f"{prefix}.fc2"
     y = qlinear(mp.fc2, site_of(qstate, nm), h, mode=mode_of(modes, nm),
                 training=training, soft=soft, name=nm)
@@ -253,10 +253,10 @@ def eva_block(cfg: EvaConfig, bp: Block, qstate, prefix: str, x, modes, taps,
     if rope is None:
         rope = rope_tables(cfg, x.device, x.dtype)
     x = x + eva_attention(cfg, bp.attn, qstate, f"{prefix}.attn",
-                          layer_norm(bp.norm1, x), rope, modes, taps,
-                          training=training, soft=soft)
+                          layer_norm(bp.norm1, x, training=training), rope,
+                          modes, taps, training=training, soft=soft)
     x = x + eva_mlp(bp.mlp, qstate, f"{prefix}.mlp",
-                    layer_norm(bp.norm2, x), modes, taps,
+                    layer_norm(bp.norm2, x, training=training), modes, taps,
                     training=training, soft=soft)
     return x
 
@@ -284,9 +284,10 @@ def eva_head(cfg: EvaConfig, params: EvaTransformer, qstate, x, modes, taps,
     return y
 
 
-def eva_pool(params: EvaTransformer, h):
+def eva_pool(params: EvaTransformer, h, *, training: bool = False):
     """The patch tokens' mean through ``fc_norm``."""
-    return layer_norm(params.fc_norm, h[:, 1:].mean(dim=1))
+    return layer_norm(params.fc_norm, h[:, 1:].mean(dim=1),
+                      training=training)
 
 
 def eva_forward(cfg: EvaConfig, params: EvaTransformer, x, qstate=None,
@@ -315,7 +316,7 @@ def eva_forward(cfg: EvaConfig, params: EvaTransformer, x, qstate=None,
         if capture_blocks:
             taps[f"blocks.{i}"] = (h_in, h)
 
-    pooled = eva_pool(params, h)
+    pooled = eva_pool(params, h, training=training)
     logits = eva_head(cfg, params, qstate, pooled, modes, site_taps,
                       training=training, soft=soft)
     if capture_blocks:

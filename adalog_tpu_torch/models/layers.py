@@ -15,7 +15,8 @@ the forward, so one raw pass captures every site's inputs and output.
 Under a predictor's plan (ops/routes.py) each quantized site runs as its
 route says: ``qlinear`` by the one route of its Linear site,
 ``quant_attention`` and ``qmatmul`` through the attention kernels where the
-plan turns them on. ``training=True`` (block reconstruction) rounds with
+plan turns them on, ``layer_norm`` through K7 where the plan routes its
+module. ``training=True`` (block reconstruction) rounds with
 straight-through estimators so gradients reach the quantizers' scales, and
 reads no plan: no kernel, no prepared weight. ``soft=True`` takes the soft
 AdaRound target of a weight quantizer that carries an ``alpha``, and reads
@@ -39,6 +40,7 @@ import torch.nn.functional as F
 from adalog_tpu_torch.quantizers.state import QuantizerState, WeightQuantizerState
 from adalog_tpu_torch.quantizers.apply import apply_quantizer, apply_weight_quantizer
 from adalog_tpu_torch.ops import fq_act, fq_attn, fq_gemm, int8_linear, routes
+from adalog_tpu_torch.ops.layer_norm import layer_norm_plain, layer_norm_rows
 from adalog_tpu_torch.utils.profiling import span
 
 # the span of each activation quantizer kind (utils/profiling.py)
@@ -269,11 +271,15 @@ def quant_attention(q, kT, v, m1_site, m2_site, m1_mode, m2_mode, taps,
     return out
 
 
-def layer_norm(p: torch.nn.LayerNorm, x):
+def layer_norm(p: torch.nn.LayerNorm, x, *, training: bool = False):
+    """LayerNorm over the last dimension: through K7 (``ops.layer_norm``)
+    where a predictor's plan routes module ``p``, outside training; else
+    the plain version."""
     with span("norm"):
-        mu = x.mean(dim=-1, keepdim=True)
-        var = torch.square(x - mu).mean(dim=-1, keepdim=True)
-        return (x - mu) * torch.rsqrt(var + p.eps) * p.weight + p.bias
+        plan = None if training else routes.current()
+        if plan is not None and p in plan.norms:
+            return layer_norm_rows(p, x)
+        return layer_norm_plain(x, p.weight, p.bias, p.eps)
 
 
 def gelu(x):

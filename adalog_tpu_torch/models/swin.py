@@ -332,7 +332,7 @@ def swin_block(cfg: SwinConfig, bp: SwinBlock, qstate, prefix: str,
     heads = cfg.heads[stage]
 
     shortcut = x
-    h = layer_norm(bp.norm1, x)
+    h = layer_norm(bp.norm1, x, training=training)
     with span("swin.window"):
         if shift:
             h = torch.roll(h, (-shift, -shift), dims=(1, 2))
@@ -348,7 +348,7 @@ def swin_block(cfg: SwinConfig, bp: SwinBlock, qstate, prefix: str,
             h = torch.roll(h, (shift, shift), dims=(1, 2))
     x = shortcut + h
 
-    h = layer_norm(bp.norm2, x)
+    h = layer_norm(bp.norm2, x, training=training)
     nm = f"{prefix}.mlp.fc1"
     m = qlinear(bp.mlp.fc1, site_of(qstate, nm), h, mode=mode_of(modes, nm),
                 training=training, soft=soft, name=nm)
@@ -372,7 +372,7 @@ def patch_merging(pm: PatchMerging, qstate, prefix: str, x, modes, taps, *,
         x = x.reshape(B, H // 2, 2, W // 2, 2, C)
         x = x.permute(0, 1, 3, 4, 2, 5)              # (B, H2, W2, sw, sh, C)
         x = x.reshape(B, H // 2, W // 2, 4 * C)
-    x = layer_norm(pm.norm, x)
+    x = layer_norm(pm.norm, x, training=training)
     nm = f"{prefix}.reduction"
     y = qlinear(pm.reduction, site_of(qstate, nm), x, mode=mode_of(modes, nm),
                 training=training, soft=soft, name=nm)
@@ -389,7 +389,7 @@ def swin_patch_embed(cfg: SwinConfig, params: SwinTransformer, qstate, x,
     y = qconv2d(params.patch_embed.proj, site_of(qstate, nm), x,
                 mode=mode_of(modes, nm), training=training, soft=soft)
     _tap(taps, nm, x, y)
-    return layer_norm(params.patch_embed.norm, y)
+    return layer_norm(params.patch_embed.norm, y, training=training)
 
 
 def swin_head(params: SwinTransformer, qstate, x, modes, taps, *,
@@ -437,7 +437,7 @@ def swin_forward(cfg: SwinConfig, params: SwinTransformer, x, qstate=None,
             if capture_blocks:
                 taps[f"layers.{i}.blocks.{j}"] = (h_in, h)
 
-    h = layer_norm(params.norm, h)
+    h = layer_norm(params.norm, h, training=training)
     logits = swin_head(params, qstate, h, modes, site_taps,
                        training=training, soft=soft)
     if capture_blocks:

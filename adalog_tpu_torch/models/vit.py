@@ -158,10 +158,10 @@ def vit_block(cfg: ViTConfig, bp: Block, qstate, prefix: str, x, modes, taps,
               *, training: bool = False, soft: bool = False):
     """Pre-norm transformer block; also a block-reconstruction unit."""
     x = x + vit_attention(cfg, bp.attn, qstate, f"{prefix}.attn",
-                          layer_norm(bp.norm1, x), modes, taps,
-                          training=training, soft=soft)
+                          layer_norm(bp.norm1, x, training=training), modes,
+                          taps, training=training, soft=soft)
     x = x + vit_mlp(bp.mlp, qstate, f"{prefix}.mlp",
-                    layer_norm(bp.norm2, x), modes, taps,
+                    layer_norm(bp.norm2, x, training=training), modes, taps,
                     training=training, soft=soft)
     return x
 
@@ -215,7 +215,7 @@ def vit_forward(cfg: ViTConfig, params: VisionTransformer, x, qstate=None,
         if capture_blocks:
             taps[f"blocks.{i}"] = (h_in, h)
 
-    h = layer_norm(params.norm, h)
+    h = layer_norm(params.norm, h, training=training)
     pooled = h[:, 0]
     logits = vit_head(cfg, params, qstate, pooled, modes, site_taps,
                       training=training, soft=soft)

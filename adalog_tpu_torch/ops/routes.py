@@ -17,7 +17,8 @@ each but "int8" with the site's fake-quantized weight, a row-parallel
 site's with its tp group. For the attention (ops/fq_attn.py) the plan
 holds whether its kernels are on (``use_kernels`` or ``use_gemm_kernels``),
 the verdict of ``fq_attn.integers_exact`` and each matmul site's parameter
-rows, by name. A predictor's forward enters ``activate(plan)``;
+rows, by name; and the LayerNorm modules K7 takes (ops/layer_norm.py), on
+a CUDA device. A predictor's forward enters ``activate(plan)``;
 ``models.layers`` and ``ops.fq_attn`` read ``current()``. Calibration and
 BRECQ enter none. A route asked for with another quantizer state or
 weight shape than it was built from raises.
@@ -56,11 +57,13 @@ class Plan:
     """What ``build`` decided: ``linear`` {site name: Route}; ``attn`` whether
     the attention kernels are on; ``exact_ints`` the verdict on the
     attention's zero points (None: each call reads its own);
-    ``attn_params`` {site name: (site, A rows, B rows)}."""
+    ``attn_params`` {site name: (site, A rows, B rows)}; ``norms`` the
+    LayerNorm modules that K7 serves."""
     linear: Mapping[str, Route] = field(default_factory=dict)
     attn: bool = False
     exact_ints: Optional[bool] = None
     attn_params: Mapping[str, tuple] = field(default_factory=dict)
+    norms: frozenset = frozenset()
 
     def route(self, name, site, weight) -> Route:
         """The route of Linear site ``name``; raises unless it was built from
@@ -120,7 +123,7 @@ def build(spec, model, qstate, cfg=None, dtype=torch.float32, *,
         LinearSite, MatMulSite, quant_linear_weight,
     )
     from adalog_tpu_torch.ops import (
-        fq_act, fq_attn, fq_gemm, int8_linear, weight_prep,
+        fq_act, fq_attn, fq_gemm, int8_linear, layer_norm, weight_prep,
     )
     from adalog_tpu_torch.utils.config import Config
 
@@ -167,7 +170,7 @@ def build(spec, model, qstate, cfg=None, dtype=torch.float32, *,
                            if isinstance(site, MatMulSite)
                            and fq_attn.supports(site, "quant")}
     return Plan(MappingProxyType(linear), attn, exact_ints,
-                MappingProxyType(attn_params))
+                MappingProxyType(attn_params), layer_norm.plan_norms(model))
 
 
 _PLAN: contextvars.ContextVar = contextvars.ContextVar(

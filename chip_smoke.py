@@ -5,11 +5,11 @@
 
 Phases, each a hard check (any failure raises and exits non-zero):
   1. the card's name and power limit (nvidia-smi); no CUDA device -> exit 1;
-  2. build the five kernel sources with nvcc, one process each, started
+  2. build the six kernel sources with nvcc, one process each, started
      together: K1 (csrc/fq_flash_attn.cu), K2 and K3
      (csrc/fq_attn_matmul.cu), K4 (csrc/fq_gemm.cu), K5
-     (csrc/int8_gemm.cu, variants "wgmma", "wgmma_codes" and "mma") and K6
-     (csrc/fq_act.cu); each kernel's
+     (csrc/int8_gemm.cu, variants "wgmma", "wgmma_codes" and "mma"), K6
+     (csrc/fq_act.cu) and K7 (csrc/layer_norm.cu); each kernel's
      registers and static shared memory are printed, none may spill, and
      the compiler may not serialize a wgmma;
   3. K1 kernel phase: the fused attention kernel against its plain PyTorch
@@ -48,6 +48,14 @@ Phases, each a hard check (any failure raises and exits non-zero):
      the plain matmul1's logits against K1 on the same q, kT, v (fp32):
      "fma" against "fma" bit for bit, "mma" against "mma" to K1's own
      tolerance;
+  5a. K7 kernel phase: the one-pass LayerNorm against the eager chain
+     (ops/layer_norm.py's plain version) and the float64 LayerNorm at the
+     benchmark's shapes (LN_SHAPES: deit_small's 39,400 x 384, swin_base
+     stage 1's 627,200 x 128, eva02_large_448's 65,600 x 1024 and its
+     sub-LN's 65,600 x 2730), fp32 and bf16, timed in fp32 as one call,
+     ten in a row and ten replayed from a CUDA graph, beside the byte bound,
+     the chain's time and F.layer_norm's (library_ms, a yardstick the port
+     never calls);
   6. serving phase, for deit_small and for swin_tiny (embed 96, depths
      2-2-6-2, heads 3-6-12-24, window 7, 224 px), each at full depth and
      width with random weights from a numpy seed and a smoke quantizer
@@ -62,8 +70,9 @@ Phases, each a hard check (any failure raises and exits non-zero):
      and bfloat16, with the attention kernel only, with the attention and
      GEMM kernels, and plain, on 4 batches of 32 images each: per batch K1
      must run 12 times with either kernel switch on and K4 49 or 52 times
-     with the GEMM switch on (0 off), K2 and K3 never, and every K1 and
-     every K4 launch is variant "mma"; logits finite and of
+     with the GEMM switch on (0 off), K2 and K3 never, K7 at every
+     LayerNorm in every setting (deit_small 25, swin_tiny 29), and every K1
+     and every K4 launch is variant "mma"; logits finite and of
      the right shape; img/s and the agreement of the logits between the
      settings are reported;
   7. fall-back phase, for both models: K2 and K3 against their plain
@@ -119,7 +128,8 @@ Phases, each a hard check (any failure raises and exits non-zero):
      logits; then
      site_error_report on the calibrated deit_small (its top rows and
      seconds) and its export round trip (export_quantized, then
-     load_exported on the card, logits against the plain predictor);
+     load_exported on the card, logits against the eager forward it was
+     traced from; against the plain predictor, which runs K7, reported);
  10. reconstruction phase: BRECQ (BlockReconstructor.reconstruct) on the
      warm calibration's deit_small state before the post-GeLU fold, all 14
      units on the card in exact fp32 with train_act, RECON_ITERS steps on
@@ -245,7 +255,7 @@ import numpy as np
 
 SEED = 0
 KERNELS = ("fq_flash_attn", "fq_attn_matmul", "fq_gemm",    # csrc/<name>.cu
-           "int8_gemm", "fq_act")
+           "int8_gemm", "fq_act", "layer_norm")
 KERNEL_SHAPE = dict(G=384, S=197, D=64, P=6)     # deit_small, batch 64
 BATCH, N_BATCHES = 32, 4
 # K2 and K3 at the attention shapes of batch 32: (model, G, S, D)
@@ -1221,6 +1231,96 @@ def fq_act_kernel_phase(torch, fq_act, device):
     return out
 
 
+# K7 at the LayerNorms of the benchmark's cells: deit_small's at batch 200
+# (39,400 tokens of 384), swin_base stage 1's (200 x 56 x 56 tokens of
+# 128, eps 1e-5), eva02_large_448's at batch 64 (65,600 tokens of 1024)
+# and its sub-LN (of 2730, rows 10,920 bytes apart): (tag, rows, D, eps)
+LN_SHAPES = (("deit_small", 39400, 384, 1e-6),
+             ("swin_base stage 1", 627200, 128, 1e-5),
+             ("eva02_large_448", 65600, 1024, 1e-6),
+             ("eva02_large_448 sub-LN", 65600, 2730, 1e-6))
+# K7 against the float64 LayerNorm, the largest |diff| of a row over the
+# row's largest |reference| (tests/test_torch_layer_norm_cuda.py's FP32_TOL)
+LN_FP32_TOL = 2e-6
+
+
+def layer_norm_case(torch, rows, D, eps, seed, device, tag):
+    """K7 on (rows, D) inputs with a per-row offset and spread, against the
+    chain and the float64 LayerNorm in float32 and bfloat16, and timed in
+    float32. Returns {"max_rel_err": the largest row-relative |K7 - float64|
+    in float32, "ms", "ms_back_to_back", "ms_graph", "plain_ms": the chain,
+    "library_ms": F.layer_norm, "bound_ms", "bound_by"}."""
+    from adalog_tpu_torch.ops import layer_norm as ln
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    off = torch.randn((rows, 1), generator=g, device=device)
+    x = torch.randn((rows, D), generator=g, device=device) \
+        * (1 + 3 * off.abs()) + 5 * off
+    m = torch.nn.LayerNorm(D, eps=eps, device=device).requires_grad_(False)
+    with torch.no_grad():
+        m.weight.normal_(1.0, 0.2, generator=g)
+        m.bias.normal_(0.0, 0.2, generator=g)
+
+    def rel(got, ref):
+        d = (got.double() - ref).abs().amax(-1)
+        return (d / ref.abs().amax(-1).clamp_min(1e-30)).max().item()
+
+    err = {}
+    for dt in (torch.float32, torch.bfloat16):
+        mt, xt = copy.deepcopy(m).to(dt), x.to(dt)
+        before = ln.layer_norm_rows.launches
+        got = ln.layer_norm_rows(mt, xt)
+        torch.cuda.synchronize()
+        check(ln.layer_norm_rows.launches == before + 1,
+              f"[{tag}] the wrapper did not launch K7")
+        x64 = xt.double()
+        mu = x64.mean(-1, keepdim=True)
+        ref = (x64 - mu) / torch.sqrt(((x64 - mu) ** 2).mean(
+            -1, keepdim=True) + eps) * mt.weight.double() + mt.bias.double()
+        del x64, mu
+        chain = ln.layer_norm_plain(xt, mt.weight, mt.bias, eps)
+        name = str(dt).split(".")[-1]
+        err[name] = (rel(got, ref), rel(chain, ref), rel(got, chain))
+        print(f"kernel K7 layer_norm_rows [{tag}] rows={rows} D={D} {name}: "
+              f"row-relative max|diff| to float64 {err[name][0]:.3e} (the "
+              f"chain's {err[name][1]:.3e}), to the chain {err[name][2]:.3e}")
+        del got, ref, chain
+    check(err["float32"][0] <= LN_FP32_TOL,
+          f"[{tag}] K7 float32 {err['float32'][0]} from float64")
+    check(err["bfloat16"][0] <= err["bfloat16"][1],
+          f"[{tag}] K7 bfloat16 farther from float64 than the chain")
+
+    def call():
+        return ln.layer_norm_rows(m, x)
+
+    r = {"max_rel_err": err["float32"][0], "ms": cuda_ms(torch, call),
+         "ms_back_to_back": cuda_ms(torch, call, calls=10),
+         "ms_graph": cuda_graph_ms(torch, call),
+         "plain_ms": cuda_ms(torch, lambda: ln.layer_norm_plain(
+             x, m.weight, m.bias, eps)),
+         "library_ms": cuda_ms(torch, lambda: torch.nn.functional.layer_norm(
+             x, (D,), m.weight, m.bias, eps))}
+    r["bound_ms"], r["bound_by"] = bound_ms(2 * x.numel() * 4 + 2 * D * 4,
+                                            0, torch.float32)
+    print(f"kernel K7 layer_norm_rows [{tag}] rows={rows} D={D} float32: "
+          f"kernel_ms={r['ms']:.4f} back_to_back_ms="
+          f"{r['ms_back_to_back']:.4f} graph_ms={r['ms_graph']:.4f} "
+          f"({100 * r['bound_ms'] / r['ms_graph']:.1f}% of the bound) "
+          f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
+          f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}); {card_line()}")
+    return r
+
+
+def layer_norm_kernel_phase(torch, device):
+    """K7 at LN_SHAPES (layer_norm_case); returns {tag: its result}."""
+    out = {}
+    for i, (tag, rows, D, eps) in enumerate(LN_SHAPES):
+        out[tag] = layer_norm_case(torch, rows, D, eps, SEED + 70 + i,
+                                   device, tag)
+        torch.cuda.empty_cache()
+    return out
+
+
 def int8_kernel_phase(torch, device):
     """K5's variants against the plain version, bit for bit, at INT8_SHAPES
     in fp32 and bf16; every shape must be routed as INT8_ROUTES says
@@ -1557,14 +1657,15 @@ SETTINGS = (("attention kernel", True, False),
 # swin_tiny 2 + 2 + 6 + 2), K4 at every Linear site (deit_small 4 a block
 # and the head; swin_tiny 4 a block, 3 reductions and head.fc); the zoo
 # phase's models beside them (vit_large 24 blocks; swin_base and
-# swin_base_384 2 + 2 + 18 + 2)
-MODELS = {"deit_small": {"K1": 12, "K4": 49},
-          "swin_tiny": {"K1": 12, "K4": 52},
-          "deit_tiny": {"K1": 12, "K4": 49},
-          "deit_base": {"K1": 12, "K4": 49},
-          "vit_large": {"K1": 24, "K4": 97},
-          "swin_base": {"K1": 24, "K4": 100},
-          "swin_base_384": {"K1": 24, "K4": 100}}
+# swin_base_384 2 + 2 + 18 + 2); K7 at every LayerNorm, in every setting
+# (2 a block and the final norm; a Swin's patch norm and 3 merges too)
+MODELS = {"deit_small": {"K1": 12, "K4": 49, "K7": 25},
+          "swin_tiny": {"K1": 12, "K4": 52, "K7": 29},
+          "deit_tiny": {"K1": 12, "K4": 49, "K7": 25},
+          "deit_base": {"K1": 12, "K4": 49, "K7": 25},
+          "vit_large": {"K1": 24, "K4": 97, "K7": 49},
+          "swin_base": {"K1": 24, "K4": 100, "K7": 53},
+          "swin_base_384": {"K1": 24, "K4": 100, "K7": 53}}
 # the smoke models of the serving, fall-back and profile phases
 SMOKE_MODELS = ("deit_small", "swin_tiny")
 # the zoo phase: every other zoo shape at full depth and width (vit_tiny
@@ -1583,9 +1684,11 @@ INT8_MODELS = {"deit_small": 37, "swin_tiny": 40}
 # each block's attention, every one "mma" on the long row (S = 1025); K5 at
 # qkv, proj, fc1 and fc2 of the 24 blocks and at the head, fc2's on
 # "wgmma_codes" (INT8_ROUTES) and the rest on "wgmma"; no fake-quant Linear
-# site is left for K4 or K6
+# site is left for K4 or K6; K7 at each block's three LayerNorms (the
+# sub-LN over 2730 on its "block" layout) and fc_norm
 EVA_MODEL, EVA_BATCH = "eva02_large_448", 4
 EVA_LAUNCHES = {"K1": 24, "K2": 0, "K3": 0, "K4": 0, "K5": 97, "K6": 0}
+EVA_K7 = {"warp": 49, "block": 24}
 EVA_K5_VARIANTS = {"wgmma": 73, "wgmma_codes": 24, "mma": 0}
 # int8 serving settings: (name, use_pallas, use_pallas_gemm)
 INT8_SETTINGS = (("int8 + attention kernel", True, False),
@@ -1601,10 +1704,32 @@ def wrappers(fq_attn, fq_gemm):
 
 
 def zero_launches(fq_attn, fq_gemm):
-    for w in wrappers(fq_attn, fq_gemm).values():
+    """K1-K7's launch counts to 0, by variant too."""
+    from adalog_tpu_torch.ops.layer_norm import layer_norm_rows
+
+    for w in (*wrappers(fq_attn, fq_gemm).values(), layer_norm_rows):
         w.launches = 0
         for v in w.variant_launches:
             w.variant_launches[v] = 0
+
+
+def k7_launches():
+    """K7's launches since the counts were last set to 0 (read apart from
+    read_launches' K1-K6, whose counts every path asserts whole)."""
+    from adalog_tpu_torch.ops.layer_norm import layer_norm_rows
+
+    return layer_norm_rows.launches
+
+
+def check_k7(want, tag):
+    """K7 took every LayerNorm of a served path: ``want`` launches since
+    the counts were last set to 0."""
+    from adalog_tpu_torch.ops.layer_norm import layer_norm_rows
+
+    got = k7_launches()
+    print(f"serving path {tag}: K7 launches {got} (want {want}), by layout "
+          f"{layer_norm_rows.variant_launches}")
+    check(got == want, f"{tag}: K7 launches {got} != {want}")
 
 
 def k5_variants():
@@ -1768,6 +1893,8 @@ def serve_checked(torch, fq_attn, fq_gemm, device, spec, model, qstate, ckpt,
               f"{fq_attn.fq_flash_attn.variant_launches}, K4 "
               f"{fq_gemm.fq_gemm.variant_launches}")
         check(got == want, f"{tag} '{setting}' launches {got} != {want}")
+        check_k7(MODELS[name]["K7"] * N_BATCHES * 2, f"{tag} '{setting}'")
+        got["K7"] = k7_launches()
         for k, wrapper in (("K1", fq_attn.fq_flash_attn),
                            ("K4", fq_gemm.fq_gemm)):
             by_variant = wrapper.variant_launches
@@ -2109,9 +2236,12 @@ def calibration_phase(torch, fq_attn, fq_gemm, device, ckpt_dir):
             torch, spec, model, images, device)
         peak = torch.cuda.max_memory_allocated(device)
         got = read_launches(fq_attn, fq_gemm)
-        print(f"calibration {CALIB_MODEL} ({run}): kernel launches {got} "
-              f"(want K6 0: calibration enters no plan)")
+        print(f"calibration {CALIB_MODEL} ({run}): kernel launches {got}, "
+              f"K7 {k7_launches()} (want K6 and K7 0: calibration enters "
+              "no plan)")
         check(got["K6"] == 0, f"calibration launched K6 {got['K6']} times")
+        check(k7_launches() == 0,
+              f"calibration launched K7 {k7_launches()} times")
         runs.append(dict(wall_s=wall, peak_bytes=peak, seconds=calib.seconds))
         print(f"calibration {CALIB_MODEL} W4A4 ({run}): wall {wall:.2f} s "
               f"(capture {calib.seconds['capture']:.2f} s; searches "
@@ -2207,7 +2337,8 @@ def cut_spec(name, depth):
     cut = dataclasses.replace(spec, name=f"{name}_d{depth}",
                               cfg=dataclasses.replace(spec.cfg, depth=depth))
     zoo.MODEL_ZOO[cut.name] = cut
-    MODELS[cut.name] = {"K1": depth, "K4": 4 * depth + 1}
+    MODELS[cut.name] = {"K1": depth, "K4": 4 * depth + 1,
+                        "K7": 2 * depth + 1}
     INT8_MODELS[cut.name] = 3 * depth + 1
     return cut
 
@@ -2274,7 +2405,8 @@ def bits_phase(torch, fq_attn, fq_gemm, device, ckpt_dir, start):
                                - y_raw) ** 2).item()
 
     line = card_line()
-    launches = {k: 0 for k in ("K1", "K2", "K3", "K4", "K5", "K6")}
+    launches = {k: 0 for k in ("K1", "K2", "K3", "K4", "K5", "K6",
+                               "K7")}
     worst = {"K1": 0.0, "K4": 0.0, "K5": 0.0}
     base_cfg = load_config(os.path.join(root, "configs", BITS_BASELINE))
     params, qstate, _, wall, _ = calibrate_on(torch, spec, model, images,
@@ -2376,8 +2508,11 @@ def bits_phase(torch, fq_attn, fq_gemm, device, ckpt_dir, start):
 # rounds its fp32 products and sums, so the two differ by that rounding
 # (ATOL + INT8_BLOCK_RTOL * |ref|, at most FLIP_SHARE of the outputs past
 # it and none by more than INT8_BLOCK_MAX); the exported program against
-# the plain predictor on the card within EXPORT_ATOL (the same ops; a last
-# bit apart anywhere would move W4A4 codes and whole logits)
+# the eager forward it was traced from, on the card, within EXPORT_ATOL
+# (the same ops; a last bit apart anywhere would move W4A4 codes and whole
+# logits). A predictor is no such reference: it runs K7, which torch.export
+# cannot trace and whose sums round otherwise than the eager chain's, so
+# its distance is printed, not held
 INT8_BLOCK_RTOL = 2e-5
 INT8_BLOCK_MAX = 1e-3
 EXPORT_ATOL = 1e-5
@@ -2462,6 +2597,8 @@ def serve_int8(torch, fq_attn, fq_gemm, device, spec, ckpt, batches, tag,
               f"{n_fc2 if gemm else 0}, K5 {n_int8}, K6 "
               f"{0 if gemm else n_fc2} per batch: {want})")
         check(got == want, f"{tag} '{setting}' launches {got} != {want}")
+        check_k7(MODELS[name]["K7"] * runs, f"{tag} '{setting}'")
+        got["K7"] = k7_launches()
         print(f"serving path {tag} '{setting}': K5 by variant "
               f"{k5_variants()}")
         check_k5_variants(want["K5"], f"{tag} '{setting}'")
@@ -2489,6 +2626,7 @@ def eva_int8_serving(torch, fq_attn, fq_gemm, device, ckpt_dir,
     from adalog_tpu_torch.models.eva import EvaTransformer
     from adalog_tpu_torch.models.load import load_state_dict
     from adalog_tpu_torch.models.zoo import model_spec
+    from adalog_tpu_torch.ops.layer_norm import layer_norm_rows
     from adalog_tpu_torch.serve import load_quantized
     from adalog_tpu_torch.utils.checkpoint import save_checkpoint
 
@@ -2541,6 +2679,11 @@ def eva_int8_serving(torch, fq_attn, fq_gemm, device, ckpt_dir,
           f"({seen.most[0]} elements; the (B*H, S, S) logits would hold "
           f"{logits})")
     check(got == EVA_LAUNCHES, f"{name}: launches {got} != {EVA_LAUNCHES}")
+    check_k7(sum(EVA_K7.values()), f"{name} int8 float32")
+    check(layer_norm_rows.variant_launches == EVA_K7,
+          f"{name}: K7 by layout {layer_norm_rows.variant_launches} != "
+          f"{EVA_K7}")
+    got = dict(got, K7=k7_launches())
     check(k1 == {"mma": got["K1"], "fma": 0} and long_rows == got["K1"],
           f"{name}: K1 by variant {k1}, {long_rows} long rows")
     check(k5_variants() == EVA_K5_VARIANTS,
@@ -2567,14 +2710,17 @@ def int8_phase(torch, fq_attn, fq_gemm, device, ckpt_dir, start):
     from adalog_tpu_torch.serve import make_predictor
     from adalog_tpu_torch.utils.checkpoint import save_checkpoint
     from adalog_tpu_torch.utils.diagnostics import site_error_report
-    from adalog_tpu_torch.utils.export import export_quantized, load_exported
+    from adalog_tpu_torch.utils.export import (
+        export_quantized, load_exported, make_serving_fn,
+    )
 
     line = card_line()
     numbers, worst = int8_kernel_phase(torch, device)
     spec, (params, qstate) = start["spec"], start.pop("served")
     cfg = spec.cfg
     x = torch.from_numpy(start["held_out"]).to(device)
-    launches = {k: 0 for k in ("K1", "K2", "K3", "K4", "K5", "K6")}
+    launches = {k: 0 for k in ("K1", "K2", "K3", "K4", "K5", "K6",
+                               "K7")}
     block_worst = 0.0
     for name in ("deit_small", "swin_tiny"):
         if name == CALIB_MODEL:
@@ -2629,14 +2775,19 @@ def int8_phase(torch, fq_attn, fq_gemm, device, ckpt_dir, start):
     blob = export_quantized(spec, params, qstate, BATCH, device=device)
     t_export = time.perf_counter() - t0
     y = load_exported(blob)(start["held_out"])
-    want = make_predictor(spec, params, qstate, cfg=quant_config(),
-                          use_kernels=False, device=device)(x)
+    with torch.no_grad():
+        want = make_serving_fn(spec, params, qstate, device=device)(x)
+    served = make_predictor(spec, params, qstate, cfg=quant_config(),
+                            use_kernels=False, device=device)(x)
     torch.cuda.synchronize()
     diff = (y - want).abs().max().item()
+    agree = (y.argmax(-1) == served.argmax(-1)).float().mean().item()
     print(f"export {CALIB_MODEL} calibrated, batch {BATCH}: {len(blob)} "
           f"bytes in {t_export:.2f} s; loaded on the card, logits vs the "
-          f"plain predictor max|diff| {diff:.3e} (allowed {EXPORT_ATOL}); "
-          f"{line}")
+          f"eager forward max|diff| {diff:.3e} (allowed {EXPORT_ATOL}); vs "
+          f"the plain predictor (K6, K7) max|diff| "
+          f"{(y - served).abs().max().item():.3e}, top-1 agreement "
+          f"{agree:.4f} (reported); {line}")
     check(tuple(y.shape) == (BATCH, cfg.num_classes)
           and y.device == want.device,
           f"exported logits {tuple(y.shape)} on {y.device}")
@@ -3027,6 +3178,7 @@ def reconstruction_phase(torch, fq_attn, fq_gemm, device, ckpt_dir, start):
         torch, spec, start["params"], start["model"], start["qstate"],
         calib.layout, batches, device, RECON_ITERS)
     got = read_launches(fq_attn, fq_gemm)
+    got["K7"] = k7_launches()
     print(f"reconstruction {CALIB_MODEL}: kernel launches during training "
           f"{got} (want every one 0)")
     check(not any(got.values()), f"kernels launched in training: {got}")
@@ -4108,11 +4260,13 @@ def main(argv):
                                                              device)
     mm = matmul_kernel_phase(torch, fq_attn, device)
     k6 = fq_act_kernel_phase(torch, fq_act, device)
+    k7 = layer_norm_kernel_phase(torch, device)
     # the main paths, each driven with the counts at 0 just before and read
     # just after: serving each model with the attention and GEMM kernels
     # (K1, K4), the three configurations that reach K2 and K3, and the
     # calibrated deit_small served
-    launches = {k: 0 for k in ("K1", "K2", "K3", "K4", "K5", "K6")}
+    launches = {k: 0 for k in ("K1", "K2", "K3", "K4", "K5", "K6",
+                               "K7")}
     block_worst = {k: 0.0 for k in launches}
 
     def add(got, errs):
@@ -4233,7 +4387,18 @@ def main(argv):
          **{key: sum(r[key] for r in k6.values())
             for key in ("ms", "ms_back_to_back", "ms_graph", "plain_ms",
                         "bound_ms")},
-         "bound_by": "bytes", "library_ms": None}]}))
+         "bound_by": "bytes", "library_ms": None},
+        # K7: times summed over LN_SHAPES (fp32); it replaces no TPU kernel
+        # (XLA fuses LayerNorm); library_ms is F.layer_norm, a yardstick
+        # the port never calls
+        {"name": "layer_norm_rows", "route": "cuda",
+         "source": "adalog_tpu_torch/csrc/layer_norm.cu", "replaces": None,
+         "launches": launches["K7"],
+         "max_rel_err": max(r["max_rel_err"] for r in k7.values()),
+         **{key: sum(r[key] for r in k7.values())
+            for key in ("ms", "ms_back_to_back", "ms_graph", "plain_ms",
+                        "bound_ms", "library_ms")},
+         "bound_by": "bytes"}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

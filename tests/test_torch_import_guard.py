@@ -41,7 +41,7 @@ print("imported", sys.argv[1])
     "adalog_tpu_torch.utils.metrics", "adalog_tpu_torch.utils.ref_checkpoint",
     "adalog_tpu_torch.utils.profiling", "adalog_tpu_torch.utils.checkpoint",
     "adalog_tpu_torch.ops.int8_linear", "adalog_tpu_torch.ops.fq_act",
-    "adalog_tpu_torch.ops.routes",
+    "adalog_tpu_torch.ops.routes", "adalog_tpu_torch.ops.layer_norm",
     "adalog_tpu_torch.utils.diagnostics",
     "adalog_tpu_torch.utils.export", "adalog_tpu_torch.parallel.mesh",
     "adalog_tpu_torch.parallel.tp", "adalog_tpu_torch.quantizers.state",
